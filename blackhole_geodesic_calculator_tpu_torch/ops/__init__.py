@@ -1,1 +1,2 @@
-"""States, geodesic right-hand sides, the integrator and its CUDA kernel."""
+"""States, geodesic right-hand sides, the integrator, its hand-written
+adjoint and its CUDA kernels."""

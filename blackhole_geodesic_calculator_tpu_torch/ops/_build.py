@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source under ``csrc/`` into one shared
-library with a plain C interface, under ``build/kernels/<hash>/`` at the
-root of the checkout; the hash covers the sources and the flags, so an
-edited source rebuilds and an unchanged one is reused.  The library is
-loaded with ``ctypes``.  Nothing here runs at import time, and a failed
-build raises: there is no fallback to the plain PyTorch path.
+At first use, ``nvcc`` compiles every source under ``csrc/`` into an object
+file -- one compiler process per source, all started together -- and links
+them into one shared library with a plain C interface, under
+``build/kernels/<hash>/`` at the root of the checkout; the hash covers the
+sources, the headers they include and the flags, so an edited source
+rebuilds and an unchanged one is reused.  The library is loaded with
+``ctypes``.  Nothing here runs at import time, and a failed build raises:
+there is no fallback to the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "libbhgc_kernels.so"
 
 _lib: ctypes.CDLL | None = None
@@ -48,33 +50,50 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands at once; (command, exit code, output) for each."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    return [(cmd, proc.returncode, out)
+            for cmd, proc, (out, _) in zip(cmds, procs,
+                                           (p.communicate() for p in procs))]
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path.
 
-    The compiler's output, including ``-Xptxas=-v``'s registers and spills
+    The compilers' output, including ``-Xptxas=-v``'s registers and spills
     per kernel, is kept beside the library as ``build.log``."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    tmp = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        objs = [tmp / (src.stem + ".o") for src in _sources()]
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(_sources(), objs)])
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc, "-shared", "-o", str(tmp / LIB_NAME),
+                               *map(str, objs)]])
+        (out.parent / "build.log").write_text("".join(
+            " ".join(cmd) + "\n" + text for cmd, _, text in runs))
+        failed = [(cmd, rc, text) for cmd, rc, text in runs if rc != 0]
+        if failed:
+            cmd, rc, text = failed[0]
+            raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n"
+                               f"{text[-4000:]}")
+        os.replace(tmp / LIB_NAME, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -91,5 +110,15 @@ def load() -> ctypes.CDLL:
         # n, n_steps, power, stream
         lib.bhgc_rk4_fwd.argtypes = [vp] * 10 + [i32, i32, f32, vp]
         lib.bhgc_rk4_fwd.restype = i32
+        # as bhgc_rk4_fwd, then cx, cp, clam, cst before n, n_steps, seg,
+        # power, stream
+        lib.bhgc_rk4_ckpt.argtypes = [vp] * 14 + [i32, i32, i32, f32, vp]
+        lib.bhgc_rk4_ckpt.restype = i32
+        # scal, cx, cp, clam, cst, E, gx, gp, bx, bp, bE, partial, gscal,
+        # n, n_steps, seg, power, stream
+        lib.bhgc_rk4_bwd.argtypes = [vp] * 13 + [i32, i32, i32, f32, vp]
+        lib.bhgc_rk4_bwd.restype = i32
+        lib.bhgc_rk4_bwd_blocks.argtypes = [i32]
+        lib.bhgc_rk4_bwd_blocks.restype = i32
         _lib = lib
     return _lib

@@ -1,0 +1,94 @@
+// Checkpointing forward of the gradient path, for Hopper (sm_90a).
+//
+// CUDA counterpart of `_fwd_ckpt_kernel` in
+// blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py (:1201-1252), in
+// its Schwarzschild, event-free variant.  One thread per ray runs the same
+// step as the forward kernel (rk4_step.cuh), so its final state equals
+// rk4_fwd's, and before steps 0, seg, 2 seg, ... it writes the ray's
+// (x, p, lam, status) to row s of the checkpoint tensors (n_seg, n, ...).
+// A ray that has frozen keeps writing its frozen state at the later
+// segment starts, as the TPU kernel fills them, so the adjoint (rk4_bwd.cu)
+// can skip those segments by their status.  Steps at or past n_steps
+// (the tail of a partial last segment) are not run.
+//
+// Bound: like rk4_fwd, the FP32 pipes and warp divergence; the checkpoints
+// add n_seg x 32 bytes of writes per ray (235 MB at the 1024^2 flagship,
+// n_seg = 7), a small share of the card's bandwidth over the kernel's time.
+//
+// Plain C interface (loaded with ctypes): `bhgc_rk4_ckpt` launches on the
+// given stream and returns cudaGetLastError() as an int.
+
+#include "rk4_step.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int PMODE>
+__global__ void __launch_bounds__(kThreads)
+    rk4_ckpt_kernel(const float* __restrict__ scal,
+                    const float* __restrict__ x_in,
+                    const float* __restrict__ p_in,
+                    const float* __restrict__ E_in,
+                    const float* __restrict__ lam_in,
+                    const int* __restrict__ st_in, float* __restrict__ x_out,
+                    float* __restrict__ p_out, float* __restrict__ lam_out,
+                    int* __restrict__ st_out, float* __restrict__ cx,
+                    float* __restrict__ cp, float* __restrict__ clam,
+                    int* __restrict__ cst, int n, int n_steps, int seg,
+                    float power) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  const Scalars sc = load_scalars(scal);
+  const long long j = 3LL * i;
+  Ray r;
+  r.x0 = x_in[j]; r.x1 = x_in[j + 1]; r.x2 = x_in[j + 2];
+  r.p0 = p_in[j]; r.p1 = p_in[j + 1]; r.p2 = p_in[j + 2];
+  r.lam = lam_in[i];
+  r.status = st_in[i];
+  const float E = E_in[i];
+
+  const int n_seg = (n_steps + seg - 1) / seg;
+  for (int s = 0; s < n_seg; ++s) {
+    const long long k = static_cast<long long>(s) * n + i;
+    cx[3 * k] = r.x0; cx[3 * k + 1] = r.x1; cx[3 * k + 2] = r.x2;
+    cp[3 * k] = r.p0; cp[3 * k + 1] = r.p1; cp[3 * k + 2] = r.p2;
+    clam[k] = r.lam;
+    cst[k] = r.status;
+    // enabled = s seg + step < n_steps (pallas_kernel.py:1233)
+    const int len = min(seg, n_steps - s * seg);
+    for (int step = 0; step < len && r.status == kActive; ++step) {
+      rk4_step<PMODE>(sc, power, E, r);
+    }
+  }
+
+  x_out[j] = r.x0; x_out[j + 1] = r.x1; x_out[j + 2] = r.x2;
+  p_out[j] = r.p0; p_out[j + 1] = r.p1; p_out[j + 2] = r.p2;
+  lam_out[i] = r.lam;
+  st_out[i] = r.status;
+}
+
+}  // namespace
+
+extern "C" int bhgc_rk4_ckpt(const void* scal, const void* x, const void* p,
+                             const void* E, const void* lam, const void* st,
+                             void* x_out, void* p_out, void* lam_out,
+                             void* st_out, void* cx, void* cp, void* clam,
+                             void* cst, int n, int n_steps, int seg,
+                             float power, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  with_power_mode(power, [&](auto mode) {
+    rk4_ckpt_kernel<decltype(mode)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(scal), static_cast<const float*>(x),
+            static_cast<const float*>(p), static_cast<const float*>(E),
+            static_cast<const float*>(lam), static_cast<const int*>(st),
+            static_cast<float*>(x_out), static_cast<float*>(p_out),
+            static_cast<float*>(lam_out), static_cast<int*>(st_out),
+            static_cast<float*>(cx), static_cast<float*>(cp),
+            static_cast<float*>(clam), static_cast<int*>(cst), n, n_steps,
+            seg, power);
+  });
+  return static_cast<int>(cudaGetLastError());
+}

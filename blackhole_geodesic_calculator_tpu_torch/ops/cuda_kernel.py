@@ -1,64 +1,119 @@
-"""The forward geodesic integrator as a hand-written CUDA kernel.
+"""The geodesic integrator as hand-written CUDA kernels, with its gradient.
 
 Counterpart of ``blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py``:
-``integrate_cuda`` plays the part of ``integrate_pallas`` and launches
-``csrc/rk4_fwd.cu``, which replaces the TPU kernel ``_fwd_fast_kernel``
-(pallas_kernel.py:1159) in its Schwarzschild, event-free variant.
+``integrate_cuda`` plays the part of ``integrate_pallas``.  With no
+gradient recorded it launches ``csrc/rk4_fwd.cu``; under autograd it runs
+``RK4Adjoint``, whose forward launches ``csrc/rk4_ckpt.cu`` and whose
+backward launches ``csrc/rk4_bwd.cu`` -- the ``jax.custom_vjp`` of
+``_build`` (pallas_kernel.py:1467-1491).  All three run the step of
+``csrc/rk4_step.cuh``.
 
 Source note
 -----------
-* **Replaces** ``_fwd_fast_kernel`` (pallas_kernel.py:1159-1198) built by
-  ``_build(...).fwd_fast`` (:1399-1415): fixed-step RK4 on the 6-ODE
-  Hamiltonian system, each step ``_soa_step`` with ``_dt_soa``,
-  ``_rhs_schw_soa`` and the event-free part of ``_events_merge``.
-* **What bounds it on an H100.** Scalar float32 arithmetic: about 282
-  operations per ray-step (4 RHS evaluations with one ``rsqrtf`` each, the
-  step-size schedule and the endpoint test) against 36 bytes of ray state
-  read once and 32 bytes written once per ray, whatever the step count.
-  At the flagship's up to 100 steps that is thousands of operations per
-  byte, far above the card's balance point, so it is bound by the FP32
+* **Replaces** the three TPU kernels of the Schwarzschild, event-free step
+  (``_soa_step`` with ``_dt_soa``, ``_rhs_schw_soa`` and the event-free part
+  of ``_events_merge``):
+
+  - ``_fwd_fast_kernel`` (pallas_kernel.py:1159-1198), built by
+    ``_build(...).fwd_fast`` (:1399-1415) -> ``rk4_fwd``;
+  - ``_fwd_ckpt_kernel`` (:1201-1252), built by ``_build(...).fwd_ckpt``
+    (:1417-1436) -> ``rk4_ckpt``;
+  - ``_bwd_kernel`` (:1258-1357) with ``_step_adjoint`` (:1025-1153), built
+    by ``_build(...).bwd_call`` (:1438-1465) -> ``rk4_bwd``.
+* **What bounds them on an H100.** Scalar float32 arithmetic: about 282
+  operations per ray-step forward (4 RHS evaluations with one ``rsqrtf``
+  each, the step-size schedule and the endpoint test), about four times
+  that per taped step backward, against 36 bytes of ray state read once and
+  32 written once per ray, plus 32 bytes per ray and segment of checkpoints.
+  At the flagship's up to 100 steps that is hundreds of operations per byte
+  or more, far above the card's balance point, so they are bound by the FP32
   pipes and by warp divergence: a warp runs until its slowest ray ends.
 * **What the design does about it.** One thread per ray with the whole
-  state and the four RK4 stages in registers; nothing is staged through
-  shared memory and no step touches device memory.  The TPU kernel's
-  16-step chunks with a tile-wide "any ray ACTIVE" skip become a per-thread
-  loop exit as soon as the thread's own ray leaves ACTIVE, which is exact
-  because a frozen ray is an identity under the step.  The TPU-only
-  machinery is not carried over: the 128-lane row layout, the ERROR padding
-  rays and the VMEM tile sizing.  The cost-ordered tiling changes no output
-  and is left to a measurement on the card.
+  state and the four RK4 stages in registers.  The TPU kernels' tile-wide
+  "any ray ACTIVE" skips become per-thread exits as soon as the thread's
+  own ray leaves ACTIVE, which is exact because a frozen ray is an identity
+  under the step.  The adjoint recomputes one segment at a time onto a
+  per-thread tape in local memory and sweeps it backwards; it never
+  differentiates a frozen step, so it needs none of the TPU wrapper's
+  far-away ERROR padding rays.  Its scalar cotangents are summed per block
+  in a fixed tree and then across blocks in a fixed order, so they are the
+  same bit for bit from run to run.  The TPU-only machinery is not carried
+  over: the 128-lane row layout, the padding and the VMEM tile sizing.  The
+  cost-ordered tiling changes no output and is left to a measurement.
 
-``integrate_plain`` is the plain PyTorch version of the same function (the
-step loop of ops/integrate.py); it shares no code with the kernel.
-``integrate`` takes it only for tensors on the CPU.
+``integrate_plain`` is the plain PyTorch version of ``integrate_cuda``
+(ops/integrate.py's step loops, ``integrate_fixed`` under autograd) and
+``integrate_ckpt_plain`` that of the checkpoints; they share no code with
+the kernels.  ``integrate`` takes them only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import _build
-from .integrate import GeodesicEnv, IntegratorConfig, integrate_fixed_fast
+from .integrate import (
+    GeodesicEnv,
+    IntegratorConfig,
+    _fixed_step,
+    integrate_fixed,
+    integrate_fixed_fast,
+    needs_grad,
+)
 from .states import RayState
 
 NSCAL = 10
+MAX_SEG = 64   # the adjoint's tape length (csrc/rk4_bwd.cu kMaxSeg)
 
-# Kernel launches since import (or since a caller reset it); goes up by one
-# in integrate_cuda right where the kernel is launched, and nowhere else.
-LAUNCHES = 0
+# Launches of each kernel since import (or since a caller reset them); each
+# goes up by one in its wrapper right where the kernel is launched, and
+# nowhere else.
+LAUNCHES = 0        # rk4_fwd
+LAUNCHES_CKPT = 0   # rk4_ckpt
+LAUNCHES_BWD = 0    # rk4_bwd
 
 
 def integrate_plain(env: GeodesicEnv, s0: RayState,
                     cfg: IntegratorConfig) -> RayState:
-    """Plain PyTorch version of ``integrate_cuda``: the RK4 step loop."""
+    """Plain PyTorch version of ``integrate_cuda``: the checkpointed step
+    loop when autograd records the call, the early-exit loop otherwise."""
+    if needs_grad(env, s0):
+        return integrate_fixed(env, s0, cfg)
     return integrate_fixed_fast(env, s0, cfg)
+
+
+def segment(n_steps: int) -> int:
+    """Steps between checkpoints of the gradient kernels: the TPU wrapper's
+    rule (pallas_kernel.py:1519-1526), 16 doubled while seg^2 < n_steps,
+    up to the adjoint's tape of MAX_SEG steps."""
+    seg = 16
+    while seg * seg < n_steps and seg < MAX_SEG:
+        seg *= 2
+    return seg
+
+
+def integrate_ckpt_plain(env: GeodesicEnv, s0: RayState,
+                         cfg: IntegratorConfig,
+                         seg: int) -> tuple[RayState, list[RayState]]:
+    """Plain PyTorch version of ``rk4_ckpt``: the final state and the
+    states before steps 0, seg, 2 seg, ... of the step loop."""
+    s, ckpts = s0, []
+    for step in range(cfg.n_steps):
+        if step % seg == 0:
+            ckpts.append(s)
+        s = _fixed_step(env, cfg, s)
+    return s, ckpts
 
 
 def _scalars(env: GeodesicEnv, cfg: IntegratorConfig,
              device: torch.device) -> torch.Tensor:
     """The (NSCAL,) float32 device vector, TPU kernel layout:
     [mass, dt, dt_boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out, a].
-    Tensor entries (mass, r_escape) stay on the device."""
+    Tensor entries (mass, r_escape) stay on the device and in the autograd
+    graph: the mass cotangent of rk4_bwd reaches ``env.mass`` through entry
+    0, and through entry 3 when r_ref defaults to 6 M."""
     r_ref = cfg.dt_boost_r_ref or 6.0 * env.mass
     boost = cfg.dt_boost if cfg.dt_boost > 1.0 else 1.0
     vals = (env.mass, cfg.dt, boost, r_ref, env.r_capture, env.r_escape,
@@ -75,19 +130,12 @@ def _check_slice(env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig):
             "(_fwd_dopri_kernel and its gradient pair), not ported yet")
     if env.spin is not None:
         raise NotImplementedError(
-            "spin on CUDA needs the Kerr variant of the forward kernel, "
+            "spin on CUDA needs the Kerr variant of the integrator kernels, "
             "not ported yet")
     if env.disk is not None or env.spheres is not None:
         raise NotImplementedError(
             "disk or sphere events on CUDA need the event variants of the "
-            "forward kernel, not ported yet")
-    leaves = (s0.x, s0.p, s0.E, s0.lam, env.mass, env.r_capture,
-              env.r_escape, env.lam_max)
-    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in leaves):
-        raise NotImplementedError(
-            "gradients through the CUDA integrator need the checkpointed "
-            "forward (_fwd_ckpt_kernel) and adjoint (_bwd_kernel) kernels, "
-            "not ported yet")
+            "integrator kernels, not ported yet")
 
 
 def _flat(t: torch.Tensor, batch, tail, dtype, name) -> torch.Tensor:
@@ -101,50 +149,151 @@ def _flat(t: torch.Tensor, batch, tail, dtype, name) -> torch.Tensor:
     return t.reshape((-1,) + tail).contiguous()
 
 
+def _check_device(x: torch.Tensor, **others: torch.Tensor) -> None:
+    """``x`` on a CUDA device and every other tensor on the same one."""
+    if not x.is_cuda:
+        raise ValueError("integrate_cuda needs tensors on a CUDA device; "
+                         f"got {x.device}")
+    for name, t in others.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+def rk4_fwd(scal, x, p, E, lam, st, n_steps: int, power: float):
+    """Launch rk4_fwd on flat (n, 3) / (n,) tensors; returns
+    (x, p, lam, status) after ``n_steps`` steps."""
+    global LAUNCHES
+    x_out, p_out = torch.empty_like(x), torch.empty_like(p)
+    lam_out, st_out = torch.empty_like(lam), torch.empty_like(st)
+    n = E.numel()
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _build.load().bhgc_rk4_fwd(
+                scal.data_ptr(), x.data_ptr(), p.data_ptr(), E.data_ptr(),
+                lam.data_ptr(), st.data_ptr(), x_out.data_ptr(),
+                p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
+                n, n_steps, power, _stream(x.device))
+        _raise_on(rc, "rk4_fwd")
+        LAUNCHES += 1
+    return x_out, p_out, lam_out, st_out
+
+
+def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float):
+    """Launch rk4_ckpt on flat tensors; returns the final (x, p, lam,
+    status) and the checkpoints (cx, cp, clam, cst), each of leading
+    dimension n_seg = ceil(n_steps / seg)."""
+    global LAUNCHES_CKPT
+    n = E.numel()
+    n_seg = -(-n_steps // seg)
+    x_out, p_out = torch.empty_like(x), torch.empty_like(p)
+    lam_out, st_out = torch.empty_like(lam), torch.empty_like(st)
+    cx = x.new_empty((n_seg, n, 3))
+    cp = p.new_empty((n_seg, n, 3))
+    clam = lam.new_empty((n_seg, n))
+    cst = st.new_empty((n_seg, n))
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _build.load().bhgc_rk4_ckpt(
+                scal.data_ptr(), x.data_ptr(), p.data_ptr(), E.data_ptr(),
+                lam.data_ptr(), st.data_ptr(), x_out.data_ptr(),
+                p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
+                cx.data_ptr(), cp.data_ptr(), clam.data_ptr(), cst.data_ptr(),
+                n, n_steps, seg, power, _stream(x.device))
+        _raise_on(rc, "rk4_ckpt")
+        LAUNCHES_CKPT += 1
+    return x_out, p_out, lam_out, st_out, (cx, cp, clam, cst)
+
+
+def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float):
+    """Launch rk4_bwd: the cotangents (x, p, E) of the initial state and
+    the (NSCAL,) scalar cotangent, from the checkpoints of rk4_ckpt and
+    the cotangents ``gx``, ``gp`` of the final (x, p)."""
+    global LAUNCHES_BWD
+    if not 1 <= seg <= MAX_SEG:
+        raise ValueError(f"seg={seg} outside the adjoint's tape "
+                         f"(1..{MAX_SEG} steps)")
+    cx, cp, clam, cst = ckpts
+    n = E.numel()
+    bx, bp = torch.empty_like(gx), torch.empty_like(gp)
+    bE = torch.empty_like(E)
+    gscal = torch.zeros(NSCAL, dtype=torch.float32, device=E.device)
+    if n:
+        lib = _build.load()
+        partial = E.new_empty((lib.bhgc_rk4_bwd_blocks(n), 4))
+        with torch.cuda.device(E.device):
+            rc = lib.bhgc_rk4_bwd(
+                scal.data_ptr(), cx.data_ptr(), cp.data_ptr(),
+                clam.data_ptr(), cst.data_ptr(), E.data_ptr(),
+                gx.data_ptr(), gp.data_ptr(), bx.data_ptr(), bp.data_ptr(),
+                bE.data_ptr(), partial.data_ptr(), gscal.data_ptr(), n,
+                n_steps, seg, power, _stream(E.device))
+        _raise_on(rc, "rk4_bwd")
+        LAUNCHES_BWD += 1
+    return bx, bp, bE, gscal
+
+
+class RK4Adjoint(torch.autograd.Function):
+    """(x, p, E, scal) -> final (x, p, lam, status) through rk4_ckpt, with
+    rk4_bwd as the backward: the custom VJP of pallas_kernel.py:1467-1491.
+
+    lam and status are not differentiable; the scalar cotangent has zeros
+    for r_capture, r_escape and lam_max, as the event-free step has no
+    gradient with respect to them."""
+
+    @staticmethod
+    def forward(ctx, x, p, E, scal, lam, st, n_steps, seg, power):
+        x1, p1, lam1, st1, ckpts = rk4_ckpt(scal, x, p, E, lam, st, n_steps,
+                                            seg, power)
+        ctx.save_for_backward(scal, E, *ckpts)
+        ctx.schedule = (n_steps, seg, power)
+        ctx.mark_non_differentiable(lam1, st1)
+        return x1, p1, lam1, st1
+
+    @staticmethod
+    def backward(ctx, gx, gp, _glam, _gst):
+        scal, E, *ckpts = ctx.saved_tensors
+        n = E.numel()
+        gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
+        gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
+        bx, bp, bE, gscal = rk4_bwd(scal, ckpts, E, gx, gp, *ctx.schedule)
+        return bx, bp, bE, gscal, None, None, None, None, None
+
+
 def integrate_cuda(env: GeodesicEnv, s0: RayState,
                    cfg: IntegratorConfig) -> RayState:
-    """Integrate ``s0`` with the CUDA kernel; any batch shape.
+    """Integrate ``s0`` with the CUDA kernels; any batch shape.
 
     Same env/state/config as ``integrate_plain``; the result is the state
-    after ``cfg.n_steps`` steps (rays frozen at their termination)."""
-    global LAUNCHES
+    after ``cfg.n_steps`` steps (rays frozen at their termination).  When
+    autograd records the call it goes through ``RK4Adjoint`` (rk4_ckpt, and
+    rk4_bwd in the backward); otherwise through rk4_fwd."""
     _check_slice(env, s0, cfg)
     batch = s0.E.shape
-    device = s0.x.device
-    n = s0.E.numel()
-    if n >= 2**31:
-        raise ValueError(f"too many rays for one launch: {n}")
+    if s0.E.numel() >= 2**31:
+        raise ValueError(f"too many rays for one launch: {s0.E.numel()}")
     x = _flat(s0.x, batch, (3,), torch.float32, "x")
     p = _flat(s0.p, batch, (3,), torch.float32, "p")
     E = _flat(s0.E, batch, (), torch.float32, "E")
     lam = _flat(s0.lam, batch, (), torch.float32, "lam")
     st = _flat(s0.status, batch, (), torch.int32, "status")
-    if not x.is_cuda:
-        raise ValueError("integrate_cuda needs tensors on a CUDA device; "
-                         f"got {device}")
-    for name, t in (("p", p), ("E", E), ("lam", lam), ("status", st)):
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, x on {device}")
-    scal = _scalars(env, cfg, device)
+    _check_device(x, p=p, E=E, lam=lam, status=st)
+    scal = _scalars(env, cfg, x.device)
+    n_steps, power = int(cfg.n_steps), float(cfg.dt_power)
 
-    x_out = torch.empty_like(x)
-    p_out = torch.empty_like(p)
-    lam_out = torch.empty_like(lam)
-    st_out = torch.empty_like(st)
-    if n:
-        lib = _build.load()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.bhgc_rk4_fwd(
-                scal.data_ptr(), x.data_ptr(), p.data_ptr(), E.data_ptr(),
-                lam.data_ptr(), st.data_ptr(), x_out.data_ptr(),
-                p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
-                n, int(cfg.n_steps), float(cfg.dt_power), stream)
-        if rc != 0:
-            raise RuntimeError(f"rk4_fwd kernel launch failed: CUDA error "
-                               f"{rc}")
-        LAUNCHES += 1
-    return RayState(x=x_out.reshape(batch + (3,)),
-                    p=p_out.reshape(batch + (3,)), E=s0.E,
-                    lam=lam_out.reshape(batch),
-                    status=st_out.reshape(batch), hit_obj=s0.hit_obj)
+    if needs_grad(env, s0):
+        x1, p1, lam1, st1 = RK4Adjoint.apply(
+            x, p, E, scal, lam, st, n_steps, segment(n_steps), power)
+    else:
+        x1, p1, lam1, st1 = rk4_fwd(scal, x, p, E, lam, st, n_steps, power)
+    return dataclasses.replace(
+        s0, x=x1.reshape(batch + (3,)), p=p1.reshape(batch + (3,)),
+        lam=lam1.reshape(batch), status=st1.reshape(batch))

@@ -4,13 +4,14 @@ The whole ray batch is stepped at once; every step classifies each ray
 (horizon capture, escape from the domain, affine budget, non-finite state)
 and freezes it in the carry, so a terminated ray is an exact identity under
 all later steps.  ``integrate`` dispatches between the hand-written CUDA
-kernel (ops/cuda_kernel.py) for tensors on a CUDA device and the plain
-PyTorch step loop below for tensors on the CPU.
+kernels (ops/cuda_kernel.py) for tensors on a CUDA device and the plain
+PyTorch step loops below for tensors on the CPU: ``integrate_fixed`` when
+autograd records the call, ``integrate_fixed_fast`` otherwise.
 
-This slice is the forward Schwarzschild path with no disk and no spheres:
-the event geometry dataclasses are carried as data, and a configuration that
-needs disk or sphere events, spin, Dormand-Prince or timelike rays raises
-``NotImplementedError``.
+This slice is the Schwarzschild path with no disk and no spheres, forward
+and backward: the event geometry dataclasses are carried as data, and a
+configuration that needs disk or sphere events, spin, Dormand-Prince or
+timelike rays raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from . import states
 from .geodesic import null_init, schwarzschild_rhs, xdot
@@ -79,10 +81,12 @@ class IntegratorConfig:
     dt: float = 0.1
     method: str = "rk4"          # 'rk4' | 'dopri' (dopri not ported yet)
     mode: str = "scan"           # 'scan' | 'while'; the forward is the same
-    # 'auto': the CUDA kernel for tensors on a CUDA device, the plain
-    # PyTorch loop for tensors on the CPU; 'cuda' / 'torch' force a path.
+    # 'auto': the CUDA kernels for tensors on a CUDA device, the plain
+    # PyTorch loops for tensors on the CPU; 'cuda' / 'torch' force a path.
     backend: str = "auto"
-    remat_segment: int = 0       # 0 -> sqrt(n_steps); used by the gradient path
+    # Checkpoint segment of the plain gradient loop; 0 -> sqrt(n_steps).
+    # The CUDA gradient kernels pick their own (see cuda_kernel.segment).
+    remat_segment: int = 0
     # Per-ray radius-proportional step growth:
     #   dt_eff = dt * clip((r/r_ref)^dt_power, 1, boost)
     dt_boost: float = 8.0
@@ -191,6 +195,50 @@ def integrate_fixed_fast(env: GeodesicEnv, s0: RayState,
             break
         s = _fixed_step(env, cfg, s)
     return s
+
+
+def _steps(env, cfg, n, x, p, E, lam, status, hit_obj):
+    """``n`` steps from the given state, as a function of tensors (the unit
+    ``torch.utils.checkpoint`` recomputes)."""
+    s = RayState(x=x, p=p, E=E, lam=lam, status=status, hit_obj=hit_obj)
+    for _ in range(n):
+        s = _fixed_step(env, cfg, s)
+    return s.x, s.p, s.lam, s.status
+
+
+def integrate_fixed(env: GeodesicEnv, s0: RayState,
+                    cfg: IntegratorConfig) -> RayState:
+    """RK4 step loop for autograd, checkpointed in segments.
+
+    Runs exactly ``cfg.n_steps`` steps: full segments of ``seg`` steps,
+    each under ``torch.utils.checkpoint`` (its activations are recomputed
+    in the backward pass instead of kept), then a tail of
+    ``n_steps % seg`` steps that is not checkpointed.  The forward equals
+    ``integrate_fixed_fast``: a frozen ray is an identity under the step."""
+    seg = cfg.remat_segment or max(1, int(cfg.n_steps ** 0.5))
+    n_full, rem = divmod(cfg.n_steps, seg)
+    x, p, lam, st = s0.x, s0.p, s0.lam, s0.status
+    for _ in range(n_full):
+        args = (env, cfg, seg, x, p, s0.E, lam, st, s0.hit_obj)
+        if seg > 1:
+            x, p, lam, st = torch.utils.checkpoint.checkpoint(
+                _steps, *args, use_reentrant=False)
+        else:
+            x, p, lam, st = _steps(*args)
+    x, p, lam, st = _steps(env, cfg, rem, x, p, s0.E, lam, st, s0.hit_obj)
+    return RayState(x=x, p=p, E=s0.E, lam=lam, status=st,
+                    hit_obj=s0.hit_obj)
+
+
+def needs_grad(env: GeodesicEnv, s0: RayState) -> bool:
+    """Whether autograd records this integration: grad mode is on and an
+    input of the step (state or environment) requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    leaves = (s0.x, s0.p, s0.E, s0.lam, env.mass, env.r_capture,
+              env.r_escape, env.lam_max)
+    return any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in leaves)
 
 
 def _use_cuda(s0: RayState, cfg: IntegratorConfig) -> bool:

@@ -1,1 +1,1 @@
-"""The forward renderer."""
+"""The differentiable renderer."""

@@ -1,9 +1,12 @@
-"""The forward renderer: render(scene, cam) -> image (PyTorch port of
+"""The renderer: render(scene, cam) -> image (PyTorch port of
 render/renderer.py).
 
 Camera ray generation, the batched geodesic integration and shading run
 in turn on the tensors' device; on a CUDA device the integration is the
-hand-written kernel of ops/cuda_kernel.py.
+hand-written kernels of ops/cuda_kernel.py.  The image is differentiable
+with respect to the mass, the camera position and the sky: every step is
+a tensor operation autograd records, the integrator through its
+checkpointed adjoint and the sky lookup through its hand-written backward.
 """
 
 from __future__ import annotations

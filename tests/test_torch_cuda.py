@@ -1,4 +1,5 @@
-"""The CUDA kernel of the PyTorch port against its plain PyTorch version.
+"""The CUDA kernels of the PyTorch port against their plain PyTorch versions:
+rk4_fwd, rk4_ckpt and rk4_bwd, and the gradient of a render through them.
 
 Needs a CUDA device and nvcc, and skips without them.  This file imports
 nothing of JAX, so it also runs where JAX is not installed; the tests'
@@ -30,6 +31,11 @@ pytestmark = pytest.mark.skipif(not torch.cuda.is_available(),
 # within 1e-4 rad (an eighth of the flagship's 7.8e-4 rad pixel).  Both
 # sides are float32 and differ by rsqrtf and fused multiply-adds.
 TOL_X, TOL_P, TOL_DIR = 1e-3, 1e-4, 1e-4
+# Gradients, kernels against autograd of the plain loop: largest |diff| over
+# largest |value|, per cotangent (x, p, E, mass) and, for a whole render,
+# per parameter (mass, camera position, sky).
+TOL_GRAD = 1e-3
+TOL_RENDER_GRAD = 1e-3
 FLAGSHIP = dict(n_steps=100, dt=0.12, dt_boost=64.0, dt_boost_r_ref=1.7,
                 dt_power=1.5)
 DEV = torch.device("cuda")
@@ -81,13 +87,10 @@ def test_kernel_matches_plain_on_cuda(power):
     assert float((2 * torch.asin((chord / 2).clamp(max=1))).max()) <= TOL_DIR
 
 
-@pytest.mark.parametrize("case", ["disk", "spheres", "spin", "dopri",
-                                  "grad"])
+@pytest.mark.parametrize("case", ["disk", "spheres", "spin", "dopri"])
 def test_out_of_slice_raises_on_cuda(case):
     e = env()
     x0, d0 = fan(64, 0)
-    if case == "grad":
-        x0.requires_grad_(True)
     p0, E0 = null_init(x0, d0, e.mass)
     s0 = states.init_state(x0, p0, E0)
     cfg = tint.IntegratorConfig(**FLAGSHIP, backend="cuda")
@@ -108,6 +111,125 @@ def test_out_of_slice_raises_on_cuda(case):
     with pytest.raises(NotImplementedError):
         cuda_kernel.integrate_cuda(e, s0, cfg)
     assert cuda_kernel.LAUNCHES == before
+
+
+def initial_state(e, x0, d0):
+    p0, E0 = null_init(x0, d0, e.mass)
+    s0 = states.init_state(x0, p0, E0)
+    s0.status = s0.status.masked_fill(x0.norm(dim=-1) <= e.r_capture,
+                                      states.INSIDE_HORIZON)
+    return s0
+
+
+@pytest.mark.parametrize("power", [1.5, 1.0, 2.0, 1.3])
+def test_ckpt_matches_fwd_and_the_plain_loop(power):
+    """rk4_ckpt's final state equals rk4_fwd's (the same step code), and its
+    checkpoint rows hold the plain loop's states before steps 0, seg, ...;
+    60 steps leave a partial last segment (60 = 3 x 16 + 12)."""
+    e = env()
+    s0 = initial_state(e, *fan())
+    cfg = tint.IntegratorConfig(**{**FLAGSHIP, "dt_power": power,
+                                   "n_steps": 60})
+    scal = cuda_kernel._scalars(e, cfg, DEV)
+    seg = cuda_kernel.segment(cfg.n_steps)
+    args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
+    before = (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT)
+    fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, power)
+    *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps,
+                                                      seg, power)
+    assert (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(fin, fwd):
+        assert torch.equal(a, b)
+    _, rows = cuda_kernel.integrate_ckpt_plain(e, s0, cfg, seg)
+    assert cx.shape[0] == len(rows) == 4
+    for k, row in enumerate(rows):
+        assert torch.equal(cst[k], row.status)
+        assert float((cx[k] - row.x).abs().max()) <= TOL_X
+        assert float((cp[k] - row.p).abs().max()) <= TOL_P
+        assert float((clam[k] - row.lam).abs().max()) <= TOL_X
+
+
+def cotangents(e, s0, cfg, wx, kernel):
+    """Cotangents of (x, p, E) and the mass for the loss of
+    tests/test_pallas.py:82-92, through the kernels or the plain loop."""
+    mass = e.mass.clone().requires_grad_(True)
+    ee = dataclasses.replace(e, mass=mass)
+    x, p, E = (t.clone().requires_grad_(True) for t in (s0.x, s0.p, s0.E))
+    s = dataclasses.replace(s0, x=x, p=p, E=E)
+    out = (cuda_kernel.integrate_cuda(ee, s, cfg) if kernel
+           else cuda_kernel.integrate_plain(ee, s, cfg))
+    ok = (out.status != states.CAPTURED) & (out.status != states.ERROR)
+    torch.where(ok[..., None], wx * out.x, 0.0).sum().backward()
+    return x.grad, p.grad, E.grad, mass.grad
+
+
+@pytest.mark.parametrize("power,n_steps", [(1.5, 100), (1.5, 40), (1.0, 100),
+                                           (2.0, 100), (1.3, 100)])
+def test_bwd_matches_autograd_of_the_plain_loop(power, n_steps):
+    """rk4_bwd's cotangents against autograd of the plain loop; at 40 steps
+    rays are still ACTIVE at the end of a partial last segment."""
+    e = env()
+    s0 = initial_state(e, *fan())
+    cfg = tint.IntegratorConfig(**{**FLAGSHIP, "dt_power": power,
+                                   "n_steps": n_steps})
+    wx = torch.as_tensor(np.random.default_rng(2).normal(size=(1536, 3)),
+                         dtype=torch.float32, device=DEV)
+    before = cuda_kernel.LAUNCHES_BWD
+    gk = cotangents(e, s0, cfg, wx, kernel=True)
+    assert cuda_kernel.LAUNCHES_BWD == before + 1
+    gp = cotangents(e, s0, cfg, wx, kernel=False)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max() / b.abs().max()) <= TOL_GRAD
+
+
+def test_bwd_is_deterministic():
+    """The scalar cotangents are summed without atomics: two backward
+    passes give the same bits."""
+    e = env()
+    s0 = initial_state(e, *fan())
+    cfg = tint.IntegratorConfig(**FLAGSHIP)
+    wx = torch.ones_like(s0.x)
+    g1 = cotangents(e, s0, cfg, wx, kernel=True)
+    g2 = cotangents(e, s0, cfg, wx, kernel=True)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+def test_render_gradient_launches_ckpt_and_bwd():
+    """A 32x32 flagship frame's gradient goes through rk4_ckpt and rk4_bwd
+    once each, never rk4_fwd, and agrees with the plain path."""
+    v, u = np.meshgrid(np.arange(256), np.arange(512), indexing="ij")
+    sky = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * u / 512)
+                    * np.sin(np.pi * v / 256), v / 256,
+                    ((u // 16 + v // 16) % 2).astype(np.float32)], -1)
+    cfg = P.RenderConfig(width=32, height=32, lam_max=100.0,
+                         integrator=P.IntegratorConfig(**FLAGSHIP))
+
+    def grads(c):
+        scene = P.Scene(bh=P.BlackHole.make(mass=0.5, device=DEV),
+                        background=torch.as_tensor(sky, dtype=torch.float32,
+                                                   device=DEV))
+        cam = P.Camera.make(position=(0.0, 0.0, 25.0), fov=(0.8, 0.8),
+                            device=DEV)
+        leaves = (scene.bh.mass, cam.position, scene.background)
+        for t in leaves:
+            t.requires_grad_(True)
+        P.render_image(scene, cam, c)[..., :3].pow(2).mean().backward()
+        return [t.grad for t in leaves]
+
+    before = (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT,
+              cuda_kernel.LAUNCHES_BWD)
+    gk = grads(cfg)
+    assert (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT,
+            cuda_kernel.LAUNCHES_BWD) == (before[0], before[1] + 1,
+                                          before[2] + 1)
+    gp = grads(dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch")))
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max() / b.abs().max()) <= TOL_RENDER_GRAD
 
 
 def test_render_image_launches_the_kernel():

@@ -168,11 +168,10 @@ def _state(n=8):
     return tstates.init_state(x, p, E)
 
 
-@pytest.mark.parametrize("case", ["disk", "spheres", "spin", "dopri",
-                                  "grad"])
+@pytest.mark.parametrize("case", ["disk", "spheres", "spin", "dopri"])
 def test_out_of_slice_raises(case):
-    """Configurations outside this slice raise, on the CUDA entry and (where
-    the plain path has no port either) on the plain path."""
+    """Configurations outside this slice raise, on the CUDA entry and on the
+    plain path."""
     _, env = envs()
     s0 = _state()
     cfg = tint.IntegratorConfig(**FLAGSHIP)
@@ -184,15 +183,12 @@ def test_out_of_slice_raises(case):
                                       radius=torch.ones(1))
     elif case == "spin":
         env.spin = torch.tensor(0.45)
-    elif case == "dopri":
-        cfg = dataclasses.replace(cfg, method="dopri")
     else:
-        s0.x.requires_grad_(True)
+        cfg = dataclasses.replace(cfg, method="dopri")
     with pytest.raises(NotImplementedError):
         cuda_kernel.integrate_cuda(env, s0, cfg)
-    if case != "grad":
-        with pytest.raises(NotImplementedError):
-            tint.integrate(env, s0, dataclasses.replace(cfg, backend="torch"))
+    with pytest.raises(NotImplementedError):
+        tint.integrate(env, s0, dataclasses.replace(cfg, backend="torch"))
 
 
 @pytest.mark.parametrize("field,bad", [
