@@ -106,17 +106,20 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # scal, x, p, E, lam, status, x_out, p_out, lam_out, status_out,
-        # n, n_steps, power, stream
-        lib.bhgc_rk4_fwd.argtypes = [vp] * 10 + [i32, i32, f32, vp]
+        # scal, sph, n_sph, has_disk, x, p, E, lam, status, hit_obj, x_out,
+        # p_out, lam_out, status_out, hit_obj_out, n, n_steps, power, stream
+        lib.bhgc_rk4_fwd.argtypes = ([vp, vp, i32, i32] + [vp] * 11
+                                     + [i32, i32, f32, vp])
         lib.bhgc_rk4_fwd.restype = i32
         # as bhgc_rk4_fwd, then cx, cp, clam, cst before n, n_steps, seg,
         # power, stream
-        lib.bhgc_rk4_ckpt.argtypes = [vp] * 14 + [i32, i32, i32, f32, vp]
+        lib.bhgc_rk4_ckpt.argtypes = ([vp, vp, i32, i32] + [vp] * 15
+                                      + [i32, i32, i32, f32, vp])
         lib.bhgc_rk4_ckpt.restype = i32
-        # scal, cx, cp, clam, cst, E, gx, gp, bx, bp, bE, partial, gscal,
-        # n, n_steps, seg, power, stream
-        lib.bhgc_rk4_bwd.argtypes = [vp] * 13 + [i32, i32, i32, f32, vp]
+        # scal, sph, n_sph, has_disk, cx, cp, clam, cst, E, gx, gp, bx, bp,
+        # bE, partial, gscal, gsph, n, n_steps, seg, power, stream
+        lib.bhgc_rk4_bwd.argtypes = ([vp, vp, i32, i32] + [vp] * 13
+                                     + [i32, i32, i32, f32, vp])
         lib.bhgc_rk4_bwd.restype = i32
         lib.bhgc_rk4_bwd_blocks.argtypes = [i32]
         lib.bhgc_rk4_bwd_blocks.restype = i32

@@ -1,16 +1,23 @@
 """The exact discrete adjoint of one RK4 step, written by hand.
 
 Counterpart of ``_step_adjoint`` (pallas_kernel.py:1025-1153) for the step
-the gradient path runs: Schwarzschild, no disk and no spheres.  It is the
-plain PyTorch statement of what ``csrc/rk4_bwd.cu`` computes, line for line:
+the gradient path runs: Schwarzschild, with or without the disk and sphere
+events.  It is the plain PyTorch statement of what ``csrc/rk4_bwd.cu``
+computes, line for line:
 
 * ``rhs_vjp`` -- the VJP of ``_rhs_schw_soa`` (:63-81), including the
   ``r^2 >= 1e-12`` floor;
 * ``step_size_vjp`` -- the VJP of ``_dt_soa`` (:156-175) for the four step
   size powers and the clip to [1, boost];
+* ``segment_events`` and ``events_vjp`` -- the event detection of
+  ``_events_merge`` (:211-270) and, derived by hand, the transpose of its
+  position merge (what the TPU kernel takes with ``jax.vjp`` of
+  ``_events_merge``, :1089-1111): a disk or sphere event point
+  ``x + (y - x) t`` sends its cotangent to the pre-step x, to the RK4
+  endpoint y and, for a sphere, to the hit sphere's centre and radius;
 * ``step_adjoint`` -- the RK4 skeleton transposed (:1124-1144) behind the
-  masked pass-through transpose of the freeze
-  ``y' = where(active & finite, rk4, y)`` (:1112-1122).
+  transpose of the freeze ``y' = where(active & finite, rk4, y)``
+  (:1112-1122) and of the event points.
 
 Every function works on structure-of-arrays tuples of tensors of one batch
 shape, one tensor per component.  The CUDA kernel cannot run on the CPU, so
@@ -20,7 +27,11 @@ the tests hold this module against ``jax.vjp`` and against
 A step whose ray is frozen or whose RK4 endpoint is not finite is the
 identity on (x, p) and contributes nothing to the E and scalar cotangents:
 the kernel skips it, and here its contributions are masked to zero, so no
-0 * inf from a frozen ray's Jacobian reaches a shared cotangent.
+0 * inf from a frozen ray's Jacobian reaches a shared cotangent.  Only the
+selected event carries a cotangent: a miss, an unselected sphere and a disk
+crossing that lost to a sphere add exact zeros.  The scalars r_in, r_out,
+r_capture, r_escape and lam_max enter only through comparisons, so their
+cotangents are zero.
 """
 
 from __future__ import annotations
@@ -154,14 +165,129 @@ def step_size_vjp(a, active, scal, power, gh):
     return (k * a0, k * a1, k * a2), g_dt, g_boost, g_r_ref
 
 
-def step_adjoint(x, p, E, status, scal, g, power):
-    """Transpose of one event-free Schwarzschild RK4 step.
+def segment_events(x, y, scal, sph, has_disk):
+    """Events on the segment x -> y, as ``_events_merge`` finds them.
+
+    ``x``, ``y``: 3-tuples (pre-step position, RK4 endpoint); ``sph`` the
+    (K, 4) table [cx, cy, cz, radius] or None.  Returns (t_disk, t_sph,
+    sid): the segment fractions of the disk crossing and of the first
+    sphere entry (inf where there is none) and the entered sphere's index
+    (-1 where none).  Spheres are tested in index order and a later one
+    must come strictly earlier, so ties go to the lowest index."""
+    x0, x1, x2 = x
+    y0, y1, y2 = y
+    inf = torch.full_like(x0, float("inf"))
+    t_disk = inf
+    if has_disk:
+        crossed = ((y2 < 0) & (x2 >= 0)) | ((y2 > 0) & (x2 <= 0))
+        denom = y2 - x2
+        t = -x2 / torch.where(torch.abs(denom) > 0, denom,
+                              torch.ones_like(denom))
+        d0p = x0 + (y0 - x0) * t
+        d1p = x1 + (y1 - x1) * t
+        rr = torch.sqrt(d0p * d0p + d1p * d1p)
+        hit = crossed & (rr >= scal[7]) & (rr <= scal[8])
+        t_disk = torch.where(hit, t, inf)
+    t_sph = inf
+    sid = torch.full(x0.shape, -1, dtype=torch.int32, device=x0.device)
+    if sph is not None:
+        dx0, dx1, dx2 = y0 - x0, y1 - x1, y2 - x2
+        aa = dx0 * dx0 + dx1 * dx1 + dx2 * dx2
+        denom_a = torch.where(aa > 0, 2.0 * aa, torch.ones_like(aa))
+        for k in range(sph.shape[0]):
+            o0, o1, o2 = x0 - sph[k, 0], x1 - sph[k, 1], x2 - sph[k, 2]
+            bb = 2.0 * (o0 * dx0 + o1 * dx1 + o2 * dx2)
+            cc = o0 * o0 + o1 * o1 + o2 * o2 - sph[k, 3] * sph[k, 3]
+            disc = bb * bb - 4.0 * aa * cc
+            sq = torch.sqrt(torch.where(disc > 0, disc, torch.ones_like(disc)))
+            t = (-bb - sq) / denom_a
+            valid = (disc > 0) & (t >= 0.0) & (t <= 1.0) & (t < t_sph)
+            t_sph = torch.where(valid, t, t_sph)
+            sid = torch.where(valid, k, sid).to(torch.int32)
+    return t_disk, t_sph, sid
+
+
+def events_vjp(x, y, upd, scal, sph, has_disk, g):
+    """Transpose of the position merge of ``_events_merge``.
+
+    The merge sends x' = y (a ray that moved), x (a frozen or non-finite
+    step), x + (y - x) t_disk with z' = 0 (DISK), or x + (y - x) t_sph
+    (OBJECT).  ``upd`` = active & finite; ``g`` the 3-tuple cotangent of
+    x'.  Returns (g_x, g_y, g_sph): the cotangents of the pre-step x, of
+    the RK4 endpoint y and of the (K, 4) sphere table (None without
+    spheres).
+
+    Disk: t = -x2 / (y2 - x2), so dt/dx2 = (t - 1) / (y2 - x2) and
+    dt/dy2 = -t / (y2 - x2); the crossing test makes y2 - x2 non-zero.
+    Sphere: t = (-bb - sqrt(disc)) / (2 aa) with aa = |D|^2, bb = 2 o.D,
+    cc = |o|^2 - r^2, D = y - x, o = x - c, so dt/daa = (cc / sq - t) / aa,
+    dt/dbb = -(1 + bb / sq) / (2 aa), dt/dcc = 1 / sq; an entry has
+    disc > 0 and aa > 0."""
+    t_disk, t_sph, sid = segment_events(x, y, scal, sph, has_disk)
+    zero = torch.zeros_like(x[0])
+    sel_disk = upd & torch.isfinite(t_disk) & (t_disk <= t_sph)
+    sel_sph = upd & torch.isfinite(t_sph) & ~sel_disk
+    moved = upd & ~sel_disk & ~sel_sph
+    D = [y[i] - x[i] for i in range(3)]
+    g_x = [torch.where(upd, zero, g[i]) for i in range(3)]
+    g_y = [torch.where(moved, g[i], zero) for i in range(3)]
+    if has_disk:
+        t = torch.where(sel_disk, t_disk, zero)
+        den = torch.where(sel_disk, D[2], torch.ones_like(zero))
+        gd = [torch.where(sel_disk, g[i], zero) for i in range(2)]
+        gt = gd[0] * D[0] + gd[1] * D[1]
+        for i in range(2):
+            g_x[i] = g_x[i] + (1.0 - t) * gd[i]
+            g_y[i] = g_y[i] + t * gd[i]
+        g_x[2] = g_x[2] + gt * (t - 1.0) / den
+        g_y[2] = g_y[2] - gt * t / den
+    g_sph = None
+    if sph is not None:
+        t = torch.where(sel_sph, t_sph, zero)
+        gs = [torch.where(sel_sph, g[i], zero) for i in range(3)]
+        gt = gs[0] * D[0] + gs[1] * D[1] + gs[2] * D[2]
+        for i in range(3):
+            g_x[i] = g_x[i] + (1.0 - t) * gs[i]
+            g_y[i] = g_y[i] + t * gs[i]
+        aa = D[0] * D[0] + D[1] * D[1] + D[2] * D[2]
+        rows = []
+        for k in range(sph.shape[0]):
+            m = sel_sph & (sid == k)
+            o = [x[i] - sph[k, i] for i in range(3)]
+            bb = 2.0 * (o[0] * D[0] + o[1] * D[1] + o[2] * D[2])
+            cc = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] - sph[k, 3] * sph[k, 3]
+            disc = bb * bb - 4.0 * aa * cc
+            one = torch.ones_like(zero)
+            sq = torch.sqrt(torch.where(m, disc, one))
+            aak = torch.where(m, aa, one)
+            gtk = torch.where(m, gt, zero)
+            g_aa = gtk * (cc / sq - t) / aak
+            g_bb = -gtk * (1.0 + bb / sq) / (2.0 * aak)
+            g_cc = gtk / sq
+            row = []
+            for i in range(3):
+                gD = 2.0 * g_aa * D[i] + 2.0 * g_bb * o[i]
+                go = 2.0 * g_bb * D[i] + 2.0 * g_cc * o[i]
+                g_y[i] = g_y[i] + gD
+                g_x[i] = g_x[i] - gD + go
+                row.append(-go.sum())
+            row.append((-2.0 * sph[k, 3] * g_cc).sum())
+            rows.append(torch.stack(row))
+        g_sph = torch.stack(rows)
+    return g_x, g_y, g_sph
+
+
+def step_adjoint(x, p, E, status, scal, g, power, sph=None, has_disk=False):
+    """Transpose of one Schwarzschild RK4 step with its events.
 
     ``x``, ``p``: the taped pre-step state (3-tuples); ``E``, ``status``
     per ray; ``scal`` the NSCAL vector; ``g`` the 6-tuple cotangent of the
-    step's (x', p').  Returns (g6, g_E, g_scal): the cotangent of (x, p),
-    the per-ray cotangent of E and the (NSCAL,) scalar cotangent summed over
-    the rays (mass, dt, boost and r_ref; the other entries are zero)."""
+    step's (x', p'); ``sph`` the (K, 4) sphere table or None; ``has_disk``
+    whether the disk is tested.  Returns (g6, g_E, g_scal, g_sph): the
+    cotangent of (x, p), the per-ray cotangent of E, the (NSCAL,) scalar
+    cotangent summed over the rays (mass, dt, boost and r_ref; the other
+    entries are zero) and the (K, 4) sphere cotangent (None without
+    spheres)."""
     mass = scal[0]
     active = status == ACTIVE
     h = step_size(x, active, scal, power)
@@ -193,10 +319,17 @@ def step_adjoint(x, p, E, status, scal, g, power):
     def keep(v):
         return torch.where(upd, v, zero)
 
-    # transpose of the freeze y' = where(upd, ynew, y): gy to the RK4
-    # endpoint, the rest straight through to the old state
-    gy = tuple(keep(gi) for gi in g)
-    g_old = tuple(torch.where(upd, zero, gi) for gi in g)
+    # transpose of the freeze y' = where(upd, ynew, y) and of the event
+    # points: gy to the RK4 endpoint, g_old to the pre-step state
+    g_sph = None
+    if has_disk or sph is not None:
+        g_old, gy, g_sph = events_vjp(x, ynew[:3], upd, scal, sph, has_disk,
+                                      g[:3])
+    else:
+        g_old = [torch.where(upd, zero, g[i]) for i in range(3)]
+        gy = [keep(g[i]) for i in range(3)]
+    gy = (*gy, *(keep(g[i]) for i in range(3, 6)))
+    g_old = (*g_old, *(torch.where(upd, zero, g[i]) for i in range(3, 6)))
 
     # transpose of the RK4 skeleton
     gh = (1.0 / 6.0) * sum(gy[i] * ksum[i] for i in range(6))
@@ -224,4 +357,4 @@ def step_adjoint(x, p, E, status, scal, g, power):
     g_scal = torch.zeros(NSCAL, dtype=h.dtype, device=h.device)
     for j, v in enumerate((g_mass, g_dt, g_boost, g_r_ref)):
         g_scal[j] = keep(v).sum()
-    return g6, keep(g_E), g_scal
+    return g6, keep(g_E), g_scal, g_sph

@@ -2,8 +2,10 @@
 //
 // CUDA counterpart of `_fwd_ckpt_kernel` in
 // blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py (:1201-1252), in
-// its Schwarzschild, event-free variant.  One thread per ray runs the same
-// step as the forward kernel (rk4_step.cuh), so its final state equals
+// its Schwarzschild variants, event-free and with disk and sphere events
+// (EV as in rk4_fwd.cu).  It has no sphere guard, as on the TPU
+// (:1230-1233); the guard changes no result.  One thread per ray runs the
+// same step as the forward kernel (rk4_step.cuh), so its final state equals
 // rk4_fwd's, and before steps 0, seg, 2 seg, ... it writes the ray's
 // (x, p, lam, status) to row s of the checkpoint tensors (n_seg, n, ...).
 // A ray that has frozen keeps writing its frozen state at the later
@@ -24,16 +26,19 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int PMODE>
+template <int PMODE, int EV>
 __global__ void __launch_bounds__(kThreads)
     rk4_ckpt_kernel(const float* __restrict__ scal,
+                    const float* __restrict__ sph, int n_sph,
                     const float* __restrict__ x_in,
                     const float* __restrict__ p_in,
                     const float* __restrict__ E_in,
                     const float* __restrict__ lam_in,
-                    const int* __restrict__ st_in, float* __restrict__ x_out,
+                    const int* __restrict__ st_in,
+                    const int* __restrict__ obj_in, float* __restrict__ x_out,
                     float* __restrict__ p_out, float* __restrict__ lam_out,
-                    int* __restrict__ st_out, float* __restrict__ cx,
+                    int* __restrict__ st_out, int* __restrict__ obj_out,
+                    float* __restrict__ cx,
                     float* __restrict__ cp, float* __restrict__ clam,
                     int* __restrict__ cst, int n, int n_steps, int seg,
                     float power) {
@@ -47,6 +52,7 @@ __global__ void __launch_bounds__(kThreads)
   r.p0 = p_in[j]; r.p1 = p_in[j + 1]; r.p2 = p_in[j + 2];
   r.lam = lam_in[i];
   r.status = st_in[i];
+  r.obj = obj_in[i];
   const float E = E_in[i];
 
   const int n_seg = (n_steps + seg - 1) / seg;
@@ -59,7 +65,8 @@ __global__ void __launch_bounds__(kThreads)
     // enabled = s seg + step < n_steps (pallas_kernel.py:1233)
     const int len = min(seg, n_steps - s * seg);
     for (int step = 0; step < len && r.status == kActive; ++step) {
-      rk4_step<PMODE>(sc, power, E, r);
+      rk4_step<PMODE, (EV & 2) != 0, (EV & 1) != 0, false>(sc, power, E, sph,
+                                                           n_sph, r);
     }
   }
 
@@ -67,28 +74,35 @@ __global__ void __launch_bounds__(kThreads)
   p_out[j] = r.p0; p_out[j + 1] = r.p1; p_out[j + 2] = r.p2;
   lam_out[i] = r.lam;
   st_out[i] = r.status;
+  obj_out[i] = r.obj;
 }
 
 }  // namespace
 
-extern "C" int bhgc_rk4_ckpt(const void* scal, const void* x, const void* p,
+extern "C" int bhgc_rk4_ckpt(const void* scal, const void* sph, int n_sph,
+                             int has_disk, const void* x, const void* p,
                              const void* E, const void* lam, const void* st,
-                             void* x_out, void* p_out, void* lam_out,
-                             void* st_out, void* cx, void* cp, void* clam,
-                             void* cst, int n, int n_steps, int seg,
-                             float power, void* stream) {
+                             const void* obj, void* x_out, void* p_out,
+                             void* lam_out, void* st_out, void* obj_out,
+                             void* cx, void* cp, void* clam, void* cst, int n,
+                             int n_steps, int seg, float power,
+                             void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   with_power_mode(power, [&](auto mode) {
-    rk4_ckpt_kernel<decltype(mode)::value>
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(scal), static_cast<const float*>(x),
-            static_cast<const float*>(p), static_cast<const float*>(E),
-            static_cast<const float*>(lam), static_cast<const int*>(st),
-            static_cast<float*>(x_out), static_cast<float*>(p_out),
-            static_cast<float*>(lam_out), static_cast<int*>(st_out),
-            static_cast<float*>(cx), static_cast<float*>(cp),
-            static_cast<float*>(clam), static_cast<int*>(cst), n, n_steps,
-            seg, power);
+    with_events(has_disk, n_sph, [&](auto ev) {
+      rk4_ckpt_kernel<decltype(mode)::value, decltype(ev)::value>
+          <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+              static_cast<const float*>(scal), static_cast<const float*>(sph),
+              n_sph, static_cast<const float*>(x),
+              static_cast<const float*>(p), static_cast<const float*>(E),
+              static_cast<const float*>(lam), static_cast<const int*>(st),
+              static_cast<const int*>(obj), static_cast<float*>(x_out),
+              static_cast<float*>(p_out), static_cast<float*>(lam_out),
+              static_cast<int*>(st_out), static_cast<int*>(obj_out),
+              static_cast<float*>(cx), static_cast<float*>(cp),
+              static_cast<float*>(clam), static_cast<int*>(cst), n, n_steps,
+              seg, power);
+    });
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,16 +3,23 @@
 // the adjoint (rk4_bwd.cu), so the three run the same step code.
 //
 // The step is `_soa_step` of blackhole_geodesic_calculator_tpu/ops/
-// pallas_kernel.py in its Schwarzschild, event-free variant: the per-ray
-// step size of `_dt_soa`, four evaluations of `_rhs_schw_soa` and the
-// endpoint classification of `_events_merge`.  The adjoint is
-// `_step_adjoint` (pallas_kernel.py:1025-1153); its plain PyTorch statement,
-// line for line, is ops/adjoint.py, which the CPU tests hold against JAX.
+// pallas_kernel.py in its Schwarzschild variants: the per-ray step size of
+// `_dt_soa`, four evaluations of `_rhs_schw_soa` and `_events_merge`, the
+// endpoint classification with, behind the compile-time switches DISK and
+// SPH, the segment events of the z = 0 disk and of K spheres.  With both
+// switches off the step is the event-free one, code and registers alike.
+// The sphere table is K rows of [cx, cy, cz, radius] in the hole's frame,
+// K a runtime argument; every thread reads it (`__ldg`, the rows are the
+// same for the whole warp).  The adjoint is `_step_adjoint`
+// (pallas_kernel.py:1025-1153), with the transpose of the event tail
+// derived by hand; its plain PyTorch statement, line for line, is
+// ops/adjoint.py, which the CPU tests hold against JAX.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <limits>
 #include <type_traits>
 
 namespace {
@@ -21,6 +28,8 @@ constexpr int kActive = 0;
 constexpr int kCaptured = 1;
 constexpr int kEscaped = 2;
 constexpr int kBudget = 3;
+constexpr int kDisk = 4;
+constexpr int kObject = 5;
 constexpr int kError = 7;
 
 constexpr int kNScal = 10;
@@ -29,7 +38,7 @@ constexpr float kR2Floor = 1e-12f;
 // Scalar vector layout (NSCAL = 10), the TPU kernel's:
 // [mass, dt, dt_boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out, a]
 struct Scalars {
-  float mass, dt, boost, r_ref, r_capture, r_escape, lam_max;
+  float mass, dt, boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out;
 };
 
 __device__ __forceinline__ Scalars load_scalars(const float* scal) {
@@ -41,13 +50,15 @@ __device__ __forceinline__ Scalars load_scalars(const float* scal) {
   sc.r_capture = __ldg(scal + 4);
   sc.r_escape = __ldg(scal + 5);
   sc.lam_max = __ldg(scal + 6);
+  sc.r_in = __ldg(scal + 7);
+  sc.r_out = __ldg(scal + 8);
   return sc;
 }
 
 // One ray's state in registers.
 struct Ray {
   float x0, x1, x2, p0, p1, p2, lam;
-  int status;
+  int status, obj;
 };
 
 // Schwarzschild Kerr-Schild Hamiltonian right-hand side (geodesic.py
@@ -107,11 +118,110 @@ void with_power_mode(float power, F&& f) {
   }
 }
 
-// One RK4 step of an ACTIVE ray with endpoint classification and the
-// freeze merge (never store a non-finite state).
-template <int PMODE>
+// Calls f(std::integral_constant<int, V>()) with V = 2 * has_disk +
+// (n_sph > 0): the event variant the host entry points launch.
+template <typename F>
+void with_events(int has_disk, int n_sph, F&& f) {
+  if (has_disk && n_sph > 0) {
+    f(std::integral_constant<int, 3>());
+  } else if (has_disk) {
+    f(std::integral_constant<int, 2>());
+  } else if (n_sph > 0) {
+    f(std::integral_constant<int, 1>());
+  } else {
+    f(std::integral_constant<int, 0>());
+  }
+}
+
+// The events of the segment x -> y (`_events_merge`, :211-270).
+struct SegEvents {
+  bool disk;          // the segment crosses z = 0 inside the annulus
+  float t_disk;       // its fraction of the segment
+  float d0, d1;       // the crossing point (z = 0)
+  int sid;            // the first sphere entered, -1 for none
+  float t_sph;        // its fraction of the segment (kInf for none)
+};
+
+constexpr float kInf = std::numeric_limits<float>::infinity();
+
+// x + (y - x) t rounded after each operation, as the plain path computes
+// it: the compiler may not fuse it into an FMA differently from kernel to
+// kernel, so the kernels' event points agree bit for bit.
+__device__ __forceinline__ float lerp_rn(float x, float y, float t) {
+  return __fadd_rn(x, __fmul_rn(__fsub_rn(y, x), t));
+}
+
+// The events of the segment x -> y; rb = |y|.  GUARD skips the K sphere
+// quadratics when the segment cannot reach any sphere: every point of the
+// segment lies within L = |y - x| of y, so sphere k (surface radii
+// |c_k| -+ r_k) can be entered only if [rb - L, rb + L] meets
+// [|c_k| - r_k, |c_k| + r_k].  The test is conservative, so the result is
+// the same bit for bit with or without it (`guard_spheres`, :249-268).
+template <bool DISK, bool SPH, bool GUARD>
+__device__ __forceinline__ SegEvents segment_events(
+    const Scalars& sc, const float* __restrict__ sph, int n_sph, float x0,
+    float x1, float x2, float y0, float y1, float y2, float rb) {
+  SegEvents ev;
+  ev.disk = false;
+  ev.t_disk = kInf;
+  ev.d0 = 0.0f;
+  ev.d1 = 0.0f;
+  if (DISK) {
+    const bool crossed = (y2 < 0.0f && x2 >= 0.0f) || (y2 > 0.0f && x2 <= 0.0f);
+    const float denom = y2 - x2;
+    const float t = -x2 / (fabsf(denom) > 0.0f ? denom : 1.0f);
+    ev.d0 = lerp_rn(x0, y0, t);
+    ev.d1 = lerp_rn(x1, y1, t);
+    const float rr = sqrtf(ev.d0 * ev.d0 + ev.d1 * ev.d1);
+    ev.disk = crossed && rr >= sc.r_in && rr <= sc.r_out;
+    if (ev.disk) ev.t_disk = t;
+  }
+  ev.sid = -1;
+  ev.t_sph = kInf;
+  if (SPH) {
+    const float dx0 = y0 - x0, dx1 = y1 - x1, dx2 = y2 - x2;
+    const float aa = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
+    if (GUARD) {
+      const float L = sqrtf(aa);
+      bool possible = false;
+      for (int k = 0; k < n_sph; ++k) {
+        const float cx = __ldg(sph + 4 * k), cy = __ldg(sph + 4 * k + 1);
+        const float cz = __ldg(sph + 4 * k + 2), rad = __ldg(sph + 4 * k + 3);
+        const float ck = sqrtf(cx * cx + cy * cy + cz * cz);
+        possible = possible || (rb - L <= ck + rad && rb + L >= ck - rad);
+      }
+      if (!possible) return ev;
+    }
+    const float denom_a = aa > 0.0f ? 2.0f * aa : 1.0f;
+    for (int k = 0; k < n_sph; ++k) {
+      const float o0 = x0 - __ldg(sph + 4 * k);
+      const float o1 = x1 - __ldg(sph + 4 * k + 1);
+      const float o2 = x2 - __ldg(sph + 4 * k + 2);
+      const float rad = __ldg(sph + 4 * k + 3);
+      const float bb = 2.0f * (o0 * dx0 + o1 * dx1 + o2 * dx2);
+      const float cc = o0 * o0 + o1 * o1 + o2 * o2 - rad * rad;
+      const float disc = bb * bb - 4.0f * aa * cc;
+      // the guarded sqrt of integrate._sphere_events
+      const float sq = sqrtf(disc > 0.0f ? disc : 1.0f);
+      const float t = (-bb - sq) / denom_a;
+      // a later sphere must come strictly earlier: ties go to the lowest k
+      if (disc > 0.0f && t >= 0.0f && t <= 1.0f && t < ev.t_sph) {
+        ev.t_sph = t;
+        ev.sid = k;
+      }
+    }
+  }
+  return ev;
+}
+
+// One RK4 step of an ACTIVE ray with endpoint classification, the segment
+// events and the freeze merge (never store a non-finite state; an event
+// ray freezes at the interpolated event point).
+template <int PMODE, bool DISK, bool SPH, bool GUARD>
 __device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
-                                         float E, Ray& r) {
+                                         float E,
+                                         const float* __restrict__ sph,
+                                         int n_sph, Ray& r) {
   const float h = step_size<PMODE>(sc, power, r.x0, r.x1, r.x2);
 
   float ka[6], kb[6], kc[6], kd[6];
@@ -131,22 +241,45 @@ __device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
   const float q1 = r.p1 + s6 * (ka[4] + 2.0f * (kb[4] + kc[4]) + kd[4]);
   const float q2 = r.p2 + s6 * (ka[5] + 2.0f * (kb[5] + kc[5]) + kd[5]);
 
-  // Endpoint classification, lowest priority first (_events_merge).
+  // Endpoint classification, lowest priority first (_events_merge); a
+  // sphere entry overrides it, and a disk crossing no later on the segment
+  // overrides that.
   const float rb = sqrtf(y0 * y0 + y1 * y1 + y2 * y2);
-  const float lam1 = r.lam + h;
+  // not fused with h = dt * clip(...): kernels that fuse differently would
+  // part in the last bit of lam
+  const float lam1 = __fadd_rn(r.lam, h);
   const bool finite = isfinite(y0) && isfinite(y1) && isfinite(y2) &&
                       isfinite(q0) && isfinite(q1) && isfinite(q2);
   int st = lam1 >= sc.lam_max ? kBudget : kActive;
   if (rb >= sc.r_escape) st = kEscaped;
   if (rb <= sc.r_capture) st = kCaptured;
   if (!finite) st = kError;
+  const SegEvents ev = segment_events<DISK, SPH, GUARD>(
+      sc, sph, n_sph, r.x0, r.x1, r.x2, y0, y1, y2, rb);
+  if (SPH && ev.sid >= 0) st = kObject;
+  if (DISK && ev.disk && ev.t_disk <= ev.t_sph) st = kDisk;
 
+  const float x0 = r.x0, x1 = r.x1, x2 = r.x2, lam0 = r.lam;
   if (finite) {
     r.x0 = y0; r.x1 = y1; r.x2 = y2;
     r.p0 = q0; r.p1 = q1; r.p2 = q2;
   }
   r.lam = lam1;
   r.status = st;
+  if (SPH && st == kObject) {
+    const float ts = ev.t_sph;
+    r.x0 = lerp_rn(x0, y0, ts);
+    r.x1 = lerp_rn(x1, y1, ts);
+    r.x2 = lerp_rn(x2, y2, ts);
+    r.lam = __fadd_rn(lam0, __fmul_rn(h, ts));
+    r.obj = ev.sid;
+  }
+  if (DISK && st == kDisk) {
+    r.x0 = ev.d0;
+    r.x1 = ev.d1;
+    r.x2 = 0.0f;
+    r.lam = __fadd_rn(lam0, __fmul_rn(h, ev.t_disk));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -249,16 +382,81 @@ __device__ __forceinline__ void step_size_vjp(const Scalars& sc, float power,
   }
 }
 
+// Transpose of the position merge of an ACTIVE, finite step x -> y
+// (ops/adjoint.py events_vjp): g is the cotangent of the merged x'; writes
+// the cotangents of the pre-step x to gx and of the endpoint y to gy, and,
+// for a sphere entry, adds those of the entered sphere's [cx, cy, cz, r]
+// to gsph and sets hit = its index.  Only the selected event carries a
+// cotangent.
+//   disk:   x' = (x + D t, 0), t = -x2 / D2, D = y - x;
+//           dt/dx2 = (t - 1) / D2, dt/dy2 = -t / D2 (D2 != 0: it crossed)
+//   sphere: x' = x + D t, t = (-bb - sq) / (2 aa), aa = D.D, bb = 2 o.D,
+//           cc = o.o - r^2, o = x - c; dt/daa = (cc / sq - t) / aa,
+//           dt/dbb = -(1 + bb / sq) / (2 aa), dt/dcc = 1 / sq
+template <bool DISK, bool SPH>
+__device__ __forceinline__ void events_vjp(const Scalars& sc,
+                                           const float* __restrict__ sph,
+                                           int n_sph, const float x[3],
+                                           const float y[3], const float g[3],
+                                           float gx[3], float gy[3],
+                                           float gsph[4], int& hit) {
+  const float rb = sqrtf(y[0] * y[0] + y[1] * y[1] + y[2] * y[2]);
+  const SegEvents ev = segment_events<DISK, SPH, false>(
+      sc, sph, n_sph, x[0], x[1], x[2], y[0], y[1], y[2], rb);
+  const bool sel_disk = DISK && ev.disk && ev.t_disk <= ev.t_sph;
+  const bool sel_sph = SPH && ev.sid >= 0 && !sel_disk;
+  const float D[3] = {y[0] - x[0], y[1] - x[1], y[2] - x[2]};
+  if (sel_disk) {
+    const float t = ev.t_disk;
+    const float gt = g[0] * D[0] + g[1] * D[1];
+    gx[0] = (1.0f - t) * g[0];
+    gx[1] = (1.0f - t) * g[1];
+    gy[0] = t * g[0];
+    gy[1] = t * g[1];
+    gx[2] = gt * (t - 1.0f) / D[2];
+    gy[2] = -gt * t / D[2];
+  } else if (sel_sph) {
+    const int k = ev.sid;
+    const float t = ev.t_sph;
+    const float rad = __ldg(sph + 4 * k + 3);
+    const float o[3] = {x[0] - __ldg(sph + 4 * k), x[1] - __ldg(sph + 4 * k + 1),
+                        x[2] - __ldg(sph + 4 * k + 2)};
+    const float gt = g[0] * D[0] + g[1] * D[1] + g[2] * D[2];
+    const float aa = D[0] * D[0] + D[1] * D[1] + D[2] * D[2];
+    const float bb = 2.0f * (o[0] * D[0] + o[1] * D[1] + o[2] * D[2]);
+    const float cc = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] - rad * rad;
+    const float sq = sqrtf(bb * bb - 4.0f * aa * cc);
+    const float g_aa = gt * (cc / sq - t) / aa;
+    const float g_bb = -gt * (1.0f + bb / sq) / (2.0f * aa);
+    const float g_cc = gt / sq;
+    for (int i = 0; i < 3; ++i) {
+      const float gD = 2.0f * g_aa * D[i] + 2.0f * g_bb * o[i];
+      const float go = 2.0f * g_bb * D[i] + 2.0f * g_cc * o[i];
+      gx[i] = (1.0f - t) * g[i] - gD + go;
+      gy[i] = t * g[i] + gD;
+      gsph[i] -= go;
+    }
+    gsph[3] -= 2.0f * rad * g_cc;
+    hit = k;
+  } else {
+    for (int i = 0; i < 3; ++i) {
+      gx[i] = 0.0f;
+      gy[i] = g[i];
+    }
+  }
+}
+
 // Transpose of one rk4_step of an ACTIVE ray from the taped pre-step state
 // y = (x, p).  g holds the cotangent of the step's (x', p') on entry and
 // that of (x, p) on exit; the cotangents of E and of the scalars (mass, dt,
-// boost, r_ref) are added to gE and gs.  A step whose endpoint is not
+// boost, r_ref) are added to gE and gs, and a sphere entry adds the entered
+// sphere's to gsph and sets hit (events_vjp).  A step whose endpoint is not
 // finite froze the ray (y' = y): g passes through and nothing is added.
-template <int PMODE>
-__device__ __forceinline__ void rk4_step_adjoint(const Scalars& sc,
-                                                 float power, float E,
-                                                 const float y[6], float g[6],
-                                                 float& gE, float gs[4]) {
+template <int PMODE, bool DISK, bool SPH>
+__device__ __forceinline__ void rk4_step_adjoint(
+    const Scalars& sc, float power, float E, const float* __restrict__ sph,
+    int n_sph, const float y[6], float g[6], float& gE, float gs[4],
+    float gsph[4], int& hit) {
   const float h = step_size<PMODE>(sc, power, y[0], y[1], y[2]);
 
   // forward stage chain, as in rk4_step
@@ -273,23 +471,33 @@ __device__ __forceinline__ void rk4_step_adjoint(const Scalars& sc,
   rhs_schw(sc.mass, E, pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], kd);
   const float s6 = h * (1.0f / 6.0f);
   bool finite = true;
+  float yn[6];
   for (int i = 0; i < 6; ++i) {
     const float ks = ka[i] + 2.0f * (kb[i] + kc[i]) + kd[i];
-    finite = finite && isfinite(y[i] + s6 * ks);
+    yn[i] = y[i] + s6 * ks;
+    finite = finite && isfinite(yn[i]);
   }
   if (!finite) return;
 
-  // transpose of the RK4 skeleton; gy = g (the freeze passes it on whole)
+  // transpose of the freeze and of the event points: gy to the RK4
+  // endpoint, go to the pre-step state (momentum: the endpoint's)
+  float gy[6], go[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 6; ++i) gy[i] = g[i];
+  if (DISK || SPH) {
+    events_vjp<DISK, SPH>(sc, sph, n_sph, y, yn, g, go, gy, gsph, hit);
+  }
+
+  // transpose of the RK4 skeleton
   float gh = 0.0f;
   for (int i = 0; i < 6; ++i)
-    gh += g[i] * (ka[i] + 2.0f * (kb[i] + kc[i]) + kd[i]);
+    gh += gy[i] * (ka[i] + 2.0f * (kb[i] + kc[i]) + kd[i]);
   gh *= 1.0f / 6.0f;
   float gm = 0.0f, gEs = 0.0f;
   float gin[6], gd[6], gc[6], gb[6], ga[6];
   // stage d (input y + h kc)
   for (int i = 0; i < 6; ++i) {
     pt[i] = y[i] + h * kc[i];
-    gin[i] = s6 * g[i];
+    gin[i] = s6 * gy[i];
   }
   rhs_schw_vjp(sc.mass, E, pt, gin, gd, gEs, gm);
   float acc = 0.0f;
@@ -298,7 +506,7 @@ __device__ __forceinline__ void rk4_step_adjoint(const Scalars& sc,
   // stage c (input y + h/2 kb)
   for (int i = 0; i < 6; ++i) {
     pt[i] = y[i] + c * kb[i];
-    gin[i] = 2.0f * s6 * g[i] + h * gd[i];
+    gin[i] = 2.0f * s6 * gy[i] + h * gd[i];
   }
   rhs_schw_vjp(sc.mass, E, pt, gin, gc, gEs, gm);
   acc = 0.0f;
@@ -307,16 +515,17 @@ __device__ __forceinline__ void rk4_step_adjoint(const Scalars& sc,
   // stage b (input y + h/2 ka)
   for (int i = 0; i < 6; ++i) {
     pt[i] = y[i] + c * ka[i];
-    gin[i] = 2.0f * s6 * g[i] + 0.5f * h * gc[i];
+    gin[i] = 2.0f * s6 * gy[i] + 0.5f * h * gc[i];
   }
   rhs_schw_vjp(sc.mass, E, pt, gin, gb, gEs, gm);
   acc = 0.0f;
   for (int i = 0; i < 6; ++i) acc += gb[i] * ka[i];
   gh += 0.5f * acc;
   // stage a (input y)
-  for (int i = 0; i < 6; ++i) gin[i] = s6 * g[i] + 0.5f * h * gb[i];
+  for (int i = 0; i < 6; ++i) gin[i] = s6 * gy[i] + 0.5f * h * gb[i];
   rhs_schw_vjp(sc.mass, E, y, gin, ga, gEs, gm);
-  for (int i = 0; i < 6; ++i) g[i] += gd[i] + gc[i] + gb[i] + ga[i];
+  for (int i = 0; i < 6; ++i)
+    g[i] = (gy[i] + (gd[i] + gc[i] + gb[i] + ga[i])) + go[i];
   gE += gEs;
   gs[0] += gm;
 

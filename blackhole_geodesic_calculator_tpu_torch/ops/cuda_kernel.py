@@ -10,9 +10,10 @@ backward launches ``csrc/rk4_bwd.cu`` -- the ``jax.custom_vjp`` of
 
 Source note
 -----------
-* **Replaces** the three TPU kernels of the Schwarzschild, event-free step
-  (``_soa_step`` with ``_dt_soa``, ``_rhs_schw_soa`` and the event-free part
-  of ``_events_merge``):
+* **Replaces** the three TPU kernels of the Schwarzschild step (``_soa_step``
+  with ``_dt_soa``, ``_rhs_schw_soa`` and ``_events_merge``), each in two
+  variants chosen at compile time: event-free, and with the segment events
+  of a z = 0 disk and of K spheres (``has_disk``, ``n_sph``):
 
   - ``_fwd_fast_kernel`` (pallas_kernel.py:1159-1198), built by
     ``_build(...).fwd_fast`` (:1399-1415) -> ``rk4_fwd``;
@@ -28,6 +29,9 @@ Source note
   At the flagship's up to 100 steps that is hundreds of operations per byte
   or more, far above the card's balance point, so they are bound by the FP32
   pipes and by warp divergence: a warp runs until its slowest ray ends.
+  The events add one disk test and K sphere quadratics (about 25 operations
+  each) per step; the forward kernel skips the quadratics for a ray whose
+  segment cannot reach any sphere (the TPU kernel's sphere guard, per ray).
 * **What the design does about it.** One thread per ray with the whole
   state and the four RK4 stages in registers.  The TPU kernels' tile-wide
   "any ray ACTIVE" skips become per-thread exits as soon as the thread's
@@ -35,9 +39,10 @@ Source note
   under the step.  The adjoint recomputes one segment at a time onto a
   per-thread tape in local memory and sweeps it backwards; it never
   differentiates a frozen step, so it needs none of the TPU wrapper's
-  far-away ERROR padding rays.  Its scalar cotangents are summed per block
-  in a fixed tree and then across blocks in a fixed order, so they are the
-  same bit for bit from run to run.  The TPU-only machinery is not carried
+  far-away ERROR padding rays.  Its scalar cotangents and the (K, 4)
+  sphere cotangent are summed per block in a fixed tree and then across
+  blocks in a fixed order, so they are the same bit for bit from run to
+  run.  The TPU-only machinery is not carried
   over: the 128-lane row layout, the padding and the VMEM tile sizing.  The
   cost-ordered tiling changes no output and is left to a measurement.
 
@@ -67,12 +72,16 @@ from .states import RayState
 NSCAL = 10
 MAX_SEG = 64   # the adjoint's tape length (csrc/rk4_bwd.cu kMaxSeg)
 
-# Launches of each kernel since import (or since a caller reset them); each
-# goes up by one in its wrapper right where the kernel is launched, and
-# nowhere else.
-LAUNCHES = 0        # rk4_fwd
-LAUNCHES_CKPT = 0   # rk4_ckpt
-LAUNCHES_BWD = 0    # rk4_bwd
+# Launches of each kernel variant since import (or since a caller reset
+# them); each goes up by one in its wrapper right where the kernel is
+# launched, and nowhere else.  The event variants (a disk, spheres or both)
+# count apart from the event-free ones.
+LAUNCHES = 0           # rk4_fwd, event-free
+LAUNCHES_CKPT = 0      # rk4_ckpt, event-free
+LAUNCHES_BWD = 0       # rk4_bwd, event-free
+LAUNCHES_EV = 0        # rk4_fwd, with events
+LAUNCHES_CKPT_EV = 0   # rk4_ckpt, with events
+LAUNCHES_BWD_EV = 0    # rk4_bwd, with events
 
 
 def integrate_plain(env: GeodesicEnv, s0: RayState,
@@ -111,16 +120,36 @@ def _scalars(env: GeodesicEnv, cfg: IntegratorConfig,
              device: torch.device) -> torch.Tensor:
     """The (NSCAL,) float32 device vector, TPU kernel layout:
     [mass, dt, dt_boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out, a].
-    Tensor entries (mass, r_escape) stay on the device and in the autograd
-    graph: the mass cotangent of rk4_bwd reaches ``env.mass`` through entry
-    0, and through entry 3 when r_ref defaults to 6 M."""
+    Tensor entries (mass, r_escape, the disk radii) stay on the device and
+    in the autograd graph: the mass cotangent of rk4_bwd reaches
+    ``env.mass`` through entry 0, and through entry 3 when r_ref defaults
+    to 6 M.  r_in and r_out are 0 without a disk."""
     r_ref = cfg.dt_boost_r_ref or 6.0 * env.mass
     boost = cfg.dt_boost if cfg.dt_boost > 1.0 else 1.0
+    r_in, r_out = ((env.disk.r_in, env.disk.r_out) if env.disk is not None
+                   else (0.0, 0.0))
     vals = (env.mass, cfg.dt, boost, r_ref, env.r_capture, env.r_escape,
-            env.lam_max, 0.0, 0.0, 0.0)
+            env.lam_max, r_in, r_out, 0.0)
     return torch.stack([
         torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
         for v in vals])
+
+
+def _sphere_table(env: GeodesicEnv, device: torch.device) -> torch.Tensor:
+    """The (K, 4) float32 sphere table [cx, cy, cz, radius] of the TPU
+    kernel (pallas_kernel.py:1610-1617), in the autograd graph of the
+    centres and radii; (0, 4) without spheres."""
+    if env.spheres is None:
+        return torch.zeros((0, 4), dtype=torch.float32, device=device)
+    center = torch.as_tensor(env.spheres.center, dtype=torch.float32,
+                             device=device)
+    radius = torch.as_tensor(env.spheres.radius, dtype=torch.float32,
+                             device=device)
+    if center.dim() != 2 or center.shape[1] != 3 or radius.shape != (
+            center.shape[0],):
+        raise ValueError(f"spheres need centres (K, 3) and radii (K,); got "
+                         f"{tuple(center.shape)} and {tuple(radius.shape)}")
+    return torch.cat([center, radius[:, None]], dim=1).contiguous()
 
 
 def _check_slice(env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig):
@@ -132,10 +161,6 @@ def _check_slice(env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig):
         raise NotImplementedError(
             "spin on CUDA needs the Kerr variant of the integrator kernels, "
             "not ported yet")
-    if env.disk is not None or env.spheres is not None:
-        raise NotImplementedError(
-            "disk or sphere events on CUDA need the event variants of the "
-            "integrator kernels, not ported yet")
 
 
 def _flat(t: torch.Tensor, batch, tail, dtype, name) -> torch.Tensor:
@@ -168,34 +193,59 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def rk4_fwd(scal, x, p, E, lam, st, n_steps: int, power: float):
+def _events(sph, has_disk) -> bool:
+    return bool(has_disk) or sph.shape[0] > 0
+
+
+def _no_spheres(x: torch.Tensor) -> torch.Tensor:
+    return x.new_zeros((0, 4))
+
+
+def rk4_fwd(scal, x, p, E, lam, st, n_steps: int, power: float, *,
+            sph=None, has_disk=False, obj=None):
     """Launch rk4_fwd on flat (n, 3) / (n,) tensors; returns
-    (x, p, lam, status) after ``n_steps`` steps."""
-    global LAUNCHES
+    (x, p, lam, status, hit_obj) after ``n_steps`` steps.  ``sph`` is the
+    (K, 4) sphere table and ``has_disk`` switches the disk events on (the
+    event variant); ``obj`` the initial hit_obj (-1 when not given)."""
+    global LAUNCHES, LAUNCHES_EV
+    sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
+    if obj is None:
+        obj = torch.full_like(st, -1)
     x_out, p_out = torch.empty_like(x), torch.empty_like(p)
     lam_out, st_out = torch.empty_like(lam), torch.empty_like(st)
+    obj_out = torch.empty_like(obj)
     n = E.numel()
     if n:
         with torch.cuda.device(x.device):
             rc = _build.load().bhgc_rk4_fwd(
-                scal.data_ptr(), x.data_ptr(), p.data_ptr(), E.data_ptr(),
-                lam.data_ptr(), st.data_ptr(), x_out.data_ptr(),
+                scal.data_ptr(), sph.data_ptr(), sph.shape[0], int(has_disk),
+                x.data_ptr(), p.data_ptr(), E.data_ptr(), lam.data_ptr(),
+                st.data_ptr(), obj.data_ptr(), x_out.data_ptr(),
                 p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
-                n, n_steps, power, _stream(x.device))
+                obj_out.data_ptr(), n, n_steps, power, _stream(x.device))
         _raise_on(rc, "rk4_fwd")
-        LAUNCHES += 1
-    return x_out, p_out, lam_out, st_out
+        if _events(sph, has_disk):
+            LAUNCHES_EV += 1
+        else:
+            LAUNCHES += 1
+    return x_out, p_out, lam_out, st_out, obj_out
 
 
-def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float):
+def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float,
+             *, sph=None, has_disk=False, obj=None):
     """Launch rk4_ckpt on flat tensors; returns the final (x, p, lam,
-    status) and the checkpoints (cx, cp, clam, cst), each of leading
-    dimension n_seg = ceil(n_steps / seg)."""
-    global LAUNCHES_CKPT
+    status, hit_obj) and the checkpoints (cx, cp, clam, cst), each of
+    leading dimension n_seg = ceil(n_steps / seg).  ``sph``, ``has_disk``
+    and ``obj`` as for rk4_fwd."""
+    global LAUNCHES_CKPT, LAUNCHES_CKPT_EV
+    sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
+    if obj is None:
+        obj = torch.full_like(st, -1)
     n = E.numel()
     n_seg = -(-n_steps // seg)
     x_out, p_out = torch.empty_like(x), torch.empty_like(p)
     lam_out, st_out = torch.empty_like(lam), torch.empty_like(st)
+    obj_out = torch.empty_like(obj)
     cx = x.new_empty((n_seg, n, 3))
     cp = p.new_empty((n_seg, n, 3))
     clam = lam.new_empty((n_seg, n))
@@ -203,69 +253,91 @@ def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float):
     if n:
         with torch.cuda.device(x.device):
             rc = _build.load().bhgc_rk4_ckpt(
-                scal.data_ptr(), x.data_ptr(), p.data_ptr(), E.data_ptr(),
-                lam.data_ptr(), st.data_ptr(), x_out.data_ptr(),
+                scal.data_ptr(), sph.data_ptr(), sph.shape[0], int(has_disk),
+                x.data_ptr(), p.data_ptr(), E.data_ptr(), lam.data_ptr(),
+                st.data_ptr(), obj.data_ptr(), x_out.data_ptr(),
                 p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
-                cx.data_ptr(), cp.data_ptr(), clam.data_ptr(), cst.data_ptr(),
-                n, n_steps, seg, power, _stream(x.device))
+                obj_out.data_ptr(), cx.data_ptr(), cp.data_ptr(),
+                clam.data_ptr(), cst.data_ptr(), n, n_steps, seg, power,
+                _stream(x.device))
         _raise_on(rc, "rk4_ckpt")
-        LAUNCHES_CKPT += 1
-    return x_out, p_out, lam_out, st_out, (cx, cp, clam, cst)
+        if _events(sph, has_disk):
+            LAUNCHES_CKPT_EV += 1
+        else:
+            LAUNCHES_CKPT += 1
+    return x_out, p_out, lam_out, st_out, obj_out, (cx, cp, clam, cst)
 
 
-def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float):
-    """Launch rk4_bwd: the cotangents (x, p, E) of the initial state and
-    the (NSCAL,) scalar cotangent, from the checkpoints of rk4_ckpt and
-    the cotangents ``gx``, ``gp`` of the final (x, p)."""
-    global LAUNCHES_BWD
+def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float,
+            *, sph=None, has_disk=False):
+    """Launch rk4_bwd: the cotangents (x, p, E) of the initial state, the
+    (NSCAL,) scalar cotangent and the (K, 4) sphere cotangent, from the
+    checkpoints of rk4_ckpt and the cotangents ``gx``, ``gp`` of the final
+    (x, p).  ``sph`` and ``has_disk`` as for rk4_ckpt."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_EV
     if not 1 <= seg <= MAX_SEG:
         raise ValueError(f"seg={seg} outside the adjoint's tape "
                          f"(1..{MAX_SEG} steps)")
+    sph = _no_spheres(E) if sph is None else sph.detach().contiguous()
+    n_sph = sph.shape[0]
     cx, cp, clam, cst = ckpts
     n = E.numel()
     bx, bp = torch.empty_like(gx), torch.empty_like(gp)
     bE = torch.empty_like(E)
     gscal = torch.zeros(NSCAL, dtype=torch.float32, device=E.device)
+    gsph = torch.zeros((n_sph, 4), dtype=torch.float32, device=E.device)
     if n:
         lib = _build.load()
-        partial = E.new_empty((lib.bhgc_rk4_bwd_blocks(n), 4))
+        partial = E.new_empty((lib.bhgc_rk4_bwd_blocks(n), 4 + 4 * n_sph))
         with torch.cuda.device(E.device):
             rc = lib.bhgc_rk4_bwd(
-                scal.data_ptr(), cx.data_ptr(), cp.data_ptr(),
-                clam.data_ptr(), cst.data_ptr(), E.data_ptr(),
-                gx.data_ptr(), gp.data_ptr(), bx.data_ptr(), bp.data_ptr(),
-                bE.data_ptr(), partial.data_ptr(), gscal.data_ptr(), n,
+                scal.data_ptr(), sph.data_ptr(), n_sph, int(has_disk),
+                cx.data_ptr(), cp.data_ptr(), clam.data_ptr(),
+                cst.data_ptr(), E.data_ptr(), gx.data_ptr(), gp.data_ptr(),
+                bx.data_ptr(), bp.data_ptr(), bE.data_ptr(),
+                partial.data_ptr(), gscal.data_ptr(), gsph.data_ptr(), n,
                 n_steps, seg, power, _stream(E.device))
         _raise_on(rc, "rk4_bwd")
-        LAUNCHES_BWD += 1
-    return bx, bp, bE, gscal
+        if _events(sph, has_disk):
+            LAUNCHES_BWD_EV += 1
+        else:
+            LAUNCHES_BWD += 1
+    return bx, bp, bE, gscal, gsph
 
 
 class RK4Adjoint(torch.autograd.Function):
-    """(x, p, E, scal) -> final (x, p, lam, status) through rk4_ckpt, with
-    rk4_bwd as the backward: the custom VJP of pallas_kernel.py:1467-1491.
+    """(x, p, E, scal, sph) -> final (x, p, lam, status, hit_obj) through
+    rk4_ckpt, with rk4_bwd as the backward: the custom VJP of
+    pallas_kernel.py:1467-1491.
 
-    lam and status are not differentiable; the scalar cotangent has zeros
-    for r_capture, r_escape and lam_max, as the event-free step has no
-    gradient with respect to them."""
+    lam, status and hit_obj are not differentiable; the scalar cotangent
+    has zeros for r_capture, r_escape, lam_max, r_in and r_out, which enter
+    the step only through comparisons; ``sph`` (the (K, 4) sphere table)
+    gets the sphere cotangent."""
 
     @staticmethod
-    def forward(ctx, x, p, E, scal, lam, st, n_steps, seg, power):
-        x1, p1, lam1, st1, ckpts = rk4_ckpt(scal, x, p, E, lam, st, n_steps,
-                                            seg, power)
-        ctx.save_for_backward(scal, E, *ckpts)
+    def forward(ctx, x, p, E, scal, sph, lam, st, obj, has_disk, n_steps,
+                seg, power):
+        x1, p1, lam1, st1, obj1, ckpts = rk4_ckpt(
+            scal, x, p, E, lam, st, n_steps, seg, power, sph=sph,
+            has_disk=has_disk, obj=obj)
+        ctx.save_for_backward(scal, sph, E, *ckpts)
         ctx.schedule = (n_steps, seg, power)
-        ctx.mark_non_differentiable(lam1, st1)
-        return x1, p1, lam1, st1
+        ctx.has_disk = has_disk
+        ctx.mark_non_differentiable(lam1, st1, obj1)
+        return x1, p1, lam1, st1, obj1
 
     @staticmethod
-    def backward(ctx, gx, gp, _glam, _gst):
-        scal, E, *ckpts = ctx.saved_tensors
+    def backward(ctx, gx, gp, _glam, _gst, _gobj):
+        scal, sph, E, *ckpts = ctx.saved_tensors
         n = E.numel()
         gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
         gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
-        bx, bp, bE, gscal = rk4_bwd(scal, ckpts, E, gx, gp, *ctx.schedule)
-        return bx, bp, bE, gscal, None, None, None, None, None
+        bx, bp, bE, gscal, gsph = rk4_bwd(scal, ckpts, E, gx, gp,
+                                          *ctx.schedule, sph=sph,
+                                          has_disk=ctx.has_disk)
+        return (bx, bp, bE, gscal, gsph, None, None, None, None, None, None,
+                None)
 
 
 def integrate_cuda(env: GeodesicEnv, s0: RayState,
@@ -285,15 +357,22 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
     E = _flat(s0.E, batch, (), torch.float32, "E")
     lam = _flat(s0.lam, batch, (), torch.float32, "lam")
     st = _flat(s0.status, batch, (), torch.int32, "status")
-    _check_device(x, p=p, E=E, lam=lam, status=st)
+    obj = _flat(s0.hit_obj, batch, (), torch.int32, "hit_obj")
+    _check_device(x, p=p, E=E, lam=lam, status=st, hit_obj=obj)
     scal = _scalars(env, cfg, x.device)
+    sph = _sphere_table(env, x.device)
+    has_disk = env.disk is not None
     n_steps, power = int(cfg.n_steps), float(cfg.dt_power)
 
     if needs_grad(env, s0):
-        x1, p1, lam1, st1 = RK4Adjoint.apply(
-            x, p, E, scal, lam, st, n_steps, segment(n_steps), power)
+        x1, p1, lam1, st1, obj1 = RK4Adjoint.apply(
+            x, p, E, scal, sph, lam, st, obj, has_disk, n_steps,
+            segment(n_steps), power)
     else:
-        x1, p1, lam1, st1 = rk4_fwd(scal, x, p, E, lam, st, n_steps, power)
+        x1, p1, lam1, st1, obj1 = rk4_fwd(
+            scal, x, p, E, lam, st, n_steps, power, sph=sph,
+            has_disk=has_disk, obj=obj)
     return dataclasses.replace(
         s0, x=x1.reshape(batch + (3,)), p=p1.reshape(batch + (3,)),
-        lam=lam1.reshape(batch), status=st1.reshape(batch))
+        lam=lam1.reshape(batch), status=st1.reshape(batch),
+        hit_obj=obj1.reshape(batch))

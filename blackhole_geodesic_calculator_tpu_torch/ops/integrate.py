@@ -8,9 +8,10 @@ kernels (ops/cuda_kernel.py) for tensors on a CUDA device and the plain
 PyTorch step loops below for tensors on the CPU: ``integrate_fixed`` when
 autograd records the call, ``integrate_fixed_fast`` otherwise.
 
-This slice is the Schwarzschild path with no disk and no spheres, forward
-and backward: the event geometry dataclasses are carried as data, and a
-configuration that needs disk or sphere events, spin, Dormand-Prince or
+This slice is the Schwarzschild path, forward and backward, with the
+segment events of a z = 0 disk and of K spheres: a ray whose step crosses
+the disk annulus or enters a sphere freezes at the interpolated event point
+(DISK or OBJECT).  A configuration that needs spin, Dormand-Prince or
 timelike rays raises ``NotImplementedError``.
 """
 
@@ -120,17 +121,72 @@ def rk4_step(env: GeodesicEnv, x, p, E, dt):
     return x1, p1
 
 
+# =============================================================================
+# Event detection on one segment x0 -> x1 (straight-segment semantics).
+# =============================================================================
+_INF = float("inf")
+
+
+def _disk_event(env: GeodesicEnv, x0, x1):
+    """First z = 0 crossing inside the annulus; (t in [0, 1] or inf, the
+    crossing point with z = 0)."""
+    z0, z1 = x0[..., 2], x1[..., 2]
+    crossed = ((z1 < 0) & (z0 >= 0)) | ((z1 > 0) & (z0 <= 0))
+    denom = z1 - z0
+    t = -z0 / torch.where(torch.abs(denom) > 0, denom,
+                          torch.ones_like(denom))
+    pt = x0 + (x1 - x0) * t[..., None]
+    rr = torch.sqrt(pt[..., 0] ** 2 + pt[..., 1] ** 2)
+    hit = crossed & (rr >= env.disk.r_in) & (rr <= env.disk.r_out)
+    pt = torch.cat([pt[..., :2], torch.zeros_like(pt[..., 2:])], dim=-1)
+    return torch.where(hit, t, _INF), pt
+
+
+def _sphere_events(env: GeodesicEnv, x0, x1):
+    """Earliest sphere entry on the segment; (t or inf, point, sphere id or
+    -1).  Ties go to the lowest sphere index."""
+    c = env.spheres.center          # (K, 3)
+    rad = env.spheres.radius        # (K,)
+    d = (x1 - x0)[..., None, :]     # (..., 1, 3)
+    o = x0[..., None, :] - c        # (..., K, 3)
+    aa = torch.sum(d * d, dim=-1)
+    bb = 2.0 * torch.sum(o * d, dim=-1)
+    cc = torch.sum(o * o, dim=-1) - rad * rad
+    disc = bb * bb - 4.0 * aa * cc
+    # sqrt(max(disc, 0)) has a 0 * inf = NaN jacobian where clamped (every
+    # ray that misses): the unselected branch gets a harmless argument so
+    # zero cotangents stay zero
+    sq = torch.sqrt(torch.where(disc > 0, disc, torch.ones_like(disc)))
+    t = (-bb - sq) / torch.where(aa > 0, 2.0 * aa, torch.ones_like(aa))
+    valid = (disc > 0) & (t >= 0.0) & (t <= 1.0)
+    t = torch.where(valid, t, _INF)            # (..., K)
+    t_best, k_best = torch.min(t, dim=-1)      # first index of the minimum
+    hit = torch.isfinite(t_best)
+    # the miss point x0 + 0 * inf would be NaN forward and backward
+    t_pt = torch.where(hit, t_best, torch.zeros_like(t_best))
+    pt = x0 + (x1 - x0) * t_pt[..., None]
+    obj = torch.where(hit, k_best, -1).to(torch.int32)
+    return t_best, pt, obj
+
+
 def _apply_events(env: GeodesicEnv, s: RayState, x1, p1, dt) -> RayState:
     """Classify the step x -> x1 and merge it into the frozen-state carry.
 
-    Priority, lowest first: BUDGET, ESCAPED, CAPTURED, ERROR.  A ray whose
-    step is non-finite keeps its old x and p.
+    Priority, lowest first: BUDGET, ESCAPED, CAPTURED, ERROR; then a sphere
+    hit (OBJECT), then a disk crossing (DISK) that comes no later on the
+    segment than the sphere hit.  A ray whose step is non-finite keeps its
+    old x and p.  Event rays freeze at the interpolated event point: x is
+    that point (z = 0 on the disk), lam gets the fraction of the step and
+    p is the step's endpoint momentum.
     """
-    if env.disk is not None or env.spheres is not None:
-        raise NotImplementedError(
-            "disk and sphere events are not ported yet; they come with the "
-            "event variants of the integrator kernels")
     active = s.active
+
+    t_disk = _INF
+    if env.disk is not None:
+        t_disk, disk_pt = _disk_event(env, s.x, x1)
+    t_sph = _INF
+    if env.spheres is not None:
+        t_sph, sph_pt, sph_obj = _sphere_events(env, s.x, x1)
 
     r1 = env.radius(x1)
     lam1 = s.lam + dt
@@ -145,16 +201,31 @@ def _apply_events(env: GeodesicEnv, s: RayState, x1, p1, dt) -> RayState:
     status = status.masked_fill(escaped, states.ESCAPED)
     status = status.masked_fill(captured, states.CAPTURED)
     status = status.masked_fill(~finite, states.ERROR)
+    if env.spheres is not None:
+        status = status.masked_fill(torch.isfinite(t_sph), states.OBJECT)
+    if env.disk is not None:
+        disk_wins = torch.isfinite(t_disk) & (t_disk <= t_sph)
+        status = status.masked_fill(disk_wins, states.DISK)
     status = torch.where(active, status, s.status)
 
     upd = (active & finite)[..., None]
+    x = torch.where(upd, x1, s.x)
+    lam = torch.where(active, lam1, s.lam)
+    hit_obj = s.hit_obj
+    if env.spheres is not None:
+        sel = active & (status == states.OBJECT)
+        ts = torch.where(torch.isfinite(t_sph), t_sph, 0.0)
+        x = torch.where(sel[..., None], sph_pt, x)
+        lam = torch.where(sel, s.lam + dt * ts, lam)
+        hit_obj = torch.where(sel, sph_obj, hit_obj)
+    if env.disk is not None:
+        sel = active & (status == states.DISK)
+        td = torch.where(torch.isfinite(t_disk), t_disk, 0.0)
+        x = torch.where(sel[..., None], disk_pt, x)
+        lam = torch.where(sel, s.lam + dt * td, lam)
     return dataclasses.replace(
-        s,
-        x=torch.where(upd, x1, s.x),
-        p=torch.where(upd, p1, s.p),
-        lam=torch.where(active, lam1, s.lam),
-        status=status,
-    )
+        s, x=x, p=torch.where(upd, p1, s.p), lam=lam, status=status,
+        hit_obj=hit_obj)
 
 
 # =============================================================================
@@ -203,7 +274,7 @@ def _steps(env, cfg, n, x, p, E, lam, status, hit_obj):
     s = RayState(x=x, p=p, E=E, lam=lam, status=status, hit_obj=hit_obj)
     for _ in range(n):
         s = _fixed_step(env, cfg, s)
-    return s.x, s.p, s.lam, s.status
+    return s.x, s.p, s.lam, s.status, s.hit_obj
 
 
 def integrate_fixed(env: GeodesicEnv, s0: RayState,
@@ -217,26 +288,28 @@ def integrate_fixed(env: GeodesicEnv, s0: RayState,
     ``integrate_fixed_fast``: a frozen ray is an identity under the step."""
     seg = cfg.remat_segment or max(1, int(cfg.n_steps ** 0.5))
     n_full, rem = divmod(cfg.n_steps, seg)
-    x, p, lam, st = s0.x, s0.p, s0.lam, s0.status
+    x, p, lam, st, obj = s0.x, s0.p, s0.lam, s0.status, s0.hit_obj
     for _ in range(n_full):
-        args = (env, cfg, seg, x, p, s0.E, lam, st, s0.hit_obj)
+        args = (env, cfg, seg, x, p, s0.E, lam, st, obj)
         if seg > 1:
-            x, p, lam, st = torch.utils.checkpoint.checkpoint(
+            x, p, lam, st, obj = torch.utils.checkpoint.checkpoint(
                 _steps, *args, use_reentrant=False)
         else:
-            x, p, lam, st = _steps(*args)
-    x, p, lam, st = _steps(env, cfg, rem, x, p, s0.E, lam, st, s0.hit_obj)
-    return RayState(x=x, p=p, E=s0.E, lam=lam, status=st,
-                    hit_obj=s0.hit_obj)
+            x, p, lam, st, obj = _steps(*args)
+    x, p, lam, st, obj = _steps(env, cfg, rem, x, p, s0.E, lam, st, obj)
+    return RayState(x=x, p=p, E=s0.E, lam=lam, status=st, hit_obj=obj)
 
 
 def needs_grad(env: GeodesicEnv, s0: RayState) -> bool:
     """Whether autograd records this integration: grad mode is on and an
-    input of the step (state or environment) requires a gradient."""
+    input of the step (state or environment, sphere geometry included)
+    requires a gradient."""
     if not torch.is_grad_enabled():
         return False
-    leaves = (s0.x, s0.p, s0.E, s0.lam, env.mass, env.r_capture,
-              env.r_escape, env.lam_max)
+    leaves = [s0.x, s0.p, s0.E, s0.lam, env.mass, env.r_capture,
+              env.r_escape, env.lam_max]
+    if env.spheres is not None:
+        leaves += [env.spheres.center, env.spheres.radius]
     return any(isinstance(t, torch.Tensor) and t.requires_grad
                for t in leaves)
 

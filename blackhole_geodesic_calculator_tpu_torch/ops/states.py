@@ -26,9 +26,12 @@ ERROR = 7         # non-finite state: rendered as red
 class RayState:
     """Structure-of-arrays state for a batch of rays; all leaves share (...,).
 
-    x, p     : position / spatial covariant momentum, (..., 3) float32
+    x, p     : position / spatial covariant momentum, (..., 3) float32;
+               for DISK and OBJECT rays ``x`` is the interpolated event
+               point, so every shading input is a function of (x, p)
     E        : conserved energy -p_t, set once by the null condition
-    lam      : accumulated affine parameter
+    lam      : accumulated affine parameter; event rays get the
+               interpolated fraction of their last step
     status   : termination taxonomy above, int32
     hit_obj  : sphere index for OBJECT hits, else -1, int32
     """
@@ -43,6 +46,15 @@ class RayState:
     @property
     def active(self) -> torch.Tensor:
         return self.status == ACTIVE
+
+    def hit_normal(self, centers: torch.Tensor) -> torch.Tensor:
+        """Outward unit normal at a sphere hit: normalize(x - center[obj]).
+        Rays that hit nothing (hit_obj -1) read sphere 0; the shader
+        selects them away."""
+        obj = torch.clamp(self.hit_obj, 0, centers.shape[0] - 1).long()
+        n = self.x - centers[obj]
+        return n / torch.clamp_min(torch.linalg.norm(n, dim=-1, keepdim=True),
+                                   1e-20)
 
 
 def init_state(x0: torch.Tensor, p0: torch.Tensor,

@@ -4,9 +4,10 @@ render/renderer.py).
 Camera ray generation, the batched geodesic integration and shading run
 in turn on the tensors' device; on a CUDA device the integration is the
 hand-written kernels of ops/cuda_kernel.py.  The image is differentiable
-with respect to the mass, the camera position and the sky: every step is
-a tensor operation autograd records, the integrator through its
-checkpointed adjoint and the sky lookup through its hand-written backward.
+with respect to the mass, the camera position, the sky and disk textures,
+the sphere geometry and every shading parameter: every step is a tensor
+operation autograd records, the integrator through its checkpointed
+adjoint and the texture lookups through their hand-written backward.
 """
 
 from __future__ import annotations
@@ -65,9 +66,10 @@ class RenderConfig:
 
 
 def scene_env(scene: Scene, cfg: RenderConfig, cam: Camera) -> GeodesicEnv:
-    """Build the integrator environment in BH-centred coordinates.
-
-    r_escape and the mass stay tensors on the scene's device."""
+    """Build the integrator environment in BH-centred coordinates: the
+    sphere centres are shifted by the hole's location, the disk lies in the
+    hole's z = 0 plane.  r_escape, the mass and the sphere geometry stay
+    tensors on the scene's device, in the autograd graph."""
     if scene.bh.spin is not None:
         raise NotImplementedError(
             "Kerr scenes (spin) are not ported yet")

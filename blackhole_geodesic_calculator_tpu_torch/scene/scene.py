@@ -1,9 +1,9 @@
 """Scene description -- pure data (PyTorch port of scene/scene.py).
 
-Every physical quantity is a float32 tensor on the scene's device.  This
-slice renders the black hole against the sky; Disk, Spheres and Lights are
-carried as data and raise in the integrator and the shader until their
-events and shading are ported.
+Every physical quantity is a float32 tensor on the scene's device: the
+black hole, the sky, a z = 0 accretion disk, textured spheres and point
+lights.  Kerr spin is carried as data and raises in the renderer until it
+is ported.
 """
 
 from __future__ import annotations

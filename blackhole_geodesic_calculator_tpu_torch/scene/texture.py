@@ -93,13 +93,39 @@ def sample_bpy(tex: torch.Tensor, x: torch.Tensor,
     return _SampleBpy.apply(tex, x, y)
 
 
-def sample_equirect(tex: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
-    """Equirectangular environment lookup from a unit direction:
+def equirect_uv(direction: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """bpy coords of a unit direction in an equirect texture:
 
         theta = 1 - arccos(d_z)/pi
         phi   = atan2(d_y, d_x)/pi
-        color = tex.evaluate((-phi, 2*theta - 1))
+        uv    = (-phi, 2*theta - 1)
     """
     theta = 1.0 - safe_arccos(direction[..., 2]) / math.pi
     phi = safe_arctan2(direction[..., 1], direction[..., 0]) / math.pi
-    return sample_bpy(tex, -phi, 2.0 * theta - 1.0)
+    return -phi, 2.0 * theta - 1.0
+
+
+def sample_equirect(tex: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Equirectangular environment lookup from a unit direction."""
+    return sample_bpy(tex, *equirect_uv(direction))
+
+
+def sphere_uv_bpy(normal: torch.Tensor,
+                  compat_arctan: bool = True) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Spherical UV of a unit normal, the reference's emission-shader
+    convention:
+
+        th = arccos(n_z); ph = arctan(n_y / n_x)   [arctan, not atan2]
+        coords = (ph / (2 pi), th / pi)
+
+    ``compat_arctan=False`` takes atan2 instead (a seamless 360-degree
+    wrap)."""
+    th = safe_arccos(normal[..., 2])
+    if compat_arctan:
+        nx = normal[..., 0]
+        ph = torch.arctan(normal[..., 1] / torch.where(
+            torch.abs(nx) > 1e-20, nx, torch.full_like(nx, 1e-20)))
+    else:
+        ph = torch.atan2(normal[..., 1], normal[..., 0])
+    return ph / (2.0 * math.pi), th / math.pi

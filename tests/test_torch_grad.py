@@ -142,7 +142,7 @@ def test_step_size_vjp_matches_jax(power):
 def test_step_adjoint_matches_jax(power):
     """adjoint.step_adjoint against the TPU kernel's _step_adjoint."""
     x, p, E, status, g = step_inputs()
-    g6, gE, gscal = adjoint.step_adjoint(
+    g6, gE, gscal, _ = adjoint.step_adjoint(
         tuple(map(T, x)), tuple(map(T, p)), T(E), T(status), T(SCAL),
         tuple(map(T, g)), power)
     jg6, jgE, jgscal, _ = jpk._step_adjoint(
@@ -183,7 +183,7 @@ def test_step_adjoint_matches_autograd(power):
     loss.backward()
 
     scal = cuda_kernel._scalars(env, cfg, torch.device("cpu")).detach()
-    g6, gE, gscal = adjoint.step_adjoint(
+    g6, gE, gscal, _ = adjoint.step_adjoint(
         tuple(map(T, x)), tuple(map(T, p)), T(E), T(status), scal,
         tuple(map(T, g)), power)
     close(torch.stack(g6[:3], -1), xl.grad, 1e-5, "dx")

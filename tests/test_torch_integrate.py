@@ -168,22 +168,22 @@ def _state(n=8):
     return tstates.init_state(x, p, E)
 
 
-@pytest.mark.parametrize("case", ["disk", "spheres", "spin", "dopri"])
+@pytest.mark.parametrize("case", ["spin-events", "spin", "dopri"])
 def test_out_of_slice_raises(case):
     """Configurations outside this slice raise, on the CUDA entry and on the
-    plain path."""
+    plain path: Kerr, with and without disk and sphere events, and
+    Dormand-Prince."""
     _, env = envs()
     s0 = _state()
     cfg = tint.IntegratorConfig(**FLAGSHIP)
-    if case == "disk":
+    if case.startswith("spin"):
+        env.spin = torch.tensor(0.45)
+    if case == "spin-events":
         env.disk = tint.DiskGeom(r_in=torch.tensor(2.0),
                                  r_out=torch.tensor(6.0))
-    elif case == "spheres":
         env.spheres = tint.SphereGeom(center=torch.zeros(1, 3),
                                       radius=torch.ones(1))
-    elif case == "spin":
-        env.spin = torch.tensor(0.45)
-    else:
+    elif case == "dopri":
         cfg = dataclasses.replace(cfg, method="dopri")
     with pytest.raises(NotImplementedError):
         cuda_kernel.integrate_cuda(env, s0, cfg)

@@ -125,10 +125,6 @@ def test_out_of_slice_renders_raise():
     tscene, tcam, tcfg = port(scene, cam, cfg)
     with pytest.raises(NotImplementedError):
         render_image(tscene, tcam, dataclasses.replace(tcfg, samples=2))
-    disk = JDisk.make(r_in=2.0, r_out=6.0, texture=np.ones((4, 8, 3)))
-    with pytest.raises(NotImplementedError):
-        render_image(convert.scene_from_reference(
-            dataclasses.replace(scene, disk=disk)), tcam, tcfg)
     spun = dataclasses.replace(scene, bh=JBlackHole.make(mass=0.5,
                                                          spin=0.45))
     with pytest.raises(NotImplementedError):
