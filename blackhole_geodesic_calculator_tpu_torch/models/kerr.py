@@ -1,0 +1,50 @@
+"""Kerr metric in Kerr-Schild Cartesian form, spin parameter ``a`` (PyTorch
+port of models/kerr.py:32-50, :72-74).
+
+    g_{mu nu} = eta_{mu nu} + 2 H l_mu l_nu
+
+    H   = M r^3 / (r^4 + a^2 z^2)
+    l_mu = (1, (r x + a y)/(r^2 + a^2), (r y - a x)/(r^2 + a^2), z/r)
+
+with the Kerr-Schild radius r(x, y, z) solving
+
+    r^4 - (rho^2 - a^2) r^2 - a^2 z^2 = 0,   rho^2 = x^2 + y^2 + z^2.
+
+``a = 0`` is Schwarzschild in Kerr-Schild form; the spin axis is +z.  ``a``
+is the dimensionful a = J / M (0.45 for M = 0.5 is a/M = 0.9).  The
+``Metric`` object of the JAX module comes with polarization transport.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def ks_radius(x3: torch.Tensor, a) -> torch.Tensor:
+    """Kerr-Schild radius r(x, y, z); equals |x3| when a = 0.  No floor:
+    the integrator kernels floor r^2 at 1e-12, the plain path does not,
+    as in the JAX package."""
+    rho2 = torch.sum(x3 * x3, dim=-1)
+    z2 = x3[..., 2] * x3[..., 2]
+    b = rho2 - a * a
+    r2 = 0.5 * (b + torch.sqrt(b * b + 4.0 * a * a * z2))
+    return torch.sqrt(r2)
+
+
+def ks_scalars(x3: torch.Tensor, mass, a):
+    """(H, l3): the Kerr-Schild potential and the spatial null covector."""
+    r = ks_radius(x3, a)
+    x, y, z = x3[..., 0], x3[..., 1], x3[..., 2]
+    r2a2 = r * r + a * a
+    lx = (r * x + a * y) / r2a2
+    ly = (r * y - a * x) / r2a2
+    lz = z / r
+    H = mass * r**3 / (r**4 + a * a * z * z)
+    return H, torch.stack([lx, ly, lz], dim=-1)
+
+
+def horizon_radius(mass, a):
+    """Outer event horizon r_+ = M + sqrt(M^2 - a^2) (Kerr-Schild r)."""
+    mass = torch.as_tensor(mass, dtype=torch.float32)
+    a = torch.as_tensor(a, dtype=torch.float32, device=mass.device)
+    return mass + torch.sqrt(torch.clamp_min(mass * mass - a * a, 0.0))

@@ -1,14 +1,17 @@
 """The exact discrete adjoint of one RK4 step, written by hand.
 
 Counterpart of ``_step_adjoint`` (pallas_kernel.py:1025-1153) for the step
-the gradient path runs: Schwarzschild, with or without the disk and sphere
-events.  It is the plain PyTorch statement of what ``csrc/rk4_bwd.cu``
-computes, line for line:
+the gradient path runs: Schwarzschild or Kerr, with or without the disk and
+sphere events.  It is the plain PyTorch statement of what
+``csrc/rk4_bwd.cu`` computes, line for line:
 
 * ``rhs_vjp`` -- the VJP of ``_rhs_schw_soa`` (:63-81), including the
   ``r^2 >= 1e-12`` floor;
+* ``rhs_kerr_vjp`` -- the VJP of ``_rhs_kerr_soa`` (:84-142), derived by
+  hand in reverse mode, with no gradient below its r^2 and r S floors;
 * ``step_size_vjp`` -- the VJP of ``_dt_soa`` (:156-175) for the four step
-  size powers and the clip to [1, boost];
+  size powers and the clip to [1, boost], on the Euclidean radius or, for
+  Kerr, the floored Kerr-Schild radius of ``_ks_radius_soa`` (:145-153);
 * ``segment_events`` and ``events_vjp`` -- the event detection of
   ``_events_merge`` (:211-270) and, derived by hand, the transpose of its
   position merge (what the TPU kernel takes with ``jax.vjp`` of
@@ -31,17 +34,20 @@ the kernel skips it, and here its contributions are masked to zero, so no
 selected event carries a cotangent: a miss, an unselected sphere and a disk
 crossing that lost to a sphere add exact zeros.  The scalars r_in, r_out,
 r_capture, r_escape and lam_max enter only through comparisons, so their
-cotangents are zero.
+cotangents are zero; so does the Kerr endpoint radius, so the event tail's
+transpose is the same for Kerr.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .geodesic import kerr_rhs_soa
 from .states import ACTIVE
 
 NSCAL = 10
 R2_FLOOR = 1e-12
+SPIN = 9   # the spin's entry of the scalar vector
 
 
 def rhs(mass, E, a, b):
@@ -115,6 +121,186 @@ def rhs_vjp(mass, E, a, b, g):
     return (ga0, ga1, ga2, gb0, gb1, gb2), g_E, g_mass
 
 
+def rhs_kerr_vjp(mass, spin, E, a, b, g):
+    """VJP of the Kerr RHS ``geodesic.kerr_rhs_soa`` at position ``a`` and
+    momentum ``b`` (3-tuples) for the output cotangent ``g``.
+
+    Returns (g_ab, g_E, g_mass, g_spin): the 6-tuple cotangent of (a, b)
+    and the per-ray cotangents of E, the mass and the spin.  The forward
+    intermediates are those of ``_rhs_kerr_soa``, with its dw_i collected
+    as C dr_i + e_i (C the part common to the three, e_i the rest); the
+    lines below transpose them in reverse.  Below the r^2 floor and the
+    r S floor no gradient passes, as through ``max`` in JAX."""
+    a0, a1, a2 = a
+    b0, b1, b2 = b
+    gx0, gx1, gx2, gp0, gp1, gp2 = g
+    zero = torch.zeros_like(a0)
+    # --- forward ---------------------------------------------------------
+    s2 = spin * spin
+    rho2 = a0 * a0 + a1 * a1 + a2 * a2
+    bq = rho2 - s2
+    S = torch.sqrt(bq * bq + 4.0 * s2 * a2 * a2)
+    r2raw = 0.5 * (bq + S)
+    r2 = torch.clamp_min(r2raw, R2_FLOOR)
+    r = torch.sqrt(r2)
+    rS = r * S
+    inv_rS = 1.0 / torch.clamp_min(rS, R2_FLOOR)
+    az = s2 * a2
+    dr0 = r2 * a0 * inv_rS
+    dr1 = r2 * a1 * inv_rS
+    dr2 = (r2 * a2 + az) * inv_rS
+    inv_A = 1.0 / (r2 + s2)
+    n0 = r * a0 + spin * a1
+    n1 = r * a1 - spin * a0
+    l0, l1, l2 = n0 * inv_A, n1 * inv_A, a2 / r
+    D = r2 * r2 + az * a2
+    inv_D = 1.0 / D
+    inv_D2 = inv_D * inv_D
+    H = mass * r * r2 * inv_D
+    w = E + l0 * b0 + l1 * b1 + l2 * b2
+    q = 2.0 * H
+    P = 3.0 * r2 * D - 4.0 * r2 * r2 * r2
+    hcoef = mass * P * inv_D2
+    K = 2.0 * mass * az * r * r2 * inv_D2
+    dH0, dH1, dH2 = hcoef * dr0, hcoef * dr1, hcoef * dr2 - K
+    twoR_A2 = 2.0 * r * inv_A * inv_A
+    inv_r2 = 1.0 / r2
+    C = (b0 * a0 + b1 * a1) * inv_A - (b0 * n0 + b1 * n1) * twoR_A2 \
+        - b2 * a2 * inv_r2
+    dw0 = C * dr0 + (b0 * r - b1 * spin) * inv_A
+    dw1 = C * dr1 + (b0 * spin + b1 * r) * inv_A
+    dw2 = C * dr2 + b2 / r
+    w2, qw = w * w, q * w
+
+    # --- reverse ---------------------------------------------------------
+    # kx = b - qw l,  kp = w2 dH + qw dw
+    g_qw = -(gx0 * l0 + gx1 * l1 + gx2 * l2) + gp0 * dw0 + gp1 * dw1 \
+        + gp2 * dw2
+    g_w2 = gp0 * dH0 + gp1 * dH1 + gp2 * dH2
+    gb0, gb1, gb2 = gx0, gx1, gx2
+    gl0, gl1, gl2 = -qw * gx0, -qw * gx1, -qw * gx2
+    gdH0, gdH1, gdH2 = w2 * gp0, w2 * gp1, w2 * gp2
+    gdw0, gdw1, gdw2 = qw * gp0, qw * gp1, qw * gp2
+    # w2 = w^2,  qw = q w
+    g_w = 2.0 * w * g_w2 + q * g_qw
+    g_q = w * g_qw
+    # dw_i = C dr_i + e_i
+    g_C = gdw0 * dr0 + gdw1 * dr1 + gdw2 * dr2
+    gdr0, gdr1, gdr2 = gdw0 * C, gdw1 * C, gdw2 * C
+    g_invA = gdw0 * (b0 * r - b1 * spin) + gdw1 * (b0 * spin + b1 * r)
+    g_r = (gdw0 * b0 + gdw1 * b1) * inv_A - gdw2 * b2 * inv_r2
+    g_spin = (gdw1 * b0 - gdw0 * b1) * inv_A
+    gb0 = gb0 + (gdw0 * r + gdw1 * spin) * inv_A
+    gb1 = gb1 + (gdw1 * r - gdw0 * spin) * inv_A
+    gb2 = gb2 + gdw2 / r
+    # C = (b0 a0 + b1 a1) inv_A - (b0 n0 + b1 n1) twoR_A2 - b2 a2 inv_r2
+    gb0 = gb0 + g_C * (a0 * inv_A - n0 * twoR_A2)
+    gb1 = gb1 + g_C * (a1 * inv_A - n1 * twoR_A2)
+    gb2 = gb2 - g_C * a2 * inv_r2
+    ga0, ga1, ga2 = g_C * b0 * inv_A, g_C * b1 * inv_A, -g_C * b2 * inv_r2
+    g_invA = g_invA + g_C * (b0 * a0 + b1 * a1)
+    gn0, gn1 = -g_C * b0 * twoR_A2, -g_C * b1 * twoR_A2
+    g_twoR = -g_C * (b0 * n0 + b1 * n1)
+    g_invr2 = -g_C * b2 * a2
+    # dH_i = hcoef dr_i (dH2 - K)
+    g_hcoef = gdH0 * dr0 + gdH1 * dr1 + gdH2 * dr2
+    gdr0, gdr1, gdr2 = (gdr0 + gdH0 * hcoef, gdr1 + gdH1 * hcoef,
+                        gdr2 + gdH2 * hcoef)
+    # K = 2 M az r r2 inv_D^2
+    g_K = -gdH2
+    g_mass = g_K * 2.0 * az * r * r2 * inv_D2
+    g_az = g_K * 2.0 * mass * r * r2 * inv_D2
+    g_r = g_r + g_K * 2.0 * mass * az * r2 * inv_D2
+    g_r2 = g_K * 2.0 * mass * az * r * inv_D2
+    g_invD = g_K * 4.0 * mass * az * r * r2 * inv_D
+    # hcoef = M P inv_D^2,  P = 3 r2 D - 4 r2^3
+    g_mass = g_mass + g_hcoef * P * inv_D2
+    g_P = g_hcoef * mass * inv_D2
+    g_invD = g_invD + g_hcoef * mass * P * 2.0 * inv_D
+    g_r2 = g_r2 + g_P * (3.0 * D - 12.0 * r2 * r2)
+    g_D = g_P * 3.0 * r2
+    # q = 2 H,  w = E + l.b
+    g_H = 2.0 * g_q
+    g_E = g_w
+    gl0, gl1, gl2 = gl0 + g_w * b0, gl1 + g_w * b1, gl2 + g_w * b2
+    gb0, gb1, gb2 = gb0 + g_w * l0, gb1 + g_w * l1, gb2 + g_w * l2
+    # H = M r r2 inv_D
+    g_mass = g_mass + g_H * r * r2 * inv_D
+    g_r = g_r + g_H * mass * r2 * inv_D
+    g_r2 = g_r2 + g_H * mass * r * inv_D
+    g_invD = g_invD + g_H * mass * r * r2
+    # inv_D = 1 / D,  D = r2^2 + az a2
+    g_D = g_D - g_invD * inv_D2
+    g_r2 = g_r2 + g_D * 2.0 * r2
+    g_az = g_az + g_D * a2
+    ga2 = ga2 + g_D * az
+    # l0 = n0 inv_A,  l1 = n1 inv_A,  l2 = a2 / r
+    gn0, gn1 = gn0 + gl0 * inv_A, gn1 + gl1 * inv_A
+    g_invA = g_invA + gl0 * n0 + gl1 * n1
+    ga2 = ga2 + gl2 / r
+    g_r = g_r - gl2 * l2 / r
+    # n0 = r a0 + a a1,  n1 = r a1 - a a0
+    g_r = g_r + gn0 * a0 + gn1 * a1
+    ga0 = ga0 + gn0 * r - gn1 * spin
+    ga1 = ga1 + gn0 * spin + gn1 * r
+    g_spin = g_spin + gn0 * a1 - gn1 * a0
+    # twoR_A2 = 2 r inv_A^2,  inv_r2 = 1 / r2
+    g_r = g_r + g_twoR * 2.0 * inv_A * inv_A
+    g_invA = g_invA + g_twoR * 4.0 * r * inv_A
+    g_r2 = g_r2 - g_invr2 * inv_r2 * inv_r2
+    # inv_A = 1 / A,  A = r2 + a^2
+    g_A = -g_invA * inv_A * inv_A
+    g_r2 = g_r2 + g_A
+    g_s2 = g_A
+    # dr0 = r2 a0 inv_rS,  dr1 = r2 a1 inv_rS,  dr2 = (r2 a2 + az) inv_rS
+    g_r2 = g_r2 + (gdr0 * a0 + gdr1 * a1 + gdr2 * a2) * inv_rS
+    ga0 = ga0 + gdr0 * r2 * inv_rS
+    ga1 = ga1 + gdr1 * r2 * inv_rS
+    ga2 = ga2 + gdr2 * r2 * inv_rS
+    g_az = g_az + gdr2 * inv_rS
+    g_invrS = gdr0 * r2 * a0 + gdr1 * r2 * a1 + gdr2 * (r2 * a2 + az)
+    # az = a^2 a2
+    g_s2 = g_s2 + g_az * a2
+    ga2 = ga2 + g_az * s2
+    # inv_rS = 1 / max(r S, floor): no gradient below the floor
+    g_rS = torch.where(rS > R2_FLOOR, -g_invrS * inv_rS * inv_rS, zero)
+    g_r = g_r + g_rS * S
+    g_S = g_rS * r
+    # r = sqrt(r2)
+    g_r2 = g_r2 + 0.5 * g_r / r
+    # r2 = max((bq + S) / 2, floor): no gradient below the floor
+    g_r2 = torch.where(r2raw > R2_FLOOR, g_r2, zero)
+    g_bq = 0.5 * g_r2
+    g_S = g_S + 0.5 * g_r2
+    # S = sqrt(bq^2 + 4 a^2 a2^2); S = 0 only on the ring singularity
+    g_Sq = torch.where(S > 0, 0.5 * g_S / torch.where(S > 0, S, 1.0), zero)
+    g_bq = g_bq + 2.0 * bq * g_Sq
+    g_s2 = g_s2 + 4.0 * a2 * a2 * g_Sq
+    ga2 = ga2 + 8.0 * s2 * a2 * g_Sq
+    # bq = rho2 - a^2,  rho2 = a.a,  s2 = a^2
+    g_s2 = g_s2 - g_bq
+    ga0, ga1, ga2 = (ga0 + 2.0 * a0 * g_bq, ga1 + 2.0 * a1 * g_bq,
+                     ga2 + 2.0 * a2 * g_bq)
+    g_spin = g_spin + 2.0 * spin * g_s2
+    return (ga0, ga1, ga2, gb0, gb1, gb2), g_E, g_mass, g_spin
+
+
+def radius(a, spin=None):
+    """The step-size and endpoint radius of the kernels: Euclidean, or for
+    Kerr (``spin`` not None) the Kerr-Schild radius with r^2 floored at
+    1e-12 (``_ks_radius_soa``).  Returns (radius, r^2 before the floor,
+    S = sqrt((rho^2 - a^2)^2 + 4 a^2 z^2)); the last two are None for
+    Schwarzschild."""
+    a0, a1, a2 = a
+    rho2 = a0 * a0 + a1 * a1 + a2 * a2
+    if spin is None:
+        return torch.sqrt(rho2), None, None
+    bq = rho2 - spin * spin
+    S = torch.sqrt(bq * bq + 4.0 * spin * spin * a2 * a2)
+    r2 = 0.5 * (bq + S)
+    return torch.sqrt(torch.clamp_min(r2, R2_FLOOR)), r2, S
+
+
 def _ratio_pow(ratio, power):
     """(ratio^power, its derivative) in the four forms of ``_dt_soa``.  The
     derivative is only read where ratio^power lies inside (1, boost), so
@@ -130,25 +316,29 @@ def _ratio_pow(ratio, power):
     return m ** power, power * m ** (power - 1.0)
 
 
-def step_size(a, active, scal, power):
+def step_size(a, active, scal, power, kerr=False):
     """Per-ray step dt * clip((r / r_ref)^power, 1, boost) (``_dt_soa``);
-    ``scal`` is the NSCAL vector (a tensor or a sequence)."""
+    ``scal`` is the NSCAL vector (a tensor or a sequence), r the
+    Kerr-Schild radius of spin ``scal[9]`` when ``kerr``."""
     dt0, boost, r_ref = scal[1], scal[2], scal[3]
-    a0, a1, a2 = a
-    ra = torch.sqrt(a0 * a0 + a1 * a1 + a2 * a2)
+    ra, _, _ = radius(a, scal[SPIN] if kerr else None)
     rp, _ = _ratio_pow(ra / r_ref, power)
     dt = torch.where(active, dt0, torch.zeros_like(ra))
     return dt * torch.clamp(torch.clamp_min(rp, 1.0), max=boost)
 
 
-def step_size_vjp(a, active, scal, power, gh):
+def step_size_vjp(a, active, scal, power, gh, kerr=False):
     """VJP of ``step_size`` for the cotangent ``gh`` of the step.
 
-    Returns (g_a, g_dt, g_boost, g_r_ref), all per ray."""
+    Returns (g_a, g_dt, g_boost, g_r_ref), all per ray, and with ``kerr``
+    also the spin's, g_spin.  The Kerr-Schild radius has dr/dx_i = (r^2 x_i +
+    a^2 z delta_i2) / (r S) and dr/da = a (z^2 - r^2) / (r S)
+    (pallas_kernel.py:87-88), and no gradient below its floor."""
     dt0, boost, r_ref = scal[1], scal[2], scal[3]
     a0, a1, a2 = a
     zero = torch.zeros_like(a0)
-    ra = torch.sqrt(a0 * a0 + a1 * a1 + a2 * a2)
+    spin = scal[SPIN] if kerr else None
+    ra, r2, S = radius(a, spin)
     ratio = ra / r_ref
     rp, drp = _ratio_pow(ratio, power)
     lo = torch.clamp_min(rp, 1.0)
@@ -161,8 +351,15 @@ def step_size_vjp(a, active, scal, power, gh):
     g_ratio = torch.where(inner, g_c * torch.where(inner, drp, zero), zero)
     g_ra = g_ratio / r_ref
     g_r_ref = -g_ratio * ratio / r_ref
-    k = g_ra / torch.where(ra > 0, ra, torch.ones_like(ra))
-    return (k * a0, k * a1, k * a2), g_dt, g_boost, g_r_ref
+    if not kerr:
+        k = g_ra / torch.where(ra > 0, ra, torch.ones_like(ra))
+        return (k * a0, k * a1, k * a2), g_dt, g_boost, g_r_ref
+    den = ra * S
+    live = (r2 > R2_FLOOR) & (den > 0)
+    k = torch.where(live, g_ra / torch.where(live, den, 1.0), zero)
+    az = spin * spin * a2
+    return ((k * r2 * a0, k * r2 * a1, k * (r2 * a2 + az)), g_dt, g_boost,
+            g_r_ref, k * spin * (a2 * a2 - r2))
 
 
 def segment_events(x, y, scal, sph, has_disk):
@@ -277,27 +474,38 @@ def events_vjp(x, y, upd, scal, sph, has_disk, g):
     return g_x, g_y, g_sph
 
 
-def step_adjoint(x, p, E, status, scal, g, power, sph=None, has_disk=False):
-    """Transpose of one Schwarzschild RK4 step with its events.
+def step_adjoint(x, p, E, status, scal, g, power, sph=None, has_disk=False,
+                 kerr=False):
+    """Transpose of one RK4 step with its events, Schwarzschild or (with
+    ``kerr``) Kerr of spin ``scal[9]``.
 
     ``x``, ``p``: the taped pre-step state (3-tuples); ``E``, ``status``
     per ray; ``scal`` the NSCAL vector; ``g`` the 6-tuple cotangent of the
     step's (x', p'); ``sph`` the (K, 4) sphere table or None; ``has_disk``
     whether the disk is tested.  Returns (g6, g_E, g_scal, g_sph): the
     cotangent of (x, p), the per-ray cotangent of E, the (NSCAL,) scalar
-    cotangent summed over the rays (mass, dt, boost and r_ref; the other
-    entries are zero) and the (K, 4) sphere cotangent (None without
-    spheres)."""
-    mass = scal[0]
+    cotangent summed over the rays (mass, dt, boost, r_ref and, for Kerr,
+    the spin; the other entries are zero) and the (K, 4) sphere cotangent
+    (None without spheres)."""
+    mass, spin = scal[0], scal[SPIN]
     active = status == ACTIVE
-    h = step_size(x, active, scal, power)
+    h = step_size(x, active, scal, power, kerr)
     y = (*x, *p)
 
     def axpy(c, ks):
         return tuple(yi + c * ki for yi, ki in zip(y, ks))
 
     def stage(pt):
+        if kerr:
+            return kerr_rhs_soa(mass, spin, E, *pt)
         return rhs(mass, E, pt[:3], pt[3:])
+
+    def stage_vjp(pt, gk):
+        """(g_pt, g_E, g_mass, g_spin) of one stage; g_spin 0 without
+        spin."""
+        if kerr:
+            return rhs_kerr_vjp(mass, spin, E, pt[:3], pt[3:], gk)
+        return (*rhs_vjp(mass, E, pt[:3], pt[3:], gk), 0.0)
 
     # forward stage chain, as in the step (integrate.rk4_step / _soa_step)
     ka = stage(y)
@@ -333,23 +541,23 @@ def step_adjoint(x, p, E, status, scal, g, power, sph=None, has_disk=False):
 
     # transpose of the RK4 skeleton
     gh = (1.0 / 6.0) * sum(gy[i] * ksum[i] for i in range(6))
-    gd, gE_d, gm_d = rhs_vjp(mass, E, yd[:3], yd[3:],
-                             tuple(s6 * gy[i] for i in range(6)))
+    gd, gE_d, gm_d, gs_d = stage_vjp(yd, tuple(s6 * gy[i] for i in range(6)))
     gh = gh + sum(gd[i] * kc[i] for i in range(6))
     gkc = tuple(2.0 * s6 * gy[i] + h * gd[i] for i in range(6))
-    gc, gE_c, gm_c = rhs_vjp(mass, E, yc[:3], yc[3:], gkc)
+    gc, gE_c, gm_c, gs_c = stage_vjp(yc, gkc)
     gh = gh + 0.5 * sum(gc[i] * kb[i] for i in range(6))
     gkb = tuple(2.0 * s6 * gy[i] + 0.5 * h * gc[i] for i in range(6))
-    gb, gE_b, gm_b = rhs_vjp(mass, E, yb[:3], yb[3:], gkb)
+    gb, gE_b, gm_b, gs_b = stage_vjp(yb, gkb)
     gh = gh + 0.5 * sum(gb[i] * ka[i] for i in range(6))
     gka = tuple(s6 * gy[i] + 0.5 * h * gb[i] for i in range(6))
-    ga, gE_a, gm_a = rhs_vjp(mass, E, y[:3], y[3:], gka)
+    ga, gE_a, gm_a, gs_a = stage_vjp(y, gka)
     gx = [gy[i] + gd[i] + gc[i] + gb[i] + ga[i] for i in range(6)]
     g_E = gE_d + gE_c + gE_b + gE_a
     g_mass = gm_d + gm_c + gm_b + gm_a
 
     # transpose of the per-ray step size
-    g_a, g_dt, g_boost, g_r_ref = step_size_vjp(x, active, scal, power, gh)
+    g_a, g_dt, g_boost, g_r_ref, *gs_h = step_size_vjp(x, active, scal,
+                                                        power, gh, kerr)
     for i in range(3):
         gx[i] = gx[i] + g_a[i]
 
@@ -357,4 +565,6 @@ def step_adjoint(x, p, E, status, scal, g, power, sph=None, has_disk=False):
     g_scal = torch.zeros(NSCAL, dtype=h.dtype, device=h.device)
     for j, v in enumerate((g_mass, g_dt, g_boost, g_r_ref)):
         g_scal[j] = keep(v).sum()
+    if kerr:
+        g_scal[SPIN] = keep(gs_d + gs_c + gs_b + gs_a + gs_h[0]).sum()
     return g6, keep(g_E), g_scal, g_sph

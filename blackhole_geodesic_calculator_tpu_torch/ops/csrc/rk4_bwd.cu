@@ -3,9 +3,10 @@
 //
 // CUDA counterpart of `_bwd_kernel` in
 // blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py (:1258-1357), in
-// its Schwarzschild variants, event-free and with disk and sphere events
-// (EV as in rk4_fwd.cu).  One thread per ray walks the checkpointed
-// segments of rk4_ckpt.cu in reverse.  A segment whose checkpointed status
+// its Schwarzschild and Kerr variants, each event-free and with disk and
+// sphere events (KERR and EV as in rk4_fwd.cu); the Kerr recompute runs the
+// Kerr step, never the Schwarzschild one.  One thread per ray walks the
+// checkpointed segments of rk4_ckpt.cu in reverse.  A segment whose checkpointed status
 // is not ACTIVE is the identity and is skipped.  Otherwise the thread
 // recomputes the segment's steps from the checkpoint with the forward's own
 // step code (rk4_step.cuh), keeping each pre-step (x, p) on a per-thread
@@ -19,17 +20,19 @@
 // differentiates a frozen ray, the kernel needs none of the TPU wrapper's
 // far-away ERROR padding rays.
 //
-// Scalar cotangents (mass, dt, boost, r_ref) are per-ray terms summed over
-// the grid, and so is the (K, 4) sphere cotangent; a ray enters at most
-// one sphere (the entry freezes it), so each thread holds one sphere's four
-// terms and its index.  The TPU revisits one output block in grid order;
-// CUDA blocks run in no order, so each block sums its threads' terms in
-// shared memory in a fixed tree into row blockIdx.x of a
-// (n_blocks, 4 + 4K) buffer, and `sum_blocks` adds the rows in a fixed
+// Scalar cotangents (mass, dt, boost, r_ref, spin) are per-ray terms summed
+// over the grid, and so is the (K, 4) sphere cotangent; a ray enters at
+// most one sphere (the entry freezes it), so each thread holds one sphere's
+// four terms and its index.  The TPU revisits one output block in grid
+// order; CUDA blocks run in no order, so each block sums its threads' terms
+// in shared memory in a fixed tree into row blockIdx.x of a
+// (n_blocks, 5 + 4K) buffer, and `sum_blocks` adds the rows in a fixed
 // order.  No atomics: the gradient is the same bit for bit from run to run.
+// The Schwarzschild variants write 0 for the spin's column.
 //
 // Bound: the FP32 pipes.  A taped step costs one forward step on recompute
-// plus about three more for the adjoint (four RHS and four RHS VJPs); the
+// plus about three more for the adjoint (four RHS and four RHS VJPs; the
+// Kerr RHS and its VJP are about three times the Schwarzschild ones); the
 // tape (seg x 24 bytes, 384 bytes at seg 16) lives in local memory, which
 // the L1 cache mostly holds.  Checkpoints are read once per live segment.
 //
@@ -42,7 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSeg = 64;  // tape length; the wrapper caps seg at this
-constexpr int kNGrad = 4;    // scalar cotangents: mass, dt, boost, r_ref
+constexpr int kNGrad = 5;    // scalar cotangents: mass, dt, boost, r_ref, spin
 
 // One block's fixed-tree sum of v over its threads; thread 0 returns it.
 __device__ __forceinline__ float block_sum(float* red, float v) {
@@ -57,7 +60,7 @@ __device__ __forceinline__ float block_sum(float* red, float v) {
   return out;
 }
 
-template <int PMODE, int EV>
+template <int PMODE, bool KERR, int EV>
 __global__ void __launch_bounds__(kThreads)
     rk4_bwd_kernel(const float* __restrict__ scal,
                    const float* __restrict__ sph, int n_sph,
@@ -72,7 +75,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr bool kDiskEv = (EV & 2) != 0, kSphEv = (EV & 1) != 0;
   __shared__ float red[kThreads];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float gs[kNGrad] = {0.0f, 0.0f, 0.0f, 0.0f};  // mass, dt, boost, r_ref
+  // mass, dt, boost, r_ref, spin
+  float gs[kNGrad] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float gsph[4] = {0.0f, 0.0f, 0.0f, 0.0f};     // the entered sphere's
   int hit = -1;                                 // ... and its index
 
@@ -102,13 +106,13 @@ __global__ void __launch_bounds__(kThreads)
         float* t = tape[taped];
         t[0] = r.x0; t[1] = r.x1; t[2] = r.x2;
         t[3] = r.p0; t[4] = r.p1; t[5] = r.p2;
-        rk4_step<PMODE, kDiskEv, kSphEv, false>(sc, power, E, sph, n_sph, r);
+        rk4_step<PMODE, KERR, kDiskEv, kSphEv, false>(sc, power, E, sph,
+                                                      n_sph, r);
       }
       // adjoint sweep over the taped steps, last first
       for (int t = taped - 1; t >= 0; --t) {
-        rk4_step_adjoint<PMODE, kDiskEv, kSphEv>(sc, power, E, sph, n_sph,
-                                                 tape[t], g, gE, gs, gsph,
-                                                 hit);
+        rk4_step_adjoint<PMODE, KERR, kDiskEv, kSphEv>(
+            sc, power, E, sph, n_sph, tape[t], g, gE, gs, gsph, hit);
       }
     }
 
@@ -122,7 +126,8 @@ __global__ void __launch_bounds__(kThreads)
   float* row = partial + static_cast<long long>(blockIdx.x) * ncol;
 #pragma unroll
   for (int q = 0; q < kNGrad; ++q) {
-    const float v = block_sum(red, gs[q]);
+    // the spin's column (q = 4) is summed only where there is a spin
+    const float v = (KERR || q < 4) ? block_sum(red, gs[q]) : 0.0f;
     if (threadIdx.x == 0) row[q] = v;
   }
   if (kSphEv) {
@@ -137,10 +142,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // One block: column q of out = sum over b of partial[b, q], each thread
 // summing a fixed stride of rows in order, then a fixed tree over the
-// threads.  Columns 0..3 go to gscal[0..3] (mass, dt, boost, r_ref), the
-// rest to the (K, 4) gsph; the NSCAL entries past r_ref (r_capture,
-// r_escape, lam_max, r_in, r_out, a) get zero: they enter the step only
-// through comparisons.
+// threads.  Columns 0..3 go to gscal[0..3] (mass, dt, boost, r_ref), column
+// 4 to gscal[9] (the spin, a), the rest to the (K, 4) gsph; the NSCAL
+// entries r_capture, r_escape, lam_max, r_in and r_out get zero: they enter
+// the step only through comparisons.
 __global__ void __launch_bounds__(kThreads)
     sum_blocks(const float* __restrict__ partial, int n_blocks, int ncol,
                float* __restrict__ gscal, float* __restrict__ gsph) {
@@ -153,25 +158,26 @@ __global__ void __launch_bounds__(kThreads)
     const float v = block_sum(red, acc);
     if (threadIdx.x == 0) {
       if (q < kNGrad) {
-        gscal[q] = v;
+        gscal[q < 4 ? q : kNScal - 1] = v;
       } else {
         gsph[q - kNGrad] = v;
       }
     }
   }
-  if (threadIdx.x >= kNGrad && threadIdx.x < kNScal) gscal[threadIdx.x] = 0.0f;
+  if (threadIdx.x >= 4 && threadIdx.x < kNScal - 1) gscal[threadIdx.x] = 0.0f;
 }
 
 }  // namespace
 
 // Rows of the block-partial buffer the wrapper allocates: bhgc_rk4_bwd
-// needs `partial` of (bhgc_rk4_bwd_blocks(n), 4 + 4 n_sph) floats.
+// needs `partial` of (bhgc_rk4_bwd_blocks(n), kNGrad + 4 n_sph) floats.
 extern "C" int bhgc_rk4_bwd_blocks(int n) {
   return (n + kThreads - 1) / kThreads;
 }
 
 extern "C" int bhgc_rk4_bwd(const void* scal, const void* sph, int n_sph,
-                            int has_disk, const void* cx, const void* cp,
+                            int has_disk, int kerr, const void* cx,
+                            const void* cp,
                             const void* clam, const void* cst, const void* E,
                             const void* gx, const void* gp, void* bx, void* bp,
                             void* bE, void* partial, void* gscal, void* gsph,
@@ -181,17 +187,19 @@ extern "C" int bhgc_rk4_bwd(const void* scal, const void* sph, int n_sph,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = bhgc_rk4_bwd_blocks(n);
   with_power_mode(power, [&](auto mode) {
-    with_events(has_disk, n_sph, [&](auto ev) {
-      rk4_bwd_kernel<decltype(mode)::value, decltype(ev)::value>
-          <<<blocks, kThreads, 0, s>>>(
-              static_cast<const float*>(scal), static_cast<const float*>(sph),
-              n_sph, static_cast<const float*>(cx),
-              static_cast<const float*>(cp), static_cast<const float*>(clam),
-              static_cast<const int*>(cst), static_cast<const float*>(E),
-              static_cast<const float*>(gx), static_cast<const float*>(gp),
-              static_cast<float*>(bx), static_cast<float*>(bp),
-              static_cast<float*>(bE), static_cast<float*>(partial), n,
-              n_steps, seg, power);
+    with_kerr(kerr, [&](auto kr) {
+      with_events(has_disk, n_sph, [&](auto ev) {
+        rk4_bwd_kernel<decltype(mode)::value, decltype(kr)::value,
+                       decltype(ev)::value><<<blocks, kThreads, 0, s>>>(
+            static_cast<const float*>(scal), static_cast<const float*>(sph),
+            n_sph, static_cast<const float*>(cx),
+            static_cast<const float*>(cp), static_cast<const float*>(clam),
+            static_cast<const int*>(cst), static_cast<const float*>(E),
+            static_cast<const float*>(gx), static_cast<const float*>(gp),
+            static_cast<float*>(bx), static_cast<float*>(bp),
+            static_cast<float*>(bE), static_cast<float*>(partial), n,
+            n_steps, seg, power);
+      });
     });
   });
   sum_blocks<<<1, kThreads, 0, s>>>(static_cast<const float*>(partial), blocks,

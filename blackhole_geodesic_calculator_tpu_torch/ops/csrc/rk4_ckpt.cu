@@ -2,9 +2,9 @@
 //
 // CUDA counterpart of `_fwd_ckpt_kernel` in
 // blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py (:1201-1252), in
-// its Schwarzschild variants, event-free and with disk and sphere events
-// (EV as in rk4_fwd.cu).  It has no sphere guard, as on the TPU
-// (:1230-1233); the guard changes no result.  One thread per ray runs the
+// its Schwarzschild and Kerr variants, each event-free and with disk and
+// sphere events (KERR and EV as in rk4_fwd.cu).  It has no sphere guard, as
+// on the TPU (:1230-1233); the guard changes no result.  One thread per ray runs the
 // same step as the forward kernel (rk4_step.cuh), so its final state equals
 // rk4_fwd's, and before steps 0, seg, 2 seg, ... it writes the ray's
 // (x, p, lam, status) to row s of the checkpoint tensors (n_seg, n, ...).
@@ -26,7 +26,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int PMODE, int EV>
+template <int PMODE, bool KERR, int EV>
 __global__ void __launch_bounds__(kThreads)
     rk4_ckpt_kernel(const float* __restrict__ scal,
                     const float* __restrict__ sph, int n_sph,
@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(kThreads)
     // enabled = s seg + step < n_steps (pallas_kernel.py:1233)
     const int len = min(seg, n_steps - s * seg);
     for (int step = 0; step < len && r.status == kActive; ++step) {
-      rk4_step<PMODE, (EV & 2) != 0, (EV & 1) != 0, false>(sc, power, E, sph,
-                                                           n_sph, r);
+      rk4_step<PMODE, KERR, (EV & 2) != 0, (EV & 1) != 0, false>(
+          sc, power, E, sph, n_sph, r);
     }
   }
 
@@ -80,7 +80,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 extern "C" int bhgc_rk4_ckpt(const void* scal, const void* sph, int n_sph,
-                             int has_disk, const void* x, const void* p,
+                             int has_disk, int kerr, const void* x,
+                             const void* p,
                              const void* E, const void* lam, const void* st,
                              const void* obj, void* x_out, void* p_out,
                              void* lam_out, void* st_out, void* obj_out,
@@ -89,19 +90,22 @@ extern "C" int bhgc_rk4_ckpt(const void* scal, const void* sph, int n_sph,
                              void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   with_power_mode(power, [&](auto mode) {
-    with_events(has_disk, n_sph, [&](auto ev) {
-      rk4_ckpt_kernel<decltype(mode)::value, decltype(ev)::value>
-          <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-              static_cast<const float*>(scal), static_cast<const float*>(sph),
-              n_sph, static_cast<const float*>(x),
-              static_cast<const float*>(p), static_cast<const float*>(E),
-              static_cast<const float*>(lam), static_cast<const int*>(st),
-              static_cast<const int*>(obj), static_cast<float*>(x_out),
-              static_cast<float*>(p_out), static_cast<float*>(lam_out),
-              static_cast<int*>(st_out), static_cast<int*>(obj_out),
-              static_cast<float*>(cx), static_cast<float*>(cp),
-              static_cast<float*>(clam), static_cast<int*>(cst), n, n_steps,
-              seg, power);
+    with_kerr(kerr, [&](auto kr) {
+      with_events(has_disk, n_sph, [&](auto ev) {
+        rk4_ckpt_kernel<decltype(mode)::value, decltype(kr)::value,
+                        decltype(ev)::value>
+            <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                static_cast<const float*>(scal),
+                static_cast<const float*>(sph), n_sph,
+                static_cast<const float*>(x), static_cast<const float*>(p),
+                static_cast<const float*>(E), static_cast<const float*>(lam),
+                static_cast<const int*>(st), static_cast<const int*>(obj),
+                static_cast<float*>(x_out), static_cast<float*>(p_out),
+                static_cast<float*>(lam_out), static_cast<int*>(st_out),
+                static_cast<int*>(obj_out), static_cast<float*>(cx),
+                static_cast<float*>(cp), static_cast<float*>(clam),
+                static_cast<int*>(cst), n, n_steps, seg, power);
+      });
     });
   });
   return static_cast<int>(cudaGetLastError());

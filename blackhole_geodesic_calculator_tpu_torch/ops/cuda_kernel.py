@@ -10,10 +10,15 @@ backward launches ``csrc/rk4_bwd.cu`` -- the ``jax.custom_vjp`` of
 
 Source note
 -----------
-* **Replaces** the three TPU kernels of the Schwarzschild step (``_soa_step``
-  with ``_dt_soa``, ``_rhs_schw_soa`` and ``_events_merge``), each in two
-  variants chosen at compile time: event-free, and with the segment events
-  of a z = 0 disk and of K spheres (``has_disk``, ``n_sph``):
+* **Replaces** the three TPU kernels of the step (``_soa_step`` with
+  ``_dt_soa`` and ``_events_merge``), each in the variants ``_build`` chooses
+  at compile time (pallas_kernel.py:1377-1379, :1619-1621): Schwarzschild
+  (``_rhs_schw_soa``, the Euclidean radius) or Kerr (``kerr``:
+  ``_rhs_kerr_soa`` :84-142, the Kerr-Schild radius ``_ks_radius_soa``
+  :145-153, the sphere guard widened by |a| :249-265, and in the adjoint the
+  VJP of the Kerr right-hand side, :1055-1074), each event-free or with the
+  segment events of a z = 0 disk and of K spheres (``has_disk``,
+  ``n_sph``):
 
   - ``_fwd_fast_kernel`` (pallas_kernel.py:1159-1198), built by
     ``_build(...).fwd_fast`` (:1399-1415) -> ``rk4_fwd``;
@@ -21,17 +26,21 @@ Source note
     (:1417-1436) -> ``rk4_ckpt``;
   - ``_bwd_kernel`` (:1258-1357) with ``_step_adjoint`` (:1025-1153), built
     by ``_build(...).bwd_call`` (:1438-1465) -> ``rk4_bwd``.
-* **What bounds them on an H100.** Scalar float32 arithmetic: about 282
-  operations per ray-step forward (4 RHS evaluations with one ``rsqrtf``
-  each, the step-size schedule and the endpoint test), about four times
-  that per taped step backward, against 36 bytes of ray state read once and
-  32 written once per ray, plus 32 bytes per ray and segment of checkpoints.
-  At the flagship's up to 100 steps that is hundreds of operations per byte
-  or more, far above the card's balance point, so they are bound by the FP32
-  pipes and by warp divergence: a warp runs until its slowest ray ends.
-  The events add one disk test and K sphere quadratics (about 25 operations
-  each) per step; the forward kernel skips the quadratics for a ray whose
-  segment cannot reach any sphere (the TPU kernel's sphere guard, per ray).
+* **What bounds them on an H100.** Scalar float32 arithmetic: 276
+  operations per ray-step forward in Schwarzschild (4 RHS evaluations with
+  one ``rsqrtf`` each, the step-size schedule and the endpoint test) and
+  about 750 in Kerr (a Kerr RHS is about 160, with two square roots and
+  six divisions, and the Kerr-Schild radius adds two square roots), about
+  3.5 times that per taped step backward, against 40 bytes of ray state
+  read once and 36 written once per ray, plus 32 bytes per ray and segment
+  of checkpoints.  At the flagship's up to 100 steps that is
+  hundreds of operations per byte or more, far above the card's balance
+  point, so they are bound by the FP32 pipes and by warp divergence: a warp
+  runs until its slowest ray ends.  The events add one disk test and K
+  sphere quadratics (about 25 operations each) per step; the forward kernel
+  skips the quadratics for a ray whose segment cannot reach any sphere (the
+  TPU kernel's sphere guard, per ray).  ``chip_smoke.py`` counts the
+  operations per variant and the ray-steps of its inputs for the bound.
 * **What the design does about it.** One thread per ray with the whole
   state and the four RK4 stages in registers.  The TPU kernels' tile-wide
   "any ray ACTIVE" skips become per-thread exits as soon as the thread's
@@ -54,11 +63,13 @@ the kernels.  ``integrate`` takes them only for tensors on the CPU.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
 from . import _build
+from .adjoint import NSCAL
 from .integrate import (
     GeodesicEnv,
     IntegratorConfig,
@@ -69,19 +80,20 @@ from .integrate import (
 )
 from .states import RayState
 
-NSCAL = 10
 MAX_SEG = 64   # the adjoint's tape length (csrc/rk4_bwd.cu kMaxSeg)
+N_GRAD = 5     # scalar cotangents per block row (csrc/rk4_bwd.cu kNGrad)
 
-# Launches of each kernel variant since import (or since a caller reset
-# them); each goes up by one in its wrapper right where the kernel is
-# launched, and nowhere else.  The event variants (a disk, spheres or both)
-# count apart from the event-free ones.
-LAUNCHES = 0           # rk4_fwd, event-free
-LAUNCHES_CKPT = 0      # rk4_ckpt, event-free
-LAUNCHES_BWD = 0       # rk4_bwd, event-free
-LAUNCHES_EV = 0        # rk4_fwd, with events
-LAUNCHES_CKPT_EV = 0   # rk4_ckpt, with events
-LAUNCHES_BWD_EV = 0    # rk4_bwd, with events
+# Launches of each kernel variant since import (or since a caller cleared
+# them), by variant name (``variant``); a wrapper adds one right where it
+# launches its kernel, and nowhere else.
+LAUNCHES: collections.Counter[str] = collections.Counter()
+
+
+def variant(kernel: str, kerr: bool, events: bool) -> str:
+    """The name of a kernel's variant: ``kernel`` ("rk4_fwd", "rk4_ckpt" or
+    "rk4_bwd"), then "_kerr" for a Kerr hole and "_events" for a disk or
+    spheres, e.g. "rk4_bwd_kerr_events"."""
+    return kernel + ("_kerr" if kerr else "") + ("_events" if events else "")
 
 
 def integrate_plain(env: GeodesicEnv, s0: RayState,
@@ -120,16 +132,17 @@ def _scalars(env: GeodesicEnv, cfg: IntegratorConfig,
              device: torch.device) -> torch.Tensor:
     """The (NSCAL,) float32 device vector, TPU kernel layout:
     [mass, dt, dt_boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out, a].
-    Tensor entries (mass, r_escape, the disk radii) stay on the device and
-    in the autograd graph: the mass cotangent of rk4_bwd reaches
+    Tensor entries (mass, r_escape, the disk radii, the spin) stay on the
+    device and in the autograd graph: the mass cotangent of rk4_bwd reaches
     ``env.mass`` through entry 0, and through entry 3 when r_ref defaults
-    to 6 M.  r_in and r_out are 0 without a disk."""
+    to 6 M, and the spin cotangent reaches ``env.spin`` through entry 9.
+    r_in and r_out are 0 without a disk, a is 0 without a spin."""
     r_ref = cfg.dt_boost_r_ref or 6.0 * env.mass
     boost = cfg.dt_boost if cfg.dt_boost > 1.0 else 1.0
     r_in, r_out = ((env.disk.r_in, env.disk.r_out) if env.disk is not None
                    else (0.0, 0.0))
     vals = (env.mass, cfg.dt, boost, r_ref, env.r_capture, env.r_escape,
-            env.lam_max, r_in, r_out, 0.0)
+            env.lam_max, r_in, r_out, 0.0 if env.spin is None else env.spin)
     return torch.stack([
         torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
         for v in vals])
@@ -152,15 +165,11 @@ def _sphere_table(env: GeodesicEnv, device: torch.device) -> torch.Tensor:
     return torch.cat([center, radius[:, None]], dim=1).contiguous()
 
 
-def _check_slice(env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig):
+def _check_slice(cfg: IntegratorConfig):
     if cfg.method != "rk4":
         raise NotImplementedError(
             f"method={cfg.method!r} on CUDA needs the Dormand-Prince kernels "
             "(_fwd_dopri_kernel and its gradient pair), not ported yet")
-    if env.spin is not None:
-        raise NotImplementedError(
-            "spin on CUDA needs the Kerr variant of the integrator kernels, "
-            "not ported yet")
 
 
 def _flat(t: torch.Tensor, batch, tail, dtype, name) -> torch.Tensor:
@@ -202,12 +211,12 @@ def _no_spheres(x: torch.Tensor) -> torch.Tensor:
 
 
 def rk4_fwd(scal, x, p, E, lam, st, n_steps: int, power: float, *,
-            sph=None, has_disk=False, obj=None):
+            sph=None, has_disk=False, obj=None, kerr=False):
     """Launch rk4_fwd on flat (n, 3) / (n,) tensors; returns
     (x, p, lam, status, hit_obj) after ``n_steps`` steps.  ``sph`` is the
     (K, 4) sphere table and ``has_disk`` switches the disk events on (the
-    event variant); ``obj`` the initial hit_obj (-1 when not given)."""
-    global LAUNCHES, LAUNCHES_EV
+    event variant); ``obj`` the initial hit_obj (-1 when not given);
+    ``kerr`` the Kerr variant, of spin ``scal[9]``."""
     sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
     if obj is None:
         obj = torch.full_like(st, -1)
@@ -219,25 +228,22 @@ def rk4_fwd(scal, x, p, E, lam, st, n_steps: int, power: float, *,
         with torch.cuda.device(x.device):
             rc = _build.load().bhgc_rk4_fwd(
                 scal.data_ptr(), sph.data_ptr(), sph.shape[0], int(has_disk),
-                x.data_ptr(), p.data_ptr(), E.data_ptr(), lam.data_ptr(),
-                st.data_ptr(), obj.data_ptr(), x_out.data_ptr(),
-                p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
-                obj_out.data_ptr(), n, n_steps, power, _stream(x.device))
+                int(kerr), x.data_ptr(), p.data_ptr(), E.data_ptr(),
+                lam.data_ptr(), st.data_ptr(), obj.data_ptr(),
+                x_out.data_ptr(), p_out.data_ptr(), lam_out.data_ptr(),
+                st_out.data_ptr(), obj_out.data_ptr(), n, n_steps, power,
+                _stream(x.device))
         _raise_on(rc, "rk4_fwd")
-        if _events(sph, has_disk):
-            LAUNCHES_EV += 1
-        else:
-            LAUNCHES += 1
+        LAUNCHES[variant("rk4_fwd", kerr, _events(sph, has_disk))] += 1
     return x_out, p_out, lam_out, st_out, obj_out
 
 
 def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float,
-             *, sph=None, has_disk=False, obj=None):
+             *, sph=None, has_disk=False, obj=None, kerr=False):
     """Launch rk4_ckpt on flat tensors; returns the final (x, p, lam,
     status, hit_obj) and the checkpoints (cx, cp, clam, cst), each of
-    leading dimension n_seg = ceil(n_steps / seg).  ``sph``, ``has_disk``
-    and ``obj`` as for rk4_fwd."""
-    global LAUNCHES_CKPT, LAUNCHES_CKPT_EV
+    leading dimension n_seg = ceil(n_steps / seg).  ``sph``, ``has_disk``,
+    ``obj`` and ``kerr`` as for rk4_fwd."""
     sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
     if obj is None:
         obj = torch.full_like(st, -1)
@@ -254,27 +260,25 @@ def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float,
         with torch.cuda.device(x.device):
             rc = _build.load().bhgc_rk4_ckpt(
                 scal.data_ptr(), sph.data_ptr(), sph.shape[0], int(has_disk),
-                x.data_ptr(), p.data_ptr(), E.data_ptr(), lam.data_ptr(),
-                st.data_ptr(), obj.data_ptr(), x_out.data_ptr(),
-                p_out.data_ptr(), lam_out.data_ptr(), st_out.data_ptr(),
-                obj_out.data_ptr(), cx.data_ptr(), cp.data_ptr(),
+                int(kerr), x.data_ptr(), p.data_ptr(), E.data_ptr(),
+                lam.data_ptr(), st.data_ptr(), obj.data_ptr(),
+                x_out.data_ptr(), p_out.data_ptr(), lam_out.data_ptr(),
+                st_out.data_ptr(), obj_out.data_ptr(), cx.data_ptr(),
+                cp.data_ptr(),
                 clam.data_ptr(), cst.data_ptr(), n, n_steps, seg, power,
                 _stream(x.device))
         _raise_on(rc, "rk4_ckpt")
-        if _events(sph, has_disk):
-            LAUNCHES_CKPT_EV += 1
-        else:
-            LAUNCHES_CKPT += 1
+        LAUNCHES[variant("rk4_ckpt", kerr, _events(sph, has_disk))] += 1
     return x_out, p_out, lam_out, st_out, obj_out, (cx, cp, clam, cst)
 
 
 def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float,
-            *, sph=None, has_disk=False):
+            *, sph=None, has_disk=False, kerr=False):
     """Launch rk4_bwd: the cotangents (x, p, E) of the initial state, the
-    (NSCAL,) scalar cotangent and the (K, 4) sphere cotangent, from the
-    checkpoints of rk4_ckpt and the cotangents ``gx``, ``gp`` of the final
-    (x, p).  ``sph`` and ``has_disk`` as for rk4_ckpt."""
-    global LAUNCHES_BWD, LAUNCHES_BWD_EV
+    (NSCAL,) scalar cotangent (the spin's at entry 9 for Kerr) and the
+    (K, 4) sphere cotangent, from the checkpoints of rk4_ckpt and the
+    cotangents ``gx``, ``gp`` of the final (x, p).  ``sph``, ``has_disk``
+    and ``kerr`` as for rk4_ckpt."""
     if not 1 <= seg <= MAX_SEG:
         raise ValueError(f"seg={seg} outside the adjoint's tape "
                          f"(1..{MAX_SEG} steps)")
@@ -288,20 +292,18 @@ def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float,
     gsph = torch.zeros((n_sph, 4), dtype=torch.float32, device=E.device)
     if n:
         lib = _build.load()
-        partial = E.new_empty((lib.bhgc_rk4_bwd_blocks(n), 4 + 4 * n_sph))
+        partial = E.new_empty((lib.bhgc_rk4_bwd_blocks(n),
+                               N_GRAD + 4 * n_sph))
         with torch.cuda.device(E.device):
             rc = lib.bhgc_rk4_bwd(
                 scal.data_ptr(), sph.data_ptr(), n_sph, int(has_disk),
-                cx.data_ptr(), cp.data_ptr(), clam.data_ptr(),
+                int(kerr), cx.data_ptr(), cp.data_ptr(), clam.data_ptr(),
                 cst.data_ptr(), E.data_ptr(), gx.data_ptr(), gp.data_ptr(),
                 bx.data_ptr(), bp.data_ptr(), bE.data_ptr(),
                 partial.data_ptr(), gscal.data_ptr(), gsph.data_ptr(), n,
                 n_steps, seg, power, _stream(E.device))
         _raise_on(rc, "rk4_bwd")
-        if _events(sph, has_disk):
-            LAUNCHES_BWD_EV += 1
-        else:
-            LAUNCHES_BWD += 1
+        LAUNCHES[variant("rk4_bwd", kerr, _events(sph, has_disk))] += 1
     return bx, bp, bE, gscal, gsph
 
 
@@ -312,18 +314,18 @@ class RK4Adjoint(torch.autograd.Function):
 
     lam, status and hit_obj are not differentiable; the scalar cotangent
     has zeros for r_capture, r_escape, lam_max, r_in and r_out, which enter
-    the step only through comparisons; ``sph`` (the (K, 4) sphere table)
-    gets the sphere cotangent."""
+    the step only through comparisons, and for Kerr the spin's at entry 9;
+    ``sph`` (the (K, 4) sphere table) gets the sphere cotangent."""
 
     @staticmethod
-    def forward(ctx, x, p, E, scal, sph, lam, st, obj, has_disk, n_steps,
-                seg, power):
+    def forward(ctx, x, p, E, scal, sph, lam, st, obj, has_disk, kerr,
+                n_steps, seg, power):
         x1, p1, lam1, st1, obj1, ckpts = rk4_ckpt(
             scal, x, p, E, lam, st, n_steps, seg, power, sph=sph,
-            has_disk=has_disk, obj=obj)
+            has_disk=has_disk, obj=obj, kerr=kerr)
         ctx.save_for_backward(scal, sph, E, *ckpts)
         ctx.schedule = (n_steps, seg, power)
-        ctx.has_disk = has_disk
+        ctx.variant = dict(has_disk=has_disk, kerr=kerr)
         ctx.mark_non_differentiable(lam1, st1, obj1)
         return x1, p1, lam1, st1, obj1
 
@@ -335,9 +337,9 @@ class RK4Adjoint(torch.autograd.Function):
         gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
         bx, bp, bE, gscal, gsph = rk4_bwd(scal, ckpts, E, gx, gp,
                                           *ctx.schedule, sph=sph,
-                                          has_disk=ctx.has_disk)
+                                          **ctx.variant)
         return (bx, bp, bE, gscal, gsph, None, None, None, None, None, None,
-                None)
+                None, None)
 
 
 def integrate_cuda(env: GeodesicEnv, s0: RayState,
@@ -348,7 +350,7 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
     after ``cfg.n_steps`` steps (rays frozen at their termination).  When
     autograd records the call it goes through ``RK4Adjoint`` (rk4_ckpt, and
     rk4_bwd in the backward); otherwise through rk4_fwd."""
-    _check_slice(env, s0, cfg)
+    _check_slice(cfg)
     batch = s0.E.shape
     if s0.E.numel() >= 2**31:
         raise ValueError(f"too many rays for one launch: {s0.E.numel()}")
@@ -361,17 +363,17 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
     _check_device(x, p=p, E=E, lam=lam, status=st, hit_obj=obj)
     scal = _scalars(env, cfg, x.device)
     sph = _sphere_table(env, x.device)
-    has_disk = env.disk is not None
+    has_disk, kerr = env.disk is not None, env.spin is not None
     n_steps, power = int(cfg.n_steps), float(cfg.dt_power)
 
     if needs_grad(env, s0):
         x1, p1, lam1, st1, obj1 = RK4Adjoint.apply(
-            x, p, E, scal, sph, lam, st, obj, has_disk, n_steps,
+            x, p, E, scal, sph, lam, st, obj, has_disk, kerr, n_steps,
             segment(n_steps), power)
     else:
         x1, p1, lam1, st1, obj1 = rk4_fwd(
             scal, x, p, E, lam, st, n_steps, power, sph=sph,
-            has_disk=has_disk, obj=obj)
+            has_disk=has_disk, obj=obj, kerr=kerr)
     return dataclasses.replace(
         s0, x=x1.reshape(batch + (3,)), p=p1.reshape(batch + (3,)),
         lam=lam1.reshape(batch), status=st1.reshape(batch),

@@ -6,8 +6,10 @@ g = eta + 2H l l the photon super-Hamiltonian is
     Hh = 1/2 (-E^2 + |p|^2) - H(x) (E + l(x).p)^2
 
 with p_t = -E conserved, so only the 6 quantities (x_i, p_i) are evolved.
-This slice carries the Schwarzschild forms (H = M/r, l = x/r); the Kerr
-forms raise until they are ported.
+Schwarzschild (spin ``a`` None: H = M/r, l = x/r) has the cheapest forms;
+Kerr (models/kerr.py) goes through ``ks_fields`` (geodesic.py:56-61) and
+``kerr_rhs``, the analytic right-hand side of the TPU kernel
+(``_rhs_kerr_soa``, pallas_kernel.py:84-142).
 
 All functions are shaped for batches: ``x3, p3: (..., 3)``; scalars ``(...,)``.
 """
@@ -15,6 +17,8 @@ All functions are shaped for batches: ``x3, p3: (..., 3)``; scalars ``(...,)``.
 from __future__ import annotations
 
 import torch
+
+from ..models.kerr import ks_radius, ks_scalars
 
 _R2_FLOOR = 1e-12  # keeps captured rays finite until the capture test freezes them
 
@@ -28,12 +32,11 @@ def _schwarzschild_scalars(x3, mass):
 
 
 def ks_fields(x3, mass, a):
-    """(q, l3, r) with q = 2H for the Kerr-Schild family; a must be None."""
-    if a is not None:
-        raise NotImplementedError(
-            "Kerr spacetimes (spin) are not ported yet; they come with the "
-            "Kerr variants of the integrator kernels")
-    return _schwarzschild_scalars(x3, mass)
+    """(q, l3, r) with q = 2H for the Kerr-Schild family; a may be None."""
+    if a is None:
+        return _schwarzschild_scalars(x3, mass)
+    H, l3 = ks_scalars(x3, mass, a)
+    return 2.0 * H, l3, ks_radius(x3, a)
 
 
 def null_init(x3: torch.Tensor, d: torch.Tensor, mass,
@@ -87,6 +90,75 @@ def schwarzschild_rhs(x3: torch.Tensor, p3: torch.Tensor, E: torch.Tensor,
     coef_n = m_r2 * w * (w + 2.0 * s)  # from -(w^2 n) - 2 w s n collected on n
     dp = coef_p[..., None] * p3 - coef_n[..., None] * n
     return dx, dp
+
+
+def kerr_rhs_soa(mass, a, E, a0, a1, a2, b0, b1, b2):
+    """Hand-derived Kerr-Schild Kerr right-hand side on components: line for
+    line the TPU kernel's ``_rhs_kerr_soa`` (pallas_kernel.py:84-142),
+    floors included, at position (a0, a1, a2) and momentum (b0, b1, b2);
+    returns the 6-tuple (dx, dp).
+
+    dp = +d/dx [H w^2] with w = E + l.p; the gradient of the Kerr-Schild
+    radius by implicit differentiation, dr/dx_i = (r^2 x_i + a^2 z
+    delta_i2) / (r S), S = 2 r^2 - (rho^2 - a^2).  Equal to autodiff of the
+    Hamiltonian (the JAX package's ``ks_rhs``) up to float32 rounding; at
+    a = 0 it is the Schwarzschild right-hand side."""
+    rho2 = a0 * a0 + a1 * a1 + a2 * a2
+    bq = rho2 - a * a
+    S = torch.sqrt(bq * bq + 4.0 * a * a * a2 * a2)
+    r2 = torch.clamp_min(0.5 * (bq + S), _R2_FLOOR)
+    r = torch.sqrt(r2)
+    inv_rS = 1.0 / torch.clamp_min(r * S, _R2_FLOOR)
+    az = a * a * a2
+    dr0 = r2 * a0 * inv_rS
+    dr1 = r2 * a1 * inv_rS
+    dr2 = (r2 * a2 + az) * inv_rS
+
+    A = r2 + a * a
+    inv_A = 1.0 / A
+    l0 = (r * a0 + a * a1) * inv_A
+    l1 = (r * a1 - a * a0) * inv_A
+    l2 = a2 / r
+    D = r2 * r2 + az * a2
+    inv_D = 1.0 / D
+    H = mass * r * r2 * inv_D
+
+    w = E + l0 * b0 + l1 * b1 + l2 * b2
+    q = 2.0 * H
+
+    # dH/dx_i = M (3 r^2 D - 4 r^6) dr_i / D^2 - 2 M a^2 z r^3 d_i2 / D^2
+    hcoef = mass * (3.0 * r2 * D - 4.0 * r2 * r2 * r2) * inv_D * inv_D
+    dH0 = hcoef * dr0
+    dH1 = hcoef * dr1
+    dH2 = hcoef * dr2 - 2.0 * mass * az * r * r2 * inv_D * inv_D
+
+    # dw_i = b_j dl_j/dx_i (quotient rule; dA/dx_i = 2 r dr_i)
+    twoR_A2 = 2.0 * r * inv_A * inv_A
+    n0 = r * a0 + a * a1
+    n1 = r * a1 - a * a0
+    inv_r2 = 1.0 / r2
+    dw0 = (b0 * ((dr0 * a0 + r) * inv_A - n0 * twoR_A2 * dr0)
+           + b1 * ((dr0 * a1 - a) * inv_A - n1 * twoR_A2 * dr0)
+           + b2 * (-a2 * dr0 * inv_r2))
+    dw1 = (b0 * ((dr1 * a0 + a) * inv_A - n0 * twoR_A2 * dr1)
+           + b1 * ((dr1 * a1 + r) * inv_A - n1 * twoR_A2 * dr1)
+           + b2 * (-a2 * dr1 * inv_r2))
+    dw2 = (b0 * (dr2 * a0 * inv_A - n0 * twoR_A2 * dr2)
+           + b1 * (dr2 * a1 * inv_A - n1 * twoR_A2 * dr2)
+           + b2 * (1.0 / r - a2 * dr2 * inv_r2))
+
+    w2 = w * w
+    qw = q * w
+    return (b0 - qw * l0, b1 - qw * l1, b2 - qw * l2,
+            w2 * dH0 + qw * dw0, w2 * dH1 + qw * dw1, w2 * dH2 + qw * dw2)
+
+
+def kerr_rhs(x3: torch.Tensor, p3: torch.Tensor, E: torch.Tensor, mass,
+             a) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dp) of ``kerr_rhs_soa`` for ``x3, p3: (..., 3)``."""
+    k = kerr_rhs_soa(mass, a, E, x3[..., 0], x3[..., 1], x3[..., 2],
+                     p3[..., 0], p3[..., 1], p3[..., 2])
+    return torch.stack(k[:3], dim=-1), torch.stack(k[3:], dim=-1)
 
 
 def hamiltonian(x3: torch.Tensor, p3: torch.Tensor, E: torch.Tensor, mass,

@@ -8,11 +8,13 @@ kernels (ops/cuda_kernel.py) for tensors on a CUDA device and the plain
 PyTorch step loops below for tensors on the CPU: ``integrate_fixed`` when
 autograd records the call, ``integrate_fixed_fast`` otherwise.
 
-This slice is the Schwarzschild path, forward and backward, with the
-segment events of a z = 0 disk and of K spheres: a ray whose step crosses
-the disk annulus or enters a sphere freezes at the interpolated event point
-(DISK or OBJECT).  A configuration that needs spin, Dormand-Prince or
-timelike rays raises ``NotImplementedError``.
+Schwarzschild and Kerr (``GeodesicEnv.spin``), forward and backward, with
+the segment events of a z = 0 disk and of K spheres: a ray whose step
+crosses the disk annulus or enters a sphere freezes at the interpolated
+event point (DISK or OBJECT).  Kerr steps with the analytic right-hand side
+``kerr_rhs`` and classifies and sizes steps by the Kerr-Schild radius (JAX
+integrate.py:78-90).  Dormand-Prince and timelike rays raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 import torch.utils.checkpoint
 
 from . import states
-from .geodesic import null_init, schwarzschild_rhs, xdot
+from ..models.kerr import ks_radius
+from .geodesic import kerr_rhs, null_init, schwarzschild_rhs, xdot
 from .states import RayState
 
 
@@ -61,16 +64,14 @@ class GeodesicEnv:
     spheres: SphereGeom | None = None
 
     def rhs(self, x3, p3, E):
-        if self.spin is not None:
-            raise NotImplementedError(
-                "Kerr spacetimes (spin) are not ported yet")
-        return schwarzschild_rhs(x3, p3, E, self.mass)
+        if self.spin is None:
+            return schwarzschild_rhs(x3, p3, E, self.mass)
+        return kerr_rhs(x3, p3, E, self.mass, self.spin)
 
     def radius(self, x3):
-        if self.spin is not None:
-            raise NotImplementedError(
-                "Kerr spacetimes (spin) are not ported yet")
-        return torch.sqrt(torch.sum(x3 * x3, dim=-1))
+        if self.spin is None:
+            return torch.sqrt(torch.sum(x3 * x3, dim=-1))
+        return ks_radius(x3, self.spin)
 
 
 # =============================================================================
@@ -302,11 +303,11 @@ def integrate_fixed(env: GeodesicEnv, s0: RayState,
 
 def needs_grad(env: GeodesicEnv, s0: RayState) -> bool:
     """Whether autograd records this integration: grad mode is on and an
-    input of the step (state or environment, sphere geometry included)
-    requires a gradient."""
+    input of the step (state or environment, spin and sphere geometry
+    included) requires a gradient."""
     if not torch.is_grad_enabled():
         return False
-    leaves = [s0.x, s0.p, s0.E, s0.lam, env.mass, env.r_capture,
+    leaves = [s0.x, s0.p, s0.E, s0.lam, env.mass, env.spin, env.r_capture,
               env.r_escape, env.lam_max]
     if env.spheres is not None:
         leaves += [env.spheres.center, env.spheres.radius]

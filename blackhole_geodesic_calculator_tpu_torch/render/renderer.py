@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from ..camera.pinhole import Camera, generate_rays, pixel_grid
+from ..models.kerr import horizon_radius
 from ..ops.integrate import (
     DiskGeom,
     GeodesicEnv,
@@ -49,7 +50,7 @@ class RenderConfig:
     )
     lam_max: float = 50.0
     r_escape: float = 0.0
-    capture_factor: float = 1.0  # capture at r <= factor * r_s
+    capture_factor: float = 1.0  # capture at r <= factor * r_horizon
     mark_x_min: int = -1
     mark_x_max: int = -1
     mark_y_min: int = -1
@@ -68,11 +69,12 @@ class RenderConfig:
 def scene_env(scene: Scene, cfg: RenderConfig, cam: Camera) -> GeodesicEnv:
     """Build the integrator environment in BH-centred coordinates: the
     sphere centres are shifted by the hole's location, the disk lies in the
-    hole's z = 0 plane.  r_escape, the mass and the sphere geometry stay
-    tensors on the scene's device, in the autograd graph."""
-    if scene.bh.spin is not None:
-        raise NotImplementedError(
-            "Kerr scenes (spin) are not ported yet")
+    hole's z = 0 plane.  Capture is at ``capture_factor`` times the outer
+    horizon: r_s = 2M, or r_+ = M + sqrt(M^2 - a^2) for a Kerr hole (JAX
+    renderer.py:97-106), since capturing at 2M would swallow photons that
+    orbit inside it around a spinning hole.  r_escape, the mass, the spin
+    and the sphere geometry stay tensors on the scene's device, in the
+    autograd graph."""
     device = scene.bh.mass.device
     rs = 2.0 * scene.bh.mass
     if cfg.r_escape > 0:
@@ -90,10 +92,12 @@ def scene_env(scene: Scene, cfg: RenderConfig, cam: Camera) -> GeodesicEnv:
             center=scene.spheres.center - scene.bh.loc,
             radius=scene.spheres.radius,
         )
+    r_horizon = (rs if scene.bh.spin is None
+                 else horizon_radius(scene.bh.mass, scene.bh.spin))
     return GeodesicEnv(
         mass=scene.bh.mass,
         spin=scene.bh.spin,
-        r_capture=cfg.capture_factor * rs,
+        r_capture=cfg.capture_factor * r_horizon,
         r_escape=r_escape,
         lam_max=torch.tensor(cfg.lam_max, dtype=torch.float32,
                              device=device),

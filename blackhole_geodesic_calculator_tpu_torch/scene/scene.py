@@ -1,9 +1,10 @@
 """Scene description -- pure data (PyTorch port of scene/scene.py).
 
 Every physical quantity is a float32 tensor on the scene's device: the
-black hole, the sky, a z = 0 accretion disk, textured spheres and point
-lights.  Kerr spin is carried as data and raises in the renderer until it
-is ported.
+black hole (Schwarzschild, or Kerr with a spin), the sky, a z = 0 accretion
+disk, textured spheres and point lights.  A spun hole renders through the
+Kerr variants of the integrator kernels (pallas_kernel.py:1377-1379,
+:1619-1621) on the GPU and the plain Kerr step loop on the CPU.
 """
 
 from __future__ import annotations

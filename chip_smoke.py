@@ -59,13 +59,41 @@ rk4_bwd -- and fails (non-zero exit, no result line) if anything is off:
      pixels, see TOL_EVENTS_GRAD), and so does a gradient to a moon's
      centre and radius;
  12. times the events render, its forward+backward step and each event
-     variant against its plain version, and profiles the step.
+     variant against its plain version, and profiles the step;
+ 13. holds the Kerr variants of rk4_fwd (event-free and with events)
+     against the plain Kerr loop at a = 0.45 and a = -0.3 (M = 0.5): the
+     fan and the ragged batch at the four powers (with the band around
+     the Kerr critical impact parameter left out), the events fan over the
+     disk and the moons, and a Kerr sphere-guard stress batch (short
+     steps, spheres by the strong field, where a guard band without its
+     |a| of slack misses entries); renders the 64x64 golden kerr_a09
+     through them;
+ 14. holds the Kerr variants of rk4_ckpt against rk4_fwd's (bit for bit)
+     and their checkpoint rows against the plain loop;
+ 15. holds the Kerr variants of rk4_bwd against autograd of the plain Kerr
+     loop, the spin cotangent included (the fan also cut to 40 steps, so
+     rays are ACTIVE at the end), and checks that two runs give the same
+     bits;
+ 16. runs bench.py's kerr-events frame (the events scene around a hole of
+     a/M = 0.9) at 1024x1024 as phase 11 does, through the Kerr event
+     variants alone, with the gradient to the spin too;
+ 17. times it as phase 12 does;
+ 18. runs bench.py's bench_integrator(spin=0.45) fan of 1M rays, forward
+     and the gradient to the mass, through the Kerr variants without
+     events alone: holds the mass gradient, each ray's final state (as
+     phase 3), rk4_ckpt's against rk4_fwd's bit for bit and its
+     checkpoint rows, and rk4_bwd's per-ray cotangents away from b_c (as
+     phase 6) and from the step schedule's clip edges (near_kink) against
+     the plain loop, and times it and each kernel;
+ 19. computes each kernel's bound at the main path's inputs: the ray-steps
+     of its frame, the operations per ray-step counted on the plain
+     statement of its variant, and the bytes it must move.
 
 Every check of a phase is recorded; after the last phase the run fails if
 any check failed.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launch count on the main path, error and times.  Imports nothing
-of JAX.
+with its launch count on the main path, error, times and bound.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -84,8 +112,9 @@ import torch
 import blackhole_geodesic_calculator_tpu_torch as P
 from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
     generate_rays, pixel_grid)
+from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius
 from blackhole_geodesic_calculator_tpu_torch.ops import (
-    _build, cuda_kernel, states)
+    _build, adjoint, cuda_kernel, states)
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init
 from blackhole_geodesic_calculator_tpu_torch.ops.integrate import (
     DiskGeom, GeodesicEnv, SphereGeom, _disk_event, _dt_eff, _fixed_step,
@@ -107,18 +136,20 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "rk4_fwd_events": (f"{PKG}/ops/csrc/rk4_fwd.cu", f"{PALLAS}:1159"),
     "rk4_ckpt_events": (f"{PKG}/ops/csrc/rk4_ckpt.cu", f"{PALLAS}:1201"),
     "rk4_bwd_events": (f"{PKG}/ops/csrc/rk4_bwd.cu", f"{PALLAS}:1258"),
+    # the Kerr variants (KERR in the sources), event-free and with events
+    "rk4_fwd_kerr": (f"{PKG}/ops/csrc/rk4_fwd.cu", f"{PALLAS}:1159"),
+    "rk4_ckpt_kerr": (f"{PKG}/ops/csrc/rk4_ckpt.cu", f"{PALLAS}:1201"),
+    "rk4_bwd_kerr": (f"{PKG}/ops/csrc/rk4_bwd.cu", f"{PALLAS}:1258"),
+    "rk4_fwd_kerr_events": (f"{PKG}/ops/csrc/rk4_fwd.cu", f"{PALLAS}:1159"),
+    "rk4_ckpt_kerr_events": (f"{PKG}/ops/csrc/rk4_ckpt.cu", f"{PALLAS}:1201"),
+    "rk4_bwd_kerr_events": (f"{PKG}/ops/csrc/rk4_bwd.cu", f"{PALLAS}:1258"),
 }
-# the launch counter of each kernel variant in ops/cuda_kernel.py
-COUNTERS = {"rk4_fwd": "LAUNCHES", "rk4_ckpt": "LAUNCHES_CKPT",
-            "rk4_bwd": "LAUNCHES_BWD", "rk4_fwd_events": "LAUNCHES_EV",
-            "rk4_ckpt_events": "LAUNCHES_CKPT_EV",
-            "rk4_bwd_events": "LAUNCHES_BWD_EV"}
 
 # Tolerances of the kernels against their plain versions.  Both are
 # float32; they differ in rsqrtf against torch.rsqrt and in nvcc's fused
 # multiply-adds, a few ulp per step, amplified near the photon sphere.
 TOL_X = 1e-3       # position and affine parameter, absolute
-TOL_P = 1e-4       # momentum, absolute
+TOL_P = 1e-4       # momentum, absolute (Kerr: of max(1, |p|))
 TOL_DIR = 1e-4     # final direction, radians: 1/8 of the flagship pixel
 # rk4_bwd against autograd of the plain loop: largest |difference| of each
 # per-ray cotangent (x, p, E) over the largest |value| of the plain one
@@ -170,6 +201,7 @@ FLAGSHIP_FRAC = 1e-5
 MAX_ALIGNED = 8
 SIZE = 1024        # the flagship image is SIZE x SIZE
 FAN = 65536        # rays of the impact-parameter fan
+INTEGRATOR_RAYS = 1024 * 1024   # bench.py's bench_integrator fan
 # Rays that touch an event's edge: a segment that grazes a sphere, crosses
 # z = 0 at r_in or r_out or with an end on the plane, enters a sphere at
 # an end of the segment, or meets the disk and a sphere at the same point.
@@ -189,6 +221,18 @@ MAX_EDGE = 8
 KAPPA_CALM = 10.0
 TOL_GRAD_EVENTS = 1e-2
 POWERS = (1.5, 1.0, 2.0, 1.3)
+# The Kerr spins held (M = 0.5): a/M = 0.9, bench.py's kerr rows, and a
+# retrograde a/M = -0.6.
+SPINS = (0.45, -0.3)
+# Half the band, in M, around a Kerr hole's critical impact parameter whose
+# rays are held as near b_c (Schwarzschild: 0.3 M).  The Kerr step has
+# about three times the operations, so two float32 paths part farther
+# from b_c: at 0.3 M the fans read |dp| 1.2e-4 and lam a step apart (H100).
+KERR_BAND = 0.5
+# The card's peak rates for the bound of each kernel (NVIDIA's data sheet
+# for the H100 SXM at 700 W, float32 outside the tensor cores).
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
 
 FAILURES: list[str] = []
@@ -241,11 +285,12 @@ def make_sky(h=256, w=512, check=16):
         ((u // check + v // check) % 2).astype(np.float32)], -1)
 
 
-def camera_fan(n, dev):
+def camera_fan(n, dev, gap=(2.45, 2.75)):
     """n camera-style rays, impact parameters b in [1.5, 2.45] u [2.75, 12]
-    at z = 25, direction (0, 0, -1) (bench.py camera_fan)."""
-    b = np.concatenate([np.linspace(1.5, 2.45, n // 2),
-                        np.linspace(2.75, 12.0, n - n // 2)])
+    at z = 25, direction (0, 0, -1) (bench.py camera_fan); ``gap`` moves
+    the band left out around the critical impact parameter."""
+    b = np.concatenate([np.linspace(1.5, gap[0], n // 2),
+                        np.linspace(gap[1], 12.0, n - n // 2)])
     ang = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
     x0 = np.stack([b * np.cos(ang), b * np.sin(ang), np.full(n, 25.0)], -1)
     d0 = np.tile([0.0, 0.0, -1.0], (n, 1))
@@ -253,13 +298,13 @@ def camera_fan(n, dev):
     return f(x0), f(d0)
 
 
-def ragged_batch(n, dev, seed=0):
+def ragged_batch(n, dev, seed=0, gap=(2.45, 2.75)):
     """n rays (not a multiple of the block size) with random impact
     parameters in the fan's bands, azimuths and start heights, a tenth of
     them starting inside the horizon (r_s = 1)."""
     rng = np.random.default_rng(seed)
-    b = np.where(rng.random(n) < 0.5, rng.uniform(1.5, 2.45, n),
-                 rng.uniform(2.75, 12.0, n))
+    b = np.where(rng.random(n) < 0.5, rng.uniform(1.5, gap[0], n),
+                 rng.uniform(gap[1], 12.0, n))
     ang = rng.uniform(0.0, 2 * np.pi, n)
     x0 = np.stack([b * np.cos(ang), b * np.sin(ang),
                    rng.uniform(15.0, 30.0, n)], -1)
@@ -272,7 +317,7 @@ def ragged_batch(n, dev, seed=0):
 
 def initial_state(env, x0, d0):
     """The state ``launch`` integrates: null_init, INSIDE_HORIZON marked."""
-    p0, E0 = null_init(x0, d0, env.mass)
+    p0, E0 = null_init(x0, d0, env.mass, env.spin)
     s0 = states.init_state(x0.contiguous(), p0, E0)
     s0.status = s0.status.masked_fill(env.radius(x0) <= env.r_capture,
                                       states.INSIDE_HORIZON)
@@ -289,10 +334,11 @@ def step_apart(env, cfg, a, b):
     """Align rays that end one step apart in the two paths.
 
     Where a ray's radius or affine parameter lands within rounding of
-    r_escape or lam_max, the termination test can flip between two correct
-    float32 paths: both end with the same status, one a step later.  The
-    earlier one must then sit on that boundary; step it once more with the
-    plain step so the two can be compared.  Returns (a, b, count)."""
+    r_escape, r_capture or lam_max, the termination test can flip between
+    two correct float32 paths: both end with the same status, one a step
+    later.  The earlier one must then sit on that boundary; step it once
+    more with the plain step so the two can be compared.  Returns (a, b,
+    count)."""
     far = (a.lam - b.lam).abs() > TOL_X
     count = int(far.sum())
     if count > MAX_ALIGNED:
@@ -304,8 +350,9 @@ def step_apart(env, cfg, a, b):
             return s
         sub = dataclasses.replace(rays(s, mask),
                                   status=torch.zeros_like(s.status[mask]))
-        r = sub.x.norm(dim=-1)
+        r = env.radius(sub.x)
         edge = (((r >= env.r_escape) & (r - env.r_escape <= TOL_X))
+                | ((r <= env.r_capture) & (env.r_capture - r <= TOL_X))
                 | ((sub.lam >= env.lam_max)
                    & (sub.lam - env.lam_max <= TOL_X)))
         if not bool(edge.all()):
@@ -326,6 +373,8 @@ def compare_states(env, cfg, a, b, what):
     """Kernel state ``a`` against plain state ``b``; returns the largest
     absolute error in x, p and lam and the count of rays aligned by
     step_apart."""
+    if not a.status.numel():
+        return 0.0, 0
     st_a, st_b = a.status.cpu().numpy(), b.status.cpu().numpy()
     n_bad = int((st_a != st_b).sum())
     if n_bad:
@@ -334,7 +383,12 @@ def compare_states(env, cfg, a, b, what):
     if not torch.equal(a.status, b.status):
         raise AssertionError(f"{what}: statuses differ after alignment")
     dx = float((a.x - b.x).abs().max())
-    dp = float((a.p - b.p).abs().max())
+    dpv = (a.p - b.p).abs()
+    if env.spin is not None:
+        # a Kerr hole's captured rays end with |p| up to 5.5 (a = 0.45;
+        # 3.6 in Schwarzschild): p is held relative to max(1, |p|)
+        dpv = dpv / b.p.norm(dim=-1, keepdim=True).clamp_min(1.0)
+    dp = float(dpv.max())
     dl = float((a.lam - b.lam).abs().max())
     # angle between unit vectors as 2 asin(|a - b| / 2): arccos of the dot
     # product loses everything below ~3e-4 rad in float32
@@ -352,13 +406,51 @@ def compare_states(env, cfg, a, b, what):
 
 
 def near_b_c(env, s0):
-    """Rays whose impact parameter L/E lies in [4.9, 5.5] M, the band the
-    fan leaves out around b_c = 3 sqrt(3) M: they circle near the photon
-    sphere, where each orbit multiplies a rounding difference by about
+    """Rays whose impact parameter L/E lies near the critical one: in
+    [4.9, 5.5] M, the band the fan leaves out around b_c = 3 sqrt(3) M, or
+    for a Kerr hole (photon_band) within KERR_BAND of the critical sky
+    radius of rays with no angular momentum about the spin axis, and
+    anywhere in the photon region's band for the others; and for a Kerr
+    hole the rays
+    that start inside the photon region.  They circle near the photon
+    orbits, where each orbit multiplies a rounding difference by about
     e^(2 pi), so two correct float32 paths part."""
-    b_imp = torch.linalg.cross(s0.x, s0.p, dim=-1).norm(dim=-1) / s0.E
+    L = torch.linalg.cross(s0.x, s0.p, dim=-1)
+    b_imp = L.norm(dim=-1) / s0.E
     m = float(env.mass)
-    return (b_imp >= 4.9 * m) & (b_imp <= 5.5 * m)
+    if env.spin is None:
+        return (b_imp >= 4.9 * m) & (b_imp <= 5.5 * m)
+    rho_c, lo, hi, r_out = photon_band(m, float(env.spin))
+    axial = (L[..., 2] / s0.E).abs() < 0.05
+    inside = env.radius(s0.x) <= r_out
+    return inside | torch.where(axial,
+                                (b_imp - rho_c).abs() <= KERR_BAND * m,
+                                (b_imp >= lo) & (b_imp <= hi))
+
+
+def photon_band(m, a):
+    """(rho_c, lo, hi, r_out) of a Kerr hole of mass m and spin a: the
+    critical sky radius sqrt(eta + a^2) of rays with L_z = 0 (the spherical
+    photon orbit with xi = 0: r^3 - 3 m r^2 + a^2 r + a^2 m = 0), the band
+    of impact parameters from the prograde to the retrograde equatorial
+    photon orbit, each widened by 0.3 m (Bardeen's xi(r), eta(r)), and the
+    outer edge of the photon region (the retrograde orbit's radius) plus
+    0.3 m."""
+    a2 = a * a
+    r = max(z.real for z in np.roots([1.0, -3.0 * m, a2, a2 * m])
+            if abs(z.imag) < 1e-9 and z.real > m)
+    eta = -r ** 3 * (r ** 3 - 6 * m * r * r + 9 * m * m * r - 4 * a2 * m) / (
+        a2 * (r - m) ** 2)
+    rho_c = float(np.sqrt(eta + a2))
+
+    def xi(r):
+        return abs((r ** 3 - 3 * m * r * r + a2 * r + a2 * m)
+                   / (abs(a) * (r - m)))
+
+    r_pro = 2 * m * (1 + np.cos(2 / 3 * np.arccos(-abs(a) / m)))
+    r_ret = 2 * m * (1 + np.cos(2 / 3 * np.arccos(abs(a) / m)))
+    return (rho_c, float(xi(r_pro)) - 0.3 * m, float(xi(r_ret)) + 0.3 * m,
+            float(r_ret) + 0.3 * m)
 
 
 def compare_flagship(env, cfg, s0, a, b, what=None):
@@ -377,7 +469,13 @@ def compare_flagship(env, cfg, s0, a, b, what=None):
     near = near_b_c(env, s0)
     err, n = compare_states(env, cfg, rays(a, ~near), rays(b, ~near),
                             f"{what}, away from b_c")
-    dlam = float((a.lam[near] - b.lam[near]).abs().max())
+    # a ray near b_c a whole step apart must end at a boundary (step_apart)
+    dl = (a.lam - b.lam).abs()
+    jump = near & (dl >= 0.5 * cfg.dt)
+    aj, bj, n_jump = step_apart(env, cfg, rays(a, jump), rays(b, jump))
+    n += n_jump
+    dl = torch.cat([dl[near & ~jump], (aj.lam - bj.lam).abs()])
+    dlam = float(dl.max()) if dl.numel() else 0.0
     log(f"# parity [{what}, near b_c] n={int(near.sum())} statuses equal, "
         f"max|dlam|={dlam:.3e} (limit {0.5 * cfg.dt:g}, half a step)")
     if not dlam < 0.5 * cfg.dt:
@@ -550,7 +648,7 @@ def phase_flagship_fwd(scene, cam, dev, readings):
     img = P.render_image(scene, cam, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
-    readings["rk4_fwd"]["launches"] = launches["rk4_fwd"]
+    readings["rk4_fwd"]["launches"] = launches.get("rk4_fwd", 0)
     check(launches == only(rk4_fwd=1),
           f"forward render launched {launches}, expected rk4_fwd once")
     if img.shape != (SIZE, SIZE, 4) or not bool(torch.isfinite(img).all()):
@@ -600,18 +698,26 @@ def flat_state(s):
 
 
 def reset_counts():
-    for counter in COUNTERS.values():
-        setattr(cuda_kernel, counter, 0)
+    cuda_kernel.LAUNCHES.clear()
 
 
 def read_counts():
-    return {name: getattr(cuda_kernel, counter)
-            for name, counter in COUNTERS.items()}
+    """The launches of each kernel variant (ops/cuda_kernel.py's LAUNCHES,
+    by the names of KERNELS) since reset_counts."""
+    return {name: n for name, n in cuda_kernel.LAUNCHES.items() if n}
 
 
 def only(**launches):
     """The launch counts of a run that launched just ``launches``."""
-    return {name: launches.get(name, 0) for name in COUNTERS}
+    return {name: n for name, n in launches.items() if n}
+
+
+def no_grad(fn):
+    """``fn`` run under torch.no_grad."""
+    def run():
+        with torch.no_grad():
+            return fn()
+    return run
 
 
 def ckpt_rows(ck, k, s0):
@@ -621,9 +727,11 @@ def ckpt_rows(ck, k, s0):
 
 
 def event_kw(env, s0):
-    """The event arguments of the kernel wrappers for ``env``."""
+    """The event and spacetime arguments of the kernel wrappers for
+    ``env``."""
     return dict(sph=cuda_kernel._sphere_table(env, s0.x.device),
-                has_disk=env.disk is not None, obj=s0.hit_obj)
+                has_disk=env.disk is not None, obj=s0.hit_obj,
+                kerr=env.spin is not None)
 
 
 def run_ckpt(env, cfg, s0):
@@ -748,27 +856,33 @@ def phase_bwd(env, icfg, dev, readings):
 
 def render_grads(scene0, cam0, cfg, mask=None):
     """d mean(img[..., :3]^2) (bench.py:385-391) / d (mass, camera
-    position, sky); ``mask`` (H, W) weights the pixels."""
+    position, sky) and, for a Kerr hole, / d spin; ``mask`` (H, W) weights
+    the pixels."""
+    leaf = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
+    bh = scene0.bh
     scene = dataclasses.replace(
         scene0,
         bh=dataclasses.replace(
-            scene0.bh, mass=scene0.bh.mass.detach().clone()
-            .requires_grad_(True)),
-        background=scene0.background.detach().clone().requires_grad_(True))
-    cam = dataclasses.replace(
-        cam0, position=cam0.position.detach().clone().requires_grad_(True))
+            bh, mass=leaf(bh.mass),
+            spin=None if bh.spin is None else leaf(bh.spin)),
+        background=leaf(scene0.background))
+    cam = dataclasses.replace(cam0, position=leaf(cam0.position))
     sq = P.render_image(scene, cam, cfg)[..., :3].pow(2)
     if mask is not None:
         sq = sq * mask[..., None]
     sq.mean().backward()
-    return scene.bh.mass.grad, cam.position.grad, scene.background.grad
+    out = (scene.bh.mass.grad, cam.position.grad, scene.background.grad)
+    return out if bh.spin is None else out + (scene.bh.spin.grad,)
 
 
 def compare_render_grads(gk, gp, what, tol):
     errs = [rel_err(a, b) for a, b in zip(gk, gp)]
+    spin = (f"; spin {float(gk[3]):.7g} vs {float(gp[3]):.7g} (rel "
+            f"{errs[3]:.3e})" if len(gk) > 3 else "")
     log(f"# grad [{what}] mass {float(gk[0]):.7g} vs {float(gp[0]):.7g} "
         f"(rel {errs[0]:.3e}); camera {gk[1].tolist()} vs {gp[1].tolist()} "
-        f"({errs[1]:.3e}); sky {errs[2]:.3e} (max |d| / max |plain|)")
+        f"({errs[1]:.3e}); sky {errs[2]:.3e} (max |d| / max |plain|)"
+        + spin)
     check(max(errs) <= tol, f"{what}: gradients outside tolerance {tol:g}")
     return errs
 
@@ -787,7 +901,7 @@ def phase_flagship_grad(scene, cam, dev, readings):
     torch.cuda.synchronize()
     launches = read_counts()
     for name in ("rk4_ckpt", "rk4_bwd"):
-        readings[name]["launches"] = launches[name]
+        readings[name]["launches"] = launches.get(name, 0)
     check(launches == only(rk4_ckpt=1, rk4_bwd=1),
           f"forward+backward launched {launches}, expected rk4_ckpt and "
           "rk4_bwd once each and rk4_fwd never")
@@ -908,12 +1022,6 @@ def phase_times(scene, cam, dev, name_limit, readings):
     scal = cuda_kernel._scalars(fenv, icfg, dev)
     seg = cuda_kernel.segment(icfg.n_steps)
     args = (scal, flat.x, flat.p, flat.E, flat.lam, flat.status)
-
-    def no_grad(fn):
-        def run():
-            with torch.no_grad():
-                return fn()
-        return run
 
     fwd_render = no_grad(lambda: P.render_image(scene, cam, cfg))
     step = lambda: render_grads(scene, cam, cfg)  # noqa: E731
@@ -1251,10 +1359,11 @@ def phase_events_fwd(env, icfg, dev, readings):
         "the card")
 
 
-def events_scene(dev, moon_tex=None):
-    """bench.py's make_scene('events') (:126-141) on ``dev``: the flagship
-    sky, a z = 0 disk (r_in 2, r_out 6) with a 64x256 texture and the
-    four moons, one colour unless ``moon_tex`` is given."""
+def events_scene(dev, moon_tex=None, spin=None):
+    """bench.py's make_scene('events', spin=spin) (:111-141) on ``dev``:
+    the flagship sky, a z = 0 disk (r_in 2, r_out 6) with a 64x256 texture
+    and the four moons, one colour unless ``moon_tex`` is given, around a
+    hole of mass 0.5 and spin ``spin``."""
     v, u = np.meshgrid(np.arange(64), np.arange(256), indexing="ij")
     disk_tex = np.stack([0.9 + 0 * u, 0.5 + 0.3 * np.sin(8 * np.pi * u / 256),
                          0.2 + 0 * u], -1)
@@ -1262,7 +1371,7 @@ def events_scene(dev, moon_tex=None):
     if moon_tex is None:
         moon_tex = np.tile(np.float32([0.3, 0.9, 0.4]), (4, 16, 32, 1))
     return P.Scene(
-        bh=P.BlackHole.make(mass=0.5, device=dev),
+        bh=P.BlackHole.make(mass=0.5, spin=spin, device=dev),
         background=torch.as_tensor(make_sky(), dtype=torch.float32,
                                    device=dev),
         disk=P.Disk.make(r_in=2.0, r_out=6.0, texture=disk_tex, device=dev),
@@ -1290,12 +1399,22 @@ def varying_moons():
 def phase_events_ckpt(env, icfg, dev, readings):
     """rk4_ckpt's event variant against rk4_fwd's, and its checkpoint rows
     against the plain loop's states at the same steps."""
-    err, bitwise = 0.0, True
     cases = event_batches(env, icfg, dev)
     cfg = flagship_cfg()
     fenv, fs0 = flagship_rays(events_scene(dev), events_cam(dev), cfg, dev)
     cases.append((f"{SIZE}x{SIZE} events", fenv, cfg.integrator,
                   flat_state(fs0)))
+    err, bitwise = ckpt_against_fwd(cases, "phase 9")
+    readings["rk4_ckpt_events"].update(max_abs_err=err,
+                                       equals_rk4_fwd=bitwise)
+
+
+def ckpt_against_fwd(cases, tag):
+    """For each (label, env, config, flat initial state): rk4_ckpt's final
+    state equals rk4_fwd's bit for bit, and its checkpoint rows agree with
+    the plain loop's states at the same steps (edge rays and rays a step
+    apart left to the forward phase).  Returns (error, all bitwise)."""
+    err, bitwise = 0.0, True
     for what, e, c, s0 in cases:
         with torch.no_grad():
             fwd, fin, ck = run_ckpt(e, c, s0)
@@ -1307,7 +1426,7 @@ def phase_events_ckpt(env, icfg, dev, readings):
                     ne = a != b
                     ray_diff |= ne.reshape(ne.shape[0], -1).any(-1)
                 k = ray_diff.nonzero()[:, 0]
-                log(f"# phase 9: [{what}] {k.numel()} rays differ between "
+                log(f"# {tag}: [{what}] {k.numel()} rays differ between "
                     f"rk4_ckpt and rk4_fwd: statuses {fin[3][k][:8].tolist()}"
                     f" vs {fwd[3][k][:8].tolist()}, max|dx| "
                     f"{float((fin[0] - fwd[0]).abs().max()):.3e}, max|dlam| "
@@ -1328,12 +1447,11 @@ def phase_events_ckpt(env, icfg, dev, readings):
                 err = max(err, compare_flagship(
                     e, c, rays(s0, keep), rays(a, keep), rays(b, keep),
                     label)[0])
-        log(f"# phase 9: [{what}] rk4_ckpt's event variant "
-            + ("equals rk4_fwd's bit for bit" if same else "DIFFERS")
+        log(f"# {tag}: [{what}] rk4_ckpt "
+            + ("equals rk4_fwd bit for bit" if same else "DIFFERS")
             + f"; {len(rows)} checkpoint rows of seg {seg} agree "
-            f"({int((~keep).sum())} rays left to phase 8)")
-    readings["rk4_ckpt_events"].update(max_abs_err=err,
-                                       equals_rk4_fwd=bitwise)
+            f"({int((~keep).sum())} rays left to the forward phase)")
+    return err, bitwise
 
 
 def event_grads(env, s0, cfg, loss_fn, kernel):
@@ -1470,23 +1588,35 @@ def texel_flips(scene, a, end_a, b, end_b):
     return shaded & ((ra != rb) | (ca != cb))
 
 
-def phase_events_render(dev, readings):
-    """bench.py's events frame at SIZE^2, forward and forward+backward."""
-    scene, cam = events_scene(dev), events_cam(dev)
+def variant(spin):
+    """(kernel name suffix, label) of the Schwarzschild event variants or,
+    with a spin, of the Kerr variants."""
+    return (("_events", "events") if spin is None
+            else ("_kerr_events", "Kerr events"))
+
+
+def phase_events_render(dev, readings, spin=None):
+    """bench.py's events frame at SIZE^2, forward and forward+backward,
+    around a Schwarzschild hole or, with ``spin``, its kerr-events row
+    (bench.py:1032-1038): the Kerr variants alone, the gradient to the
+    spin too, and two runs of rk4_bwd's Kerr variant on the frame's rays
+    bit for bit."""
+    suffix, label = variant(spin)
+    fwd_k, ckpt_k, bwd_k = (f"rk4_{k}{suffix}" for k in ("fwd", "ckpt", "bwd"))
+    scene, cam = events_scene(dev, spin=spin), events_cam(dev)
     cfg, cfg_plain = flagship_cfg(), flagship_cfg(backend="torch")
     reset_counts()
     img = P.render_image(scene, cam, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
-    readings["rk4_fwd_events"]["launches"] = launches["rk4_fwd_events"]
-    check(launches == only(rk4_fwd_events=1),
-          f"events render launched {launches}, expected rk4_fwd's event "
-          "variant once")
+    readings[fwd_k]["launches"] = launches.get(fwd_k, 0)
+    check(launches == only(**{fwd_k: 1}),
+          f"{label} render launched {launches}, expected {fwd_k} once")
     if img.shape != (SIZE, SIZE, 4) or not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"events image is not a finite {SIZE}x{SIZE}x4")
+        raise AssertionError(f"{label} image is not a finite {SIZE}x{SIZE}x4")
     with torch.no_grad():
         img_plain = P.render_image(scene, cam, cfg_plain)
-    image_rule(img, img_plain, f"{SIZE}x{SIZE} events, kernel vs plain",
+    image_rule(img, img_plain, f"{SIZE}x{SIZE} {label}, kernel vs plain",
                FLAGSHIP_MEAN, FLAGSHIP_FRAC)
     fenv, s0 = flagship_rays(scene, cam, cfg, dev)
     with torch.no_grad():
@@ -1494,47 +1624,47 @@ def phase_events_render(dev, readings):
         sp = cuda_kernel.integrate_plain(fenv, s0, cfg.integrator)
         e, n, n_edge = compare_events(
             fenv, cfg.integrator, flat_state(s0), flat_state(s),
-            flat_state(sp), f"{SIZE}x{SIZE} events")
-    r = readings["rk4_fwd_events"]
+            flat_state(sp), f"{SIZE}x{SIZE} {label}")
+    r = readings[fwd_k]
     r.update(max_abs_err=max(r.get("max_abs_err", 0.0), e),
              rays_aligned=r.get("rays_aligned", 0) + n,
              edge_rays=r.get("edge_rays", 0) + n_edge)
     hist = torch.bincount(s.status.reshape(-1).long(), minlength=8).tolist()
     names = ("ACTIVE", "CAPTURED", "ESCAPED", "BUDGET", "DISK", "OBJECT",
              "INSIDE_HORIZON", "ERROR")
-    log(f"# phase 11: events {SIZE}x{SIZE} rendered through rk4_fwd's event "
-        "variant; statuses "
+    log(f"# {label} {SIZE}x{SIZE} rendered through {fwd_k}; statuses "
         + " ".join(f"{k}={v}" for k, v in zip(names, hist) if v))
 
     # forward+backward: the gradient to the mass, the camera and the sky
+    # (and the spin)
     reset_counts()
     gk = render_grads(scene, cam, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
-    for name in ("rk4_ckpt_events", "rk4_bwd_events"):
-        readings[name]["launches"] = launches[name]
-    check(launches == only(rk4_ckpt_events=1, rk4_bwd_events=1),
-          f"events forward+backward launched {launches}, expected the event "
-          "variants of rk4_ckpt and rk4_bwd once each")
+    for name in (ckpt_k, bwd_k):
+        readings[name]["launches"] = launches.get(name, 0)
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1}),
+          f"{label} forward+backward launched {launches}, expected {ckpt_k} "
+          f"and {bwd_k} once each")
     for g in gk:
-        check(bool(torch.isfinite(g).all()), "events gradient not finite")
+        check(bool(torch.isfinite(g).all()), f"{label} gradient not finite")
     gp = render_grads(scene, cam, cfg_plain)
-    # The whole frame's mass and camera gradients are sums of large parts
-    # of both signs, and float32 alone moves them by as much as they are
-    # (the one-ulp reading below): they are readings, and the well-
+    # The whole frame's mass, camera (and spin) gradients are sums of large
+    # parts of both signs, and float32 alone moves them by as much as they
+    # are (the one-ulp reading below): they are readings, and the well-
     # conditioned part of the frame is held instead.  The sky gradient is
     # per texel and held whole.
-    errs = compare_render_grads(gk, gp, f"{SIZE}x{SIZE} events, kernel vs "
-                                "plain (mass and camera: a reading)",
+    errs = compare_render_grads(gk, gp, f"{SIZE}x{SIZE} {label}, kernel vs "
+                                "plain (mass, camera, spin: a reading)",
                                 float("inf"))
     check(errs[2] <= TOL_EVENTS_GRAD,
-          f"events sky gradient outside {TOL_EVENTS_GRAD:g}")
+          f"{label} sky gradient outside {TOL_EVENTS_GRAD:g}")
     # its float32 conditioning: the plain path with the camera one ulp away
     cam_ulp = dataclasses.replace(cam, position=cam.position.clone())
     cam_ulp.position[2] = torch.nextafter(cam.position[2],
                                           cam.position[2] + 1)
     compare_render_grads(render_grads(scene, cam_ulp, cfg_plain), gp,
-                         f"{SIZE}x{SIZE} events, plain vs plain with the "
+                         f"{SIZE}x{SIZE} {label}, plain vs plain with the "
                          "camera one ulp away (a reading)", float("inf"))
     # the parts of the frame: near b_c, near the sky's pole, on a
     # silhouette, after an ill-conditioned event, texel flips, and the calm
@@ -1558,45 +1688,74 @@ def phase_events_render(dev, readings):
         calm &= ~m
     n_flips = int((calm & flips).sum())
     check(n_flips <= MAX_TEXEL_FLIPS,
-          f"{SIZE}x{SIZE} events: {n_flips} texel flips among the calm "
+          f"{SIZE}x{SIZE} {label}: {n_flips} texel flips among the calm "
           f"pixels (at most {MAX_TEXEL_FLIPS})")
     parts["texel flips"] = flips
     calm &= ~flips
     for name, m in parts.items():
         gm = render_grads(scene, cam, cfg, m.float())
-        log(f"# grad [{SIZE}x{SIZE} events] {int(m.sum())} pixels "
+        log(f"# grad [{SIZE}x{SIZE} {label}] {int(m.sum())} pixels "
             f"{name} carry mass {float(gm[0]):.5g} and camera "
             f"{gm[1].tolist()} of the kernel path's mass {float(gk[0]):.5g} "
             f"and camera {gk[1].tolist()}")
-    log(f"# grad [{SIZE}x{SIZE} events] calm pixels {int(calm.sum())} "
+    log(f"# grad [{SIZE}x{SIZE} {label}] calm pixels {int(calm.sum())} "
         f"({n_flips} texel flips left out)")
     gp_calm = render_grads(scene, cam, cfg_plain, calm.float())
-    errs += compare_render_grads(
+    calm_errs = compare_render_grads(
         render_grads(scene, cam, cfg, calm.float()), gp_calm,
-        f"{SIZE}x{SIZE} events, calm pixels, kernel vs plain",
+        f"{SIZE}x{SIZE} {label}, calm pixels, kernel vs plain",
         TOL_CALM_GRAD)
     compare_render_grads(render_grads(scene, cam_ulp, cfg_plain, calm.float()),
-                         gp_calm, f"{SIZE}x{SIZE} events, calm pixels, plain "
+                         gp_calm, f"{SIZE}x{SIZE} {label}, calm pixels, plain "
                          "vs plain with the camera one ulp away (a reading)",
                          float("inf"))
-    # a second gradient: one moon's centre and radius, with a texture that
-    # varies over the moons' surfaces
-    mscene = events_scene(dev, varying_moons())
-    mk = moon_grads(mscene, cam, cfg)
-    mp = moon_grads(mscene, cam, cfg_plain)
-    dm = rel_err(mk, mp)
-    log(f"# grad [{SIZE}x{SIZE} events, moon 0 centre and radius] "
-        f"{mk.tolist()} vs {mp.tolist()} ({dm:.3e})")
-    check(dm <= TOL_MOON_GRAD and float(mp.abs().max()) > 0,
-          f"moon gradient outside {TOL_MOON_GRAD:g}")
-    readings["rk4_bwd_events"].update(render_grad_err=max(errs[2:] + [dm]),
-                                      texel_flips=n_flips)
-    log("# phase 11: events forward+backward through the event variants of "
-        "rk4_ckpt and rk4_bwd agrees with the plain path")
+    held = [errs[2]] + calm_errs
+    if spin is None:
+        # a second gradient: one moon's centre and radius, with a texture
+        # that varies over the moons' surfaces
+        mscene = events_scene(dev, varying_moons())
+        mk = moon_grads(mscene, cam, cfg)
+        mp = moon_grads(mscene, cam, cfg_plain)
+        dm = rel_err(mk, mp)
+        log(f"# grad [{SIZE}x{SIZE} events, moon 0 centre and radius] "
+            f"{mk.tolist()} vs {mp.tolist()} ({dm:.3e})")
+        check(dm <= TOL_MOON_GRAD and float(mp.abs().max()) > 0,
+              f"moon gradient outside {TOL_MOON_GRAD:g}")
+        held.append(dm)
+    else:
+        # two runs of rk4_bwd's Kerr variant on the frame's rays, and two
+        # whole gradients
+        flat, icfg = flat_state(s0), cfg.integrator
+        rng = np.random.default_rng(3)
+        gx, gpp = (torch.as_tensor(rng.normal(size=(SIZE * SIZE, 3)),
+                                   dtype=torch.float32, device=dev)
+                   for _ in range(2))
+        kw = event_kw(fenv, flat)
+        with torch.no_grad():
+            _, _, ck = run_ckpt(fenv, icfg, flat)
+            del kw["obj"]
+            runs = [cuda_kernel.rk4_bwd(
+                cuda_kernel._scalars(fenv, icfg, dev), ck, flat.E, gx, gpp,
+                icfg.n_steps, cuda_kernel.segment(icfg.n_steps),
+                icfg.dt_power, **kw) for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        gk2 = render_grads(scene, cam, cfg)
+        log(f"# determinism: two runs of {bwd_k} on the {SIZE}x{SIZE} "
+            f"{label} rays give "
+            + ("bitwise-equal" if same else "DIFFERENT") + " outputs (spin "
+            f"cotangent {float(runs[0][3][adjoint.SPIN]):.9g}); two "
+            "whole gradients are "
+            + ("equal" if all(torch.equal(a, b) for a, b in zip(gk, gk2))
+               else "not equal") + " bit for bit")
+        check(same, f"{bwd_k} is not deterministic")
+    readings[bwd_k].update(render_grad_err=max(held), texel_flips=n_flips)
+    log(f"# {label} forward+backward through {ckpt_k} and {bwd_k} agrees "
+        "with the plain path")
 
 
-def phase_events_times(dev, name_limit, readings):
-    scene, cam = events_scene(dev), events_cam(dev)
+def phase_events_times(dev, name_limit, readings, spin=None):
+    suffix, label = variant(spin)
+    scene, cam = events_scene(dev, spin=spin), events_cam(dev)
     cfg, cfg_plain = flagship_cfg(), flagship_cfg(backend="torch")
     fenv, s0 = flagship_rays(scene, cam, cfg, dev)
     icfg = cfg.integrator
@@ -1606,12 +1765,6 @@ def phase_events_times(dev, name_limit, readings):
     kw = event_kw(fenv, flat)
     args = (scal, flat.x, flat.p, flat.E, flat.lam, flat.status)
 
-    def no_grad(fn):
-        def run():
-            with torch.no_grad():
-                return fn()
-        return run
-
     fwd = no_grad(lambda: cuda_kernel.rk4_fwd(*args, icfg.n_steps, 1.5, **kw))
     ckpt = no_grad(lambda: cuda_kernel.rk4_ckpt(*args, icfg.n_steps, seg,
                                                 1.5, **kw))
@@ -1619,7 +1772,7 @@ def phase_events_times(dev, name_limit, readings):
     g = torch.ones_like(flat.x)
     bwd = no_grad(lambda: cuda_kernel.rk4_bwd(
         scal, ck, flat.E, g, g, icfg.n_steps, seg, 1.5, sph=kw["sph"],
-        has_disk=True))
+        has_disk=True, kerr=kw["kerr"]))
     step = lambda: render_grads(scene, cam, cfg)  # noqa: E731
 
     def plain_forward():
@@ -1627,47 +1780,641 @@ def phase_events_times(dev, name_limit, readings):
         s = dataclasses.replace(flat, x=x)
         return cuda_kernel.integrate_plain(fenv, s, icfg).x.sum()
 
+    names = {k: f"rk4_{k}{suffix}" for k in ("fwd", "ckpt", "bwd")}
     ms = {
-        "events forward render (kernel)": timed(no_grad(
+        f"{label} forward render (kernel)": timed(no_grad(
             lambda: P.render_image(scene, cam, cfg))),
-        "events forward+backward step (kernels)": timed(step),
-        "rk4_fwd_events call": timed(fwd),
-        "rk4_ckpt_events call": timed(ckpt),
-        "rk4_bwd_events call": timed(bwd),
-        "events plain integrator, forward": timed(no_grad(
+        f"{label} forward+backward step (kernels)": timed(step),
+        f"{names['fwd']} call": timed(fwd),
+        f"{names['ckpt']} call": timed(ckpt),
+        f"{names['bwd']} call": timed(bwd),
+        f"{label} plain integrator, forward": timed(no_grad(
             lambda: cuda_kernel.integrate_plain(fenv, s0, icfg)), runs=5),
-        "events forward render (plain)": timed(no_grad(
+        f"{label} forward render (plain)": timed(no_grad(
             lambda: P.render_image(scene, cam, cfg_plain)), runs=3),
-        "events forward+backward step (plain)": timed(
+        f"{label} forward+backward step (plain)": timed(
             lambda: render_grads(scene, cam, cfg_plain), runs=2),
-        "events plain checkpointed loop, forward": timed(plain_forward,
-                                                         runs=2),
-        "events plain checkpointed loop, backward": timed_backward(
+        f"{label} plain checkpointed loop, forward": timed(plain_forward,
+                                                           runs=2),
+        f"{label} plain checkpointed loop, backward": timed_backward(
             plain_forward, runs=2),
     }
+    tag = "phase 12" if spin is None else "phase 17"
     for what, v in ms.items():
-        log(f"# phase 12: {what} {SIZE}x{SIZE}: median {v:.3f} ms, "
+        log(f"# {tag}: {what} {SIZE}x{SIZE}: median {v:.3f} ms, "
             f"{SIZE * SIZE / (v * 1e-3):.4e} rays/s [{name_limit}]")
-    dev_ms = {"rk4_fwd_events": device_ms(fwd),
-              "rk4_ckpt_events": device_ms(ckpt),
-              "rk4_bwd_events": device_ms(bwd)}
-    log("# phase 12: device time (CUDA events, median of 10): "
+    dev_ms = {names["fwd"]: device_ms(fwd), names["ckpt"]: device_ms(ckpt),
+              names["bwd"]: device_ms(bwd)}
+    log(f"# {tag}: device time (CUDA events, median of 10): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items())
         + f" [{name_limit}]")
-    wall = ms["events forward+backward step (kernels)"]
-    step_profile(step, wall, "phase 12: events forward+backward step",
+    wall = ms[f"{label} forward+backward step (kernels)"]
+    step_profile(step, wall, f"{tag}: {label} forward+backward step",
                  name_limit)
-    for name, plain in (("rk4_fwd_events", "events plain integrator, forward"),
-                        ("rk4_ckpt_events",
-                         "events plain checkpointed loop, forward"),
-                        ("rk4_bwd_events",
-                         "events plain checkpointed loop, backward")):
+    for k, plain in (("fwd", "plain integrator, forward"),
+                     ("ckpt", "plain checkpointed loop, forward"),
+                     ("bwd", "plain checkpointed loop, backward")):
+        name = names[k]
+        readings[name].update(ms=ms[f"{name} call"], device_ms=dev_ms[name],
+                              plain_ms=ms[f"{label} {plain}"])
+    readings[f"step{suffix}"] = {
+        "fwd_bwd_ms": wall,
+        "fwd_bwd_plain_ms": ms[f"{label} forward+backward step (plain)"],
+        "fwd_ms": ms[f"{label} forward render (kernel)"]}
+
+
+# =============================================================================
+# The Kerr variants.
+# =============================================================================
+def kerr_env(spin, dev, r_escape=70.0, lam_max=100.0):
+    """A hole of mass 0.5 and spin ``spin`` that captures at its outer
+    horizon r_+, as render/renderer.py's scene_env sets it."""
+    mass = torch.tensor(0.5, device=dev)
+    a = torch.tensor(spin, device=dev)
+    return GeodesicEnv(mass=mass, spin=a, r_capture=horizon_radius(mass, a),
+                       r_escape=torch.tensor(r_escape, device=dev),
+                       lam_max=torch.tensor(lam_max, device=dev))
+
+
+def kerr_gap(env):
+    """The impact parameters a Kerr fan leaves out: within KERR_BAND of the
+    critical sky radius of its rays (L_z = 0; photon_band)."""
+    m = float(env.mass)
+    rho_c = photon_band(m, float(env.spin))[0]
+    return rho_c - KERR_BAND * m, rho_c + KERR_BAND * m
+
+
+def kerr_guard_stress(spin, n, dev):
+    """A Kerr sphere-guard stress batch: six spheres of radius 0.35 at
+    radius 2 in the equatorial plane (inner edges at 1.65), rays from radii
+    1.45-1.6 near that plane heading outwards, steps of 0.01 in the strong
+    field.  A ray enters a sphere near its inner edge with a step far
+    shorter than |y| - r_KS(y) (about a^2 / 2r there), so a guard band
+    without its |a| of slack skips the entry: tests/test_pallas.py's Kerr
+    stress case (:366) has steps too long to show it."""
+    rng = np.random.default_rng(11)
+    ang = np.linspace(0.0, 2 * np.pi, 6, endpoint=False) + 0.3
+    centers = np.stack([2.0 * np.cos(ang), 2.0 * np.sin(ang), np.zeros(6)],
+                       -1)
+    env = with_events(kerr_env(spin, dev, r_escape=60.0, lam_max=60.0),
+                      centers, [0.35] * 6, disk=False)
+    r = rng.uniform(1.45, 1.6, n)
+    ph = rng.uniform(0.0, 2 * np.pi, n)
+    x0 = np.stack([r * np.cos(ph), r * np.sin(ph),
+                   rng.uniform(-0.25, 0.25, n)], -1)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d += 2.0 * x0 / np.linalg.norm(x0, axis=-1, keepdims=True)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cfg = P.IntegratorConfig(n_steps=200, dt=0.01, dt_boost=64.0,
+                             dt_boost_r_ref=1.7, dt_power=1.5)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    return env, cfg, f(x0), f(d)
+
+
+def kerr_batches(spin, icfg, dev):
+    """(label, environment, config, initial state, with events) of the Kerr
+    phases for one spin: the fan and the ragged batch with the band around
+    the critical sky radius left out, the events fan over the disk and the
+    moons, and the guard-stress batch."""
+    env = kerr_env(spin, dev)
+    gap = kerr_gap(env)
+    tag = f"Kerr a={spin:g}"
+    out = [(f"{tag} fan {FAN}", env, icfg,
+            initial_state(env, *camera_fan(FAN, dev, gap)), False)]
+    xr, dr = ragged_batch(1000, dev, gap=gap)
+    out += [(f"{tag} ragged 1000 power={pw}", env,
+             dataclasses.replace(icfg, dt_power=pw),
+             initial_state(env, xr, dr), False) for pw in POWERS]
+    eenv = with_events(env)
+    out.append((f"{tag} events fan {FAN}", eenv, icfg,
+                initial_state(eenv, *events_fan(FAN, dev)), True))
+    genv, gcfg, xg, dg = kerr_guard_stress(spin, FAN, dev)
+    out.append((f"{tag} guard stress {FAN}", genv, gcfg,
+                initial_state(genv, xg, dg), True))
+    return out
+
+
+def phase_kerr_fwd(icfg, dev, readings):
+    """rk4_fwd's Kerr variants against the plain Kerr loop on the card, at
+    a = 0.45 and a = -0.3, and the kerr_a09 golden through them."""
+    # (error, rays aligned, edge rays) of each variant
+    got_by = {False: [0.0, 0, 0], True: [0.0, 0, 0]}
+    for spin in SPINS:
+        for what, e, c, s0, events in kerr_batches(spin, icfg, dev):
+            with torch.no_grad():
+                sk = cuda_kernel.integrate_cuda(e, s0, c)
+                sp = cuda_kernel.integrate_plain(e, s0, c)
+            if events:
+                got = phase(f"phase 13 ({what})", compare_events, e, c, s0,
+                            sk, sp, what)
+            else:
+                got = phase(f"phase 13 ({what})", compare_states, e, c, sk,
+                            sp, what)
+                inside = sk.status == states.INSIDE_HORIZON
+                if "ragged" in what and not torch.equal(sk.x[inside],
+                                                        s0.x[inside]):
+                    check(False, f"{what}: inside-horizon rays moved")
+            if got is not None:
+                acc = got_by[events]
+                acc[0], acc[1] = max(acc[0], got[0]), acc[1] + got[1]
+                acc[2] += got[2] if events else 0
+    # tests/test_golden.py's kerr_a09 (:66-72)
+    golden = np.load(ROOT / "tests" / "golden" / "kerr_a09.npz")
+    ref = torch.as_tensor(golden["img"].astype(np.float32), device=dev)
+    sky = torch.as_tensor(make_sky(32, 64, check=8), dtype=torch.float32,
+                          device=dev)
+    scene = P.Scene(bh=P.BlackHole.make(mass=0.5, spin=0.45, device=dev),
+                    background=sky)
+    cam = P.Camera.make(position=(20.0, 0.0, 0.0), euler=(0.0, np.pi / 2, 0.0),
+                        fov=(0.7, 0.7), device=dev)
+    gcfg = P.RenderConfig(width=64, height=64, lam_max=120.0,
+                          integrator=P.IntegratorConfig(n_steps=400, dt=0.08))
+    reset_counts()
+    img = P.render_image(scene, cam, gcfg)
+    check(read_counts() == only(rk4_fwd_kerr=1),
+          f"golden kerr_a09 launched {read_counts()}")
+    image_rule(img, ref, "64x64 golden kerr_a09, kernel", GOLDEN_MEAN,
+               GOLDEN_FRAC)
+    for events, (err, aligned, edges) in got_by.items():
+        readings["rk4_fwd_kerr" + ("_events" if events else "")].update(
+            max_abs_err=err, rays_aligned=aligned, edge_rays=edges)
+    log("# phase 13: rk4_fwd's Kerr variants agree with the plain Kerr loop "
+        "on the card")
+
+
+def phase_kerr_ckpt(icfg, dev, readings):
+    """rk4_ckpt's Kerr variants against rk4_fwd's (bit for bit) and their
+    checkpoint rows against the plain Kerr loop, on the Kerr batches and
+    the rays of the 1024^2 kerr-events frame."""
+    cases = {False: [], True: []}
+    for spin in SPINS:
+        for what, e, c, s0, events in kerr_batches(spin, icfg, dev):
+            cases[events].append((what, e, c, flat_state(s0)))
+    cfg = flagship_cfg()
+    fenv, fs0 = flagship_rays(events_scene(dev, spin=0.45), events_cam(dev),
+                              cfg, dev)
+    cases[True].append((f"{SIZE}x{SIZE} Kerr events", fenv, cfg.integrator,
+                        flat_state(fs0)))
+    for events, batch in cases.items():
+        err, bitwise = ckpt_against_fwd(batch, "phase 14")
+        readings["rk4_ckpt_kerr" + ("_events" if events else "")].update(
+            max_abs_err=err, equals_rk4_fwd=bitwise)
+
+
+def kerr_grads(env, s0, cfg, loss_fn, kernel):
+    """Cotangents of (x, p, E) of ``s0``, of the mass, of the spin and, with
+    spheres, of the (K, 4) sphere table, through the kernels or the plain
+    loop."""
+    leaf = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
+    e = dataclasses.replace(env, mass=leaf(env.mass), spin=leaf(env.spin))
+    if env.spheres is not None:
+        e.spheres = SphereGeom(center=leaf(env.spheres.center),
+                               radius=leaf(env.spheres.radius))
+    x, p, E = (leaf(t) for t in (s0.x, s0.p, s0.E))
+    s = dataclasses.replace(s0, x=x, p=p, E=E)
+    out = (cuda_kernel.integrate_cuda(e, s, cfg) if kernel
+           else cuda_kernel.integrate_plain(e, s, cfg))
+    loss_fn(out).backward()
+    sph = (None if env.spheres is None else
+           torch.cat([e.spheres.center.grad, e.spheres.radius.grad[:, None]],
+                     dim=1))
+    return out, (x.grad, p.grad, E.grad, e.mass.grad, e.spin.grad, sph)
+
+
+def spin_aligned(env, s0, cfg, w):
+    """``w`` (n, 3) with each ray's sign chosen so that its term of the
+    spin cotangent of weighted_x_loss is >= 0 on the plain loop (the plain
+    loop run with a spin per ray).  With random signs the rays' terms
+    cancel to about 1/70 of their absolute sum (the 40-step Kerr fan), so
+    their total would read the float32 rounding of a few strong-field rays
+    rather than the kernel; aligned, the total is that absolute sum."""
+    a = torch.full_like(s0.E, float(env.spin)).requires_grad_(True)
+    out = cuda_kernel.integrate_plain(dataclasses.replace(env, spin=a), s0,
+                                      cfg)
+    weighted_x_loss(out, w).backward()
+    return w * torch.where(a.grad < 0, -1.0, 1.0)[:, None]
+
+
+def phase_kerr_bwd(icfg, dev, readings):
+    """rk4_bwd's Kerr variants against autograd of the plain Kerr loop: the
+    per-ray cotangents of x, p and E, and those of the mass, the spin and,
+    with events, the spheres; edge rays get no weight in the loss, and the
+    weights' signs follow each ray's spin term (spin_aligned)."""
+    rng = np.random.default_rng(2)
+    cases = []
+    for spin, cuts in ((0.45, (100, 40)), (-0.3, (40,))):
+        env = kerr_env(spin, dev)
+        xf, df = camera_fan(FAN, dev, kerr_gap(env))
+        cases += [(f"Kerr a={spin:g} fan {FAN}, {n} steps", env, (xf, df),
+                   dataclasses.replace(icfg, n_steps=n)) for n in cuts]
+        if spin == 0.45:
+            xr, dr = ragged_batch(1000, dev, gap=kerr_gap(env))
+            cases += [(f"Kerr a=0.45 ragged 1000 power={pw}", env, (xr, dr),
+                       dataclasses.replace(icfg, dt_power=pw))
+                      for pw in POWERS]
+        cases.append((f"Kerr a={spin:g} events fan {FAN}", with_events(env),
+                      events_fan(FAN, dev), icfg))
+    err = {False: 0.0, True: 0.0}   # of each variant
+    for what, env, (x0, d0), c in cases:
+        s0 = initial_state(env, x0, d0)
+        events = env.disk is not None
+        parts = [("all rays", torch.ones_like(s0.lam, dtype=torch.bool),
+                  TOL_GRAD)]
+        n_edge = 0
+        if events:
+            with torch.no_grad():
+                keep, n_edge, _ = split_edges(
+                    env, c, s0, cuda_kernel.integrate_cuda(env, s0, c),
+                    cuda_kernel.integrate_plain(env, s0, c), what)
+                calm = keep & (event_kappa(env, c, s0) <= KAPPA_CALM)
+            parts = [("all rays", keep, TOL_GRAD_EVENTS),
+                     ("calm rays", calm, TOL_GRAD)]
+        w = spin_aligned(env, s0, c, torch.as_tensor(
+            rng.normal(size=tuple(x0.shape)), dtype=torch.float32,
+            device=dev))
+        for part, mask, tol in parts:
+            wx = w * mask[:, None]
+            loss = lambda s: weighted_x_loss(s, wx)  # noqa: E731
+            out_k, gk = kerr_grads(env, s0, c, loss, kernel=True)
+            out_p, gp = kerr_grads(env, s0, c, loss, kernel=False)
+            ok = (out_k.lam - out_p.lam).abs() <= TOL_X
+            errs = [rel_err(a[ok], b[ok]) for a, b in zip(gk[:3], gp[:3])]
+            dm = abs(float(gk[3]) / float(gp[3]) - 1.0)
+            ds = abs(float(gk[4]) / float(gp[4]) - 1.0)
+            dsph = rel_err(gk[5], gp[5]) if events else 0.0
+            active = int((out_k.status == states.ACTIVE).sum())
+            log(f"# grad [{what}, {part}: {int(mask.sum())} weighted, "
+                f"{n_edge} edge rays not, {active} ACTIVE at the end] x "
+                f"{errs[0]:.3e} p {errs[1]:.3e} E {errs[2]:.3e} (max |d| / "
+                f"max |plain|), mass {float(gk[3]):.7g} vs {float(gp[3]):.7g}"
+                f" (rel {dm:.3e}), spin {float(gk[4]):.7g} vs "
+                f"{float(gp[4]):.7g} (rel {ds:.3e})"
+                + (f", spheres (K, 4) {dsph:.3e}" if events else ""))
+            lim = max(tol, TOL_GRAD_MASS)
+            check(max(errs) <= tol and dm <= lim and ds <= lim
+                  and dsph <= lim,
+                  f"{what}, {part}: cotangents outside {tol:g} (mass, spin "
+                  f"and spheres {lim:g})")
+            check(float(gp[4].abs()) > 0, f"{what}: no spin cotangent")
+            err[events] = max(err[events], *errs, dm, ds, dsph)
+    # two runs of rk4_bwd's Kerr variant give the same bits
+    env = with_events(kerr_env(0.45, dev))
+    s0 = flat_state(initial_state(env, *events_fan(FAN, dev)))
+    g = torch.as_tensor(rng.normal(size=(2, FAN, 3)), dtype=torch.float32,
+                        device=dev)
+    kw = event_kw(env, s0)
+    del kw["obj"]
+    with torch.no_grad():
+        _, _, ck = run_ckpt(env, icfg, s0)
+        runs = [cuda_kernel.rk4_bwd(
+            cuda_kernel._scalars(env, icfg, dev), ck, s0.E, g[0], g[1],
+            icfg.n_steps, cuda_kernel.segment(icfg.n_steps), icfg.dt_power,
+            **kw) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log("# determinism: two runs of rk4_bwd's Kerr variant give "
+        + ("bitwise-equal" if same else "DIFFERENT") + " outputs")
+    check(same, "rk4_bwd's Kerr variant is not deterministic")
+    for events, e in err.items():
+        readings["rk4_bwd_kerr" + ("_events" if events else "")][
+            "max_abs_err"] = e
+    log("# phase 15: rk4_bwd's Kerr variants agree with autograd of the "
+        "plain Kerr loop")
+
+
+def kerr_fan(dev):
+    """bench.py's bench_integrator(spin=0.45) (:409-440): a hole of mass
+    0.5 and spin 0.45 that captures at r = 1, its schedule and its 1M-ray
+    camera fan (initial positions and directions)."""
+    env = GeodesicEnv(mass=torch.tensor(0.5, device=dev),
+                      r_capture=torch.tensor(1.0, device=dev),
+                      r_escape=torch.tensor(70.0, device=dev),
+                      lam_max=torch.tensor(100.0, device=dev),
+                      spin=torch.tensor(0.45, device=dev))
+    cfg = P.IntegratorConfig(n_steps=100, dt=0.12, dt_boost=64.0,
+                             dt_boost_r_ref=1.7, dt_power=1.5)
+    return env, cfg, *camera_fan(INTEGRATOR_RAYS, dev)
+
+
+def near_kink(env, cfg, s0):
+    """Per ray, whether on some step of the plain loop from ``s0`` its
+    radius lies within TOL_X (the paths' x agree to it) of a clip edge of
+    the step schedule: ratio 1 at r_ref and ratio dt_boost at r_ref
+    dt_boost^(1 / dt_power), 27.2 for the flagship's.  There the step
+    size's derivative jumps, and two correct float32 paths on either side
+    take its two one-sided derivatives (a kink flip; float64 parts from
+    both by as much)."""
+    r_ref = float(cfg.dt_boost_r_ref or 6.0 * float(env.mass))
+    kinks = (r_ref, r_ref * cfg.dt_boost ** (1.0 / cfg.dt_power))
+    hit = torch.zeros_like(s0.lam, dtype=torch.bool)
+    s = s0
+    with torch.no_grad():
+        for _ in range(cfg.n_steps):
+            act = s.active
+            if not bool(act.any()):
+                break
+            r = env.radius(s.x)
+            for k in kinks:
+                hit |= act & ((r - k).abs() <= TOL_X)
+            s = _fixed_step(env, cfg, s)
+    return hit
+
+
+def phase_kerr_integrator(dev, name_limit, readings):
+    """bench.py's bench_integrator(spin=0.45): the integrator alone on its
+    1M-ray camera fan, forward and the gradient of sum(x^2) 1e-6 to the
+    mass, through the Kerr variants without events (launches checked),
+    against the plain loop: the loss's mass gradient, each ray's final
+    state (compare_flagship: the fan's inner band ends 0.008 from the
+    critical 2.458), rk4_ckpt's final states against rk4_fwd's bit for bit
+    and its checkpoint rows, and rk4_bwd's per-ray cotangents away from b_c
+    and from the step schedule's kinks (near_kink) for a loss smooth in the
+    final state; then times."""
+    env, cfg, x0, d0 = kerr_fan(dev)
+    n = INTEGRATOR_RAYS
+
+    def loss(mass, backend):
+        s = P.launch(dataclasses.replace(env, mass=mass), x0, d0,
+                     dataclasses.replace(cfg, backend=backend))
+        return (s.x ** 2).sum() * 1e-6
+
+    def forward(backend):
+        with torch.no_grad():
+            return loss(torch.tensor(0.5, device=dev), backend)
+
+    def gradient(backend):
+        mass = torch.tensor(0.5, device=dev, requires_grad=True)
+        loss(mass, backend).backward()
+        return mass.grad
+
+    # the main path: bench.py's kerr row, forward and gradient
+    reset_counts()
+    lk = forward("auto")
+    launches = read_counts()
+    readings["rk4_fwd_kerr"]["launches"] = launches.get("rk4_fwd_kerr", 0)
+    check(launches == only(rk4_fwd_kerr=1),
+          f"Kerr integrator forward launched {launches}")
+    reset_counts()
+    gk = gradient("auto")
+    launches = read_counts()
+    for name in ("rk4_ckpt_kerr", "rk4_bwd_kerr"):
+        readings[name]["launches"] = launches.get(name, 0)
+    check(launches == only(rk4_ckpt_kerr=1, rk4_bwd_kerr=1),
+          f"Kerr integrator gradient launched {launches}")
+    lp, gp = forward("torch"), gradient("torch")
+    dm = abs(float(gk) / float(gp) - 1)
+    log(f"# phase 18: Kerr integrator {n} rays: loss {float(lk):.7g} vs "
+        f"plain {float(lp):.7g} (rel {abs(float(lk) / float(lp) - 1):.3e}),"
+        f" d/dmass {float(gk):.7g} vs {float(gp):.7g} (rel {dm:.3e}, limit "
+        f"{TOL_GRAD_MASS:g})")
+    check(dm <= TOL_GRAD_MASS,
+          f"Kerr integrator mass gradient outside {TOL_GRAD_MASS:g}")
+
+    # the fan's rays one by one: rk4_fwd, then rk4_ckpt
+    what = f"Kerr integrator {n}"
+    s0 = initial_state(env, x0, d0)
+    with torch.no_grad():
+        sk = cuda_kernel.integrate_cuda(env, s0, cfg)
+        sp = cuda_kernel.integrate_plain(env, s0, cfg)
+    e, aligned, dlam = compare_flagship(env, cfg, s0, sk, sp, what)
+    r = readings["rk4_fwd_kerr"]
+    r.update(max_abs_err=max(r.get("max_abs_err", 0.0), e),
+             rays_aligned=r.get("rays_aligned", 0) + aligned,
+             dlam_near_b_c=dlam)
+    e, bitwise = ckpt_against_fwd([(what, env, cfg, s0)], "phase 18")
+    r = readings["rk4_ckpt_kerr"]
+    r.update(max_abs_err=max(r.get("max_abs_err", 0.0), e),
+             equals_rk4_fwd=r.get("equals_rk4_fwd", True) and bitwise)
+
+    # rk4_bwd's per-ray cotangents, away from b_c, for weighted final
+    # positions and directions (phase 6's loss)
+    near = near_b_c(env, s0)
+    rng = np.random.default_rng(6)
+    wx, wd = (torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                              device=dev) for _ in range(2))
+
+    def smooth(s):
+        ok = (s.status != states.CAPTURED) & (s.status != states.ERROR)
+        f = wx * s.x + wd * final_direction(env, s)
+        return torch.where(ok[..., None], f, 0.0).sum()
+
+    out_k, rk = kerr_grads(env, s0, cfg, smooth, True)
+    out_p, rp = kerr_grads(env, s0, cfg, smooth, False)
+    kink = near_kink(env, cfg, s0) & ~near
+    away = ~near & ((out_k.lam - out_p.lam).abs() <= TOL_X)
+    keep = away & ~kink
+    errs = [rel_err(a[keep], b[keep]) for a, b in zip(rk[:3], rp[:3])]
+    log(f"# grad [{what} rays away from b_c and the schedule's kinks, "
+        f"smooth loss] n={int(keep.sum())}: per-ray cotangents x "
+        f"{errs[0]:.3e} p {errs[1]:.3e} E {errs[2]:.3e} (max |d| / max "
+        f"|plain|, limit {TOL_GRAD:g}); with the {int(kink.sum())} rays by a"
+        f" kink: x {rel_err(rk[0][away], rp[0][away]):.3e}; near b_c "
+        f"({int(near.sum())} rays): x {rel_err(rk[0][near], rp[0][near]):.3e}"
+        f"; mass {float(rk[3]):.7g} vs {float(rp[3]):.7g}, spin "
+        f"{float(rk[4]):.7g} vs {float(rp[4]):.7g} (readings)")
+    check(max(errs) <= TOL_GRAD,
+          f"{what}: per-ray cotangents away from b_c outside {TOL_GRAD:g}")
+    r = readings["rk4_bwd_kerr"]
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), *errs, dm)
+
+    # times: bench.py's row, and each kernel on the fan's rays against its
+    # plain version
+    scal = cuda_kernel._scalars(env, cfg, dev)
+    seg = cuda_kernel.segment(cfg.n_steps)
+    args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
+    fwd = no_grad(lambda: cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5,
+                                              kerr=True))
+    ckpt = no_grad(lambda: cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg,
+                                                1.5, kerr=True))
+    ck = ckpt()[-1]
+    g = torch.ones_like(s0.x)
+    bwd = no_grad(lambda: cuda_kernel.rk4_bwd(scal, ck, s0.E, g, g,
+                                              cfg.n_steps, seg, 1.5,
+                                              kerr=True))
+
+    def plain_forward():
+        x = s0.x.detach().clone().requires_grad_(True)
+        s = dataclasses.replace(s0, x=x)
+        return cuda_kernel.integrate_plain(env, s, cfg).x.sum()
+
+    ms = {"forward (kernel)": timed(lambda: forward("auto")),
+          "forward+gradient (kernels)": timed(lambda: gradient("auto")),
+          "forward (plain)": timed(lambda: forward("torch"), runs=3),
+          "forward+gradient (plain)": timed(lambda: gradient("torch"),
+                                            runs=1),
+          "rk4_fwd_kerr call": timed(fwd),
+          "rk4_ckpt_kerr call": timed(ckpt),
+          "rk4_bwd_kerr call": timed(bwd),
+          "plain integrator, forward": timed(no_grad(
+              lambda: cuda_kernel.integrate_plain(env, s0, cfg)), runs=3),
+          "plain checkpointed loop, forward": timed(plain_forward, runs=1),
+          "plain checkpointed loop, backward": timed_backward(plain_forward,
+                                                              runs=1)}
+    for k, v in ms.items():
+        log(f"# phase 18: Kerr integrator {k} {n} rays: median "
+            f"{v:.3f} ms, {n / (v * 1e-3):.4e} rays/s [{name_limit}]")
+    dev_ms = {"rk4_fwd_kerr": device_ms(fwd), "rk4_ckpt_kerr": device_ms(ckpt),
+              "rk4_bwd_kerr": device_ms(bwd)}
+    log("# phase 18: device time (CUDA events, median of 10): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items())
+        + f" [{name_limit}]")
+    for name, plain in (("rk4_fwd_kerr", "plain integrator, forward"),
+                        ("rk4_ckpt_kerr", "plain checkpointed loop, forward"),
+                        ("rk4_bwd_kerr",
+                         "plain checkpointed loop, backward")):
         readings[name].update(ms=ms[f"{name} call"], device_ms=dev_ms[name],
                               plain_ms=ms[plain])
-    readings["events_step"] = {
-        "fwd_bwd_ms": wall,
-        "fwd_bwd_plain_ms": ms["events forward+backward step (plain)"],
-        "fwd_ms": ms["events forward render (kernel)"]}
+    readings["kerr_integrator"] = {k: ms[k] for k in list(ms)[:4]}
+
+
+# =============================================================================
+# The bound of each kernel: operations and bytes of this run's inputs.
+# =============================================================================
+COUNTED = {
+    "add", "sub", "mul", "div", "true_divide", "neg", "sqrt", "rsqrt", "abs",
+    "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "gt", "ge", "lt",
+    "le", "eq", "ne", "isfinite", "pow", "reciprocal", "__add__", "__radd__",
+    "__iadd__", "__sub__", "__rsub__", "__isub__", "__mul__", "__rmul__",
+    "__imul__", "__truediv__", "__rtruediv__", "__itruediv__", "__neg__",
+    "__pow__", "__rpow__", "__gt__", "__ge__", "__lt__", "__le__", "__eq__",
+    "__ne__", "__abs__"}
+
+
+class OpCount(torch.overrides.TorchFunctionMode):
+    """Counts the floating-point operations per ray that a plain PyTorch
+    function does on a batch of ``n`` rays: each elementwise arithmetic
+    result (+, -, *, /, square root, min, max, comparison, abs) counts one
+    per ray, a reduction of k terms k - 1, so a multiply-add counts 2;
+    selects (where) and data movement count nothing."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n, self.ops = n, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", "")
+        if isinstance(out, torch.Tensor):
+            if name in COUNTED:
+                self.ops += max(out.numel() // self.n, 1)
+            elif name == "sum" and args:
+                self.ops += max((args[0].numel() - out.numel()) // self.n, 0)
+        return out
+
+
+def ops_per_ray(fn, n):
+    with OpCount(n) as c:
+        fn()
+    return c.ops
+
+
+def guard_pass(env, x, y):
+    """Per ray, whether rk4_fwd's sphere guard lets the K sphere quadratics
+    of the segment x -> y run (rk4_step.cuh segment_events; the band's
+    upper end gains |a| for a Kerr hole)."""
+    rb = env.radius(y)
+    L = (y - x).norm(dim=-1)
+    hi = rb + (env.spin.abs() if env.spin is not None else 0.0)
+    ck = env.spheres.center.norm(dim=-1)
+    rad = env.spheres.radius
+    return ((rb[..., None] - L[..., None] <= ck + rad)
+            & (hi[..., None] + L[..., None] >= ck - rad)).any(-1)
+
+
+def ray_steps(env, cfg, s0):
+    """(ray-steps, ray-steps whose sphere guard passes) of the step loop from
+    ``s0``: the ACTIVE rays summed over the steps, as the plain loop
+    replays them."""
+    steps = guard = 0
+    s = s0
+    with torch.no_grad():
+        for _ in range(cfg.n_steps):
+            act = s.active
+            k = int(act.sum())
+            if not k:
+                break
+            steps += k
+            if env.spheres is not None:
+                y, _ = rk4_step(env, s.x, s.p, s.E, _dt_eff(env, cfg, s))
+                guard += int((act & guard_pass(env, s.x, y)).sum())
+            s = _fixed_step(env, cfg, s)
+    return steps, guard
+
+
+def phase_bounds(dev, name_limit, readings):
+    """The least time the card could take for each kernel's work at the
+    main path's inputs: the larger of its operations over the float32 peak
+    and its bytes over the memory rate (PEAK_FLOPS, PEAK_BYTES).  The
+    ray-steps are the frame's own (ray_steps); the operations per ray-step
+    are counted (OpCount) on the plain statement of each variant: the step
+    (``_fixed_step``) for rk4_fwd and rk4_ckpt, rk4_fwd's sphere quadratics
+    only where its guard passes, and the step with its adjoint
+    (``adjoint.step_adjoint``) for each taped step of rk4_bwd.  Bytes:
+    each input read once and each output written once."""
+    cfg = flagship_cfg()
+    sky = P.Scene(bh=P.BlackHole.make(mass=0.5, device=dev),
+                  background=torch.as_tensor(make_sky(), dtype=torch.float32,
+                                             device=dev))
+    kenv, kcfg, x0, d0 = kerr_fan(dev)
+
+    def frame(scene, cam):
+        fenv, s0 = flagship_rays(scene, cam, cfg, dev)
+        return fenv, cfg.integrator, flat_state(s0)
+
+    # the variant's name suffix -> (environment, config, flat initial
+    # state) of the main path that runs it
+    frames = {"": frame(sky, P.Camera.make(position=(0.0, 0.0, 25.0),
+                                           fov=(0.8, 0.8), device=dev)),
+              "_events": frame(events_scene(dev), events_cam(dev)),
+              "_kerr": (kenv, kcfg, initial_state(kenv, x0, d0)),
+              "_kerr_events": frame(events_scene(dev, spin=0.45),
+                                    events_cam(dev))}
+    for suffix, (fenv, icfg, s0) in frames.items():
+        n_seg = -(-icfg.n_steps // cuda_kernel.segment(icfg.n_steps))
+        n, k = s0.E.numel(), (0 if fenv.spheres is None
+                              else fenv.spheres.center.shape[0])
+        steps, guard = ray_steps(fenv, icfg, s0)
+        few = rays(s0, torch.arange(64, device=dev))
+        few.status = torch.zeros_like(few.status)
+        step_ops = ops_per_ray(lambda: _fixed_step(fenv, icfg, few), 64)
+        quad = guard_ops = 0
+        if k:
+            y = few.x + 0.1 * few.p
+            quad = ops_per_ray(lambda: _sphere_events(fenv, few.x, y), 64)
+            guard_ops = ops_per_ray(lambda: guard_pass(fenv, few.x, y), 64)
+        scal = cuda_kernel._scalars(fenv, icfg, dev).detach()
+        sph = cuda_kernel._sphere_table(fenv, dev).detach() if k else None
+        g6 = tuple(torch.ones_like(few.E) for _ in range(6))
+        adj_ops = ops_per_ray(lambda: adjoint.step_adjoint(
+            few.x.unbind(-1), few.p.unbind(-1), few.E, few.status, scal, g6,
+            icfg.dt_power, sph=sph, has_disk=fenv.disk is not None,
+            kerr=fenv.spin is not None), 64)
+        ops = {"fwd": steps * (step_ops - quad + guard_ops) + guard * quad,
+               "ckpt": steps * step_ops,
+               "bwd": steps * (step_ops + adj_ops)}
+        table = 4 * (10 + 4 * k)
+        state_in, state_out = 40 * n, 36 * n
+        ckpts = 32 * n_seg * n
+        nbytes = {"fwd": state_in + state_out + table,
+                  "ckpt": state_in + state_out + ckpts + table,
+                  "bwd": ckpts + 28 * n + 28 * n + 2 * table}
+        for kind in ("fwd", "ckpt", "bwd"):
+            t_ops = ops[kind] / PEAK_FLOPS * 1e3
+            t_bytes = nbytes[kind] / PEAK_BYTES * 1e3
+            name = f"rk4_{kind}{suffix}"
+            readings[name].update(
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, ops=ops[kind], bytes=nbytes[kind])
+            log(f"# phase 19: {name}: {ops[kind]:.4e} operations, "
+                f"{nbytes[kind]:.4e} bytes -> bound {max(t_ops, t_bytes):.4f}"
+                f" ms by {readings[name]['bound_by']} (device "
+                f"{readings[name].get('device_ms', float('nan')):.3f} ms) "
+                f"[{name_limit}]")
+        log(f"# phase 19: frame{suffix or '_sky'}: {n} rays, {steps} "
+            f"ray-steps ({steps / n:.2f} per ray), {guard} past the sphere "
+            f"guard; per ray-step {step_ops} operations (sphere quadratics "
+            f"{quad}, guard {guard_ops}), adjoint {adj_ops}")
 
 
 def main() -> int:
@@ -1715,6 +2462,17 @@ def main() -> int:
           icfg, dev, readings)
     phase("phase 11 (events frame)", phase_events_render, dev, readings)
     phase_events_times(dev, name_limit, readings)
+    phase("phase 13 (Kerr rk4_fwd vs plain)", phase_kerr_fwd, icfg, dev,
+          readings)
+    phase("phase 14 (Kerr rk4_ckpt)", phase_kerr_ckpt, icfg, dev, readings)
+    phase("phase 15 (Kerr rk4_bwd vs autograd)", phase_kerr_bwd, icfg, dev,
+          readings)
+    phase("phase 16 (Kerr events frame)", phase_events_render, dev,
+          readings, 0.45)
+    phase_events_times(dev, name_limit, readings, spin=0.45)
+    phase("phase 18 (Kerr integrator)", phase_kerr_integrator, dev,
+          name_limit, readings)
+    phase("phase 19 (bounds)", phase_bounds, dev, name_limit, readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
@@ -1723,7 +2481,12 @@ def main() -> int:
         for msg in FAILURES:
             log(f"#   {msg}")
         return 1
-    for key, what in (("step", "flagship"), ("events_step", "events")):
+    for what, v in readings.pop("kerr_integrator").items():
+        log(f"# Kerr integrator [bench.py's kerr row, {INTEGRATOR_RAYS} "
+            f"rays]: {what} "
+            f"{v:.3f} ms [{name_limit}]")
+    for key, what in (("step", "flagship"), ("step_events", "events"),
+                      ("step_kerr_events", "Kerr events")):
         step = readings.pop(key)
         log(f"# step [{what}]: forward+backward {step['fwd_bwd_ms']:.3f} ms "
             f"({SIZE * SIZE / (step['fwd_bwd_ms'] * 1e-3):.4e} rays/s), "

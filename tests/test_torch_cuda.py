@@ -1,8 +1,9 @@
 """The CUDA kernels of the PyTorch port against their plain PyTorch versions:
 rk4_fwd, rk4_ckpt and rk4_bwd, event-free and with disk and sphere events,
-and renders and their gradients through them.
+Schwarzschild and Kerr, and renders and their gradients through them.
 
-Needs a CUDA device and nvcc, and skips without them.  This file imports
+Needs a CUDA device and nvcc, and skips without them (decided in a fixture
+when each test runs, never at import).  This file imports
 nothing of JAX, so it also runs where JAX is not installed; the tests'
 ``conftest.py`` imports JAX, so there run it without it:
 
@@ -23,10 +24,14 @@ import blackhole_geodesic_calculator_tpu_torch as P  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import cuda_kernel  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import integrate as tint  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import states  # noqa: E402
+from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init  # noqa: E402
 
-pytestmark = pytest.mark.skipif(not torch.cuda.is_available(),
-                                reason="needs a CUDA device")
+
+@pytest.fixture(autouse=True)
+def _needs_a_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
 
 # Statuses equal; x and lam within 1e-3, p within 1e-4, final directions
 # within 1e-4 rad (an eighth of the flagship's 7.8e-4 rad pixel).  Both
@@ -83,11 +88,10 @@ def test_kernel_matches_plain_on_cuda(power):
     e = env()
     x0, d0 = fan()
     cfg = tint.IntegratorConfig(**{**FLAGSHIP, "dt_power": power})
-    before = cuda_kernel.LAUNCHES
+    before = counts()
     sk = tint.launch(e, x0, d0, cfg)
-    assert cuda_kernel.LAUNCHES == before + 1
     sp = tint.launch(e, x0, d0, dataclasses.replace(cfg, backend="torch"))
-    assert cuda_kernel.LAUNCHES == before + 1
+    assert launched(before) == {"rk4_fwd": 1}
     assert torch.equal(sk.status, sp.status)
     inside = sk.status == states.INSIDE_HORIZON
     assert int(inside.sum()) == 36
@@ -100,25 +104,44 @@ def test_kernel_matches_plain_on_cuda(power):
     assert float((2 * torch.asin((chord / 2).clamp(max=1))).max()) <= TOL_DIR
 
 
-@pytest.mark.parametrize("case", ["spin-events", "spin", "dopri"])
+# The hole each Dormand-Prince refusal is checked on, by test id:
+# Schwarzschild, Kerr, and Kerr with the disk and the spheres.
+DOPRI_HOLES = {"dopri": (False, False), "spin": (True, False),
+               "spin-events": (True, True)}
+
+
+@pytest.mark.parametrize("case", list(DOPRI_HOLES))
 def test_out_of_slice_raises_on_cuda(case):
+    """Dormand-Prince raises on CUDA for each hole of DOPRI_HOLES and
+    launches nothing."""
     e = env()
     x0, d0 = fan(64, 0)
     p0, E0 = null_init(x0, d0, e.mass)
     s0 = states.init_state(x0, p0, E0)
-    cfg = tint.IntegratorConfig(**FLAGSHIP, backend="cuda")
-    if case.startswith("spin"):
+    cfg = tint.IntegratorConfig(**FLAGSHIP, backend="cuda", method="dopri")
+    kerr, events = DOPRI_HOLES[case]
+    if kerr:
         e.spin = torch.tensor(0.45, device=DEV)
-    if case == "spin-events":
+    if events:
         e = events_env(e)
-    elif case == "dopri":
-        cfg = dataclasses.replace(cfg, method="dopri")
-    before = (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_EV)
+    before = counts()
     with pytest.raises(NotImplementedError):
         tint.integrate(e, s0, cfg)
     with pytest.raises(NotImplementedError):
         cuda_kernel.integrate_cuda(e, s0, cfg)
-    assert (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_EV) == before
+    assert launched(before) == {}
+
+
+def counts():
+    """A copy of ops/cuda_kernel.py's launch counts."""
+    return dict(cuda_kernel.LAUNCHES)
+
+
+def launched(before):
+    """The launches of each kernel variant since ``before`` (counts())."""
+    now = cuda_kernel.LAUNCHES
+    return {k: now[k] - before.get(k, 0) for k in now
+            if now[k] != before.get(k, 0)}
 
 
 def initial_state(e, x0, d0):
@@ -141,12 +164,11 @@ def test_ckpt_matches_fwd_and_the_plain_loop(power):
     scal = cuda_kernel._scalars(e, cfg, DEV)
     seg = cuda_kernel.segment(cfg.n_steps)
     args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
-    before = (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT)
+    before = counts()
     fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, power)
     *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps,
                                                       seg, power)
-    assert (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT) == (
-        before[0] + 1, before[1] + 1)
+    assert launched(before) == {"rk4_fwd": 1, "rk4_ckpt": 1}
     for a, b in zip(fin, fwd):
         assert torch.equal(a, b)
     _, rows = cuda_kernel.integrate_ckpt_plain(e, s0, cfg, seg)
@@ -183,9 +205,9 @@ def test_bwd_matches_autograd_of_the_plain_loop(power, n_steps):
                                    "n_steps": n_steps})
     wx = torch.as_tensor(np.random.default_rng(2).normal(size=(1536, 3)),
                          dtype=torch.float32, device=DEV)
-    before = cuda_kernel.LAUNCHES_BWD
+    before = counts()
     gk = cotangents(e, s0, cfg, wx, kernel=True)
-    assert cuda_kernel.LAUNCHES_BWD == before + 1
+    assert launched(before) == {"rk4_ckpt": 1, "rk4_bwd": 1}
     gp = cotangents(e, s0, cfg, wx, kernel=False)
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
@@ -227,12 +249,9 @@ def test_render_gradient_launches_ckpt_and_bwd():
         P.render_image(scene, cam, c)[..., :3].pow(2).mean().backward()
         return [t.grad for t in leaves]
 
-    before = (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT,
-              cuda_kernel.LAUNCHES_BWD)
+    before = counts()
     gk = grads(cfg)
-    assert (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT,
-            cuda_kernel.LAUNCHES_BWD) == (before[0], before[1] + 1,
-                                          before[2] + 1)
+    assert launched(before) == {"rk4_ckpt": 1, "rk4_bwd": 1}
     gp = grads(dataclasses.replace(cfg, integrator=dataclasses.replace(
         cfg.integrator, backend="torch")))
     for a, b in zip(gk, gp):
@@ -254,9 +273,9 @@ def test_render_image_launches_the_kernel():
                         device=DEV)
     cfg = P.RenderConfig(width=32, height=32, lam_max=100.0,
                          integrator=P.IntegratorConfig(**FLAGSHIP))
-    before = cuda_kernel.LAUNCHES
+    before = counts()
     img = P.render_image(scene, cam, cfg)
-    assert cuda_kernel.LAUNCHES == before + 1
+    assert launched(before) == {"rk4_fwd": 1}
     plain = P.render_image(scene, cam, dataclasses.replace(
         cfg, integrator=dataclasses.replace(cfg.integrator,
                                             backend="torch")))
@@ -301,11 +320,10 @@ def test_event_kernel_matches_plain_on_cuda(power):
     e = events_env(env())
     x0, d0 = event_rays()
     cfg = tint.IntegratorConfig(**{**FLAGSHIP, "dt_power": power})
-    before = (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_EV)
+    before = counts()
     sk = tint.launch(e, x0, d0, cfg)
     sp = tint.launch(e, x0, d0, dataclasses.replace(cfg, backend="torch"))
-    assert (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_EV) == (
-        before[0], before[1] + 1)
+    assert launched(before) == {"rk4_fwd_events": 1}
     assert_event_states_agree(sk, sp)
     assert set(sk.hit_obj.tolist()) == {-1, 0, 1}
 
@@ -322,11 +340,11 @@ def test_event_ckpt_matches_fwd_and_the_plain_loop():
     seg = cuda_kernel.segment(cfg.n_steps)
     args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
     kw = dict(sph=sph, has_disk=True, obj=s0.hit_obj)
-    before = cuda_kernel.LAUNCHES_CKPT_EV
+    before = counts()
     fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5, **kw)
     *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg,
                                                       1.5, **kw)
-    assert cuda_kernel.LAUNCHES_CKPT_EV == before + 1
+    assert launched(before) == {"rk4_fwd_events": 1, "rk4_ckpt_events": 1}
     for a, b in zip(fin, fwd):
         assert torch.equal(a, b)
     assert int((fin[3] == states.OBJECT).sum()) >= 20
@@ -369,10 +387,9 @@ def test_event_bwd_matches_autograd_of_the_plain_loop(power, n_steps):
                                    "n_steps": n_steps})
     wx = torch.as_tensor(np.random.default_rng(2).normal(size=(3036, 3)),
                          dtype=torch.float32, device=DEV)
-    before = (cuda_kernel.LAUNCHES_BWD, cuda_kernel.LAUNCHES_BWD_EV)
+    before = counts()
     gk = event_cotangents(s0, cfg, wx, kernel=True)
-    assert (cuda_kernel.LAUNCHES_BWD, cuda_kernel.LAUNCHES_BWD_EV) == (
-        before[0], before[1] + 1)
+    assert launched(before) == {"rk4_ckpt_events": 1, "rk4_bwd_events": 1}
     gp = event_cotangents(s0, cfg, wx, kernel=False)
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
@@ -393,10 +410,9 @@ def test_event_bwd_is_deterministic():
         assert torch.equal(a, b)
 
 
-def test_events_render_launches_the_event_variants():
-    """A 32x32 frame of bench.py's events scene renders through rk4_fwd's
-    event variant alone, and its gradient through those of rk4_ckpt and
-    rk4_bwd; both agree with the plain path."""
+def events_scene(spin=None):
+    """bench.py's make_scene('events', spin=spin) (:111-141): the flagship
+    sky, a z = 0 disk (r_in 2, r_out 6) and four one-colour moons."""
     v, u = np.meshgrid(np.arange(256), np.arange(512), indexing="ij")
     sky = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * u / 512)
                     * np.sin(np.pi * v / 256), v / 256,
@@ -407,34 +423,35 @@ def test_events_render_launches_the_event_variants():
     ang = np.array([0.3, 1.9, 3.6, 5.2])
     centers = np.stack([7 * np.cos(ang), 7 * np.sin(ang),
                         0.8 * np.sin(2 * ang)], -1)
+    return P.Scene(
+        bh=P.BlackHole.make(mass=0.5, spin=spin, device=DEV),
+        background=torch.as_tensor(sky, dtype=torch.float32, device=DEV),
+        disk=P.Disk.make(r_in=2.0, r_out=6.0, texture=disk_tex, device=DEV),
+        spheres=P.Spheres.make(
+            center=centers, radius=[0.6, 0.5, 0.7, 0.4], device=DEV,
+            texture=np.tile(np.float32([0.3, 0.9, 0.4]), (4, 16, 32, 1))))
+
+
+def events_cam():
+    """bench.py's camera for the events rows (:1023-1027)."""
+    return P.Camera.make(position=(0.0, 0.0, 25.0), euler=(0.25, 0.0, 0.0),
+                         fov=(0.8, 0.8), device=DEV)
+
+
+def test_events_render_launches_the_event_variants():
+    """A 32x32 frame of bench.py's events scene renders through rk4_fwd's
+    event variant alone, and its gradient through those of rk4_ckpt and
+    rk4_bwd; both agree with the plain path."""
     cfg = P.RenderConfig(width=32, height=32, lam_max=100.0,
                          integrator=P.IntegratorConfig(**FLAGSHIP))
-
-    def scene():
-        return P.Scene(
-            bh=P.BlackHole.make(mass=0.5, device=DEV),
-            background=torch.as_tensor(sky, dtype=torch.float32, device=DEV),
-            disk=P.Disk.make(r_in=2.0, r_out=6.0, texture=disk_tex,
-                             device=DEV),
-            spheres=P.Spheres.make(
-                center=centers, radius=[0.6, 0.5, 0.7, 0.4], device=DEV,
-                texture=np.tile(np.float32([0.3, 0.9, 0.4]),
-                                (4, 16, 32, 1))))
-
-    cam = P.Camera.make(position=(0.0, 0.0, 25.0), euler=(0.25, 0.0, 0.0),
-                        fov=(0.8, 0.8), device=DEV)
+    scene, cam = events_scene, events_cam()
     plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
         cfg.integrator, backend="torch"))
-
-    def counts():
-        return (cuda_kernel.LAUNCHES, cuda_kernel.LAUNCHES_CKPT,
-                cuda_kernel.LAUNCHES_BWD, cuda_kernel.LAUNCHES_EV,
-                cuda_kernel.LAUNCHES_CKPT_EV, cuda_kernel.LAUNCHES_BWD_EV)
 
     before = counts()
     with torch.no_grad():
         img = P.render_image(scene(), cam, cfg)
-    assert counts() == before[:3] + (before[3] + 1,) + before[4:]
+    assert launched(before) == {"rk4_fwd_events": 1}
     diff = (img - P.render_image(scene(), cam, plain)).abs()
     assert float(diff.mean()) < 2e-3
     assert float((diff > 0.1).float().mean()) < 0.01
@@ -451,11 +468,197 @@ def test_events_render_launches_the_event_variants():
 
     before = counts()
     gk = grads(cfg)
-    assert counts() == before[:4] + (before[4] + 1, before[5] + 1)
+    assert launched(before) == {"rk4_ckpt_events": 1, "rk4_bwd_events": 1}
     gp = grads(plain)
     # mass and camera: the frame's gradient to them is a sum of parts of
     # both signs that float32 moves (a reading of 1.4e-2 for the mass on
     # an H100); the sky and the disk texture are per texel
     for a, b, tol in zip(gk, gp, (5e-2, 5e-2, 1e-2, 1e-2)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+# =============================================================================
+# The Kerr variants.
+# =============================================================================
+def kerr_env(spin, events):
+    """A hole of spin ``spin`` (capture at its outer horizon), with the
+    disk and the two spheres of events_env when ``events``."""
+    e = env()
+    e.spin = torch.tensor(spin, device=DEV)
+    e.r_capture = horizon_radius(e.mass, e.spin)
+    return events_env(e) if events else e
+
+
+def kerr_rays(spin, n=3000):
+    """Rays from z = 25 along -z at distances b in [1.5, 9] from the axis
+    (across the disk and the spheres), leaving out b within 0.5 M of the
+    critical sky radius of such rays (L_z = 0): sqrt(eta + a^2) at the
+    spherical photon orbit r^3 - 3 M r^2 + a^2 r + a^2 M = 0, M = 0.5,
+    where rays circle and two correct float32 paths part (chip_smoke.py
+    KERR_BAND)."""
+    m, a2 = 0.5, spin * spin
+    r = max(z.real for z in np.roots([1.0, -3.0 * m, a2, a2 * m])
+            if abs(z.imag) < 1e-9 and z.real > m)
+    eta = -r ** 3 * (r ** 3 - 6 * m * r * r + 9 * m * m * r - 4 * a2 * m) / (
+        a2 * (r - m) ** 2)
+    rho_c = np.sqrt(eta + a2)
+    rng = np.random.default_rng(4)
+    b = rng.uniform(1.5, 9.0, 2 * n)
+    b = b[np.abs(b - rho_c) > 0.5 * m][:n]
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    x0 = np.stack([b * np.cos(ang), b * np.sin(ang), np.full(n, 25.0)], -1)
+    d0 = np.tile([0.0, 0.0, -1.0], (n, 1))
+    f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=DEV)  # noqa
+    return f(x0), f(d0)
+
+
+def kerr_dp(pk, pp):
+    """Largest |dp| of a Kerr hole's momenta, relative to max(1, |p|): its
+    captured rays end with |p| up to 5.5 (chip_smoke.py holds it so)."""
+    return float(((pk - pp).abs()
+                  / pp.norm(dim=-1, keepdim=True).clamp_min(1.0)).max())
+
+
+def kerr_state(e, x0, d0):
+    p0, E0 = null_init(x0, d0, e.mass, e.spin)
+    s0 = states.init_state(x0, p0, E0)
+    s0.status = s0.status.masked_fill(e.radius(x0) <= e.r_capture,
+                                      states.INSIDE_HORIZON)
+    return s0
+
+
+@pytest.mark.parametrize("spin,events", [(0.45, False), (0.45, True),
+                                         (-0.3, False), (-0.3, True)])
+def test_kerr_kernel_matches_plain_on_cuda(spin, events):
+    """rk4_fwd's Kerr variant against the plain Kerr loop: statuses and hit
+    ids equal, states within tolerance; only the Kerr counter moves."""
+    e = kerr_env(spin, events)
+    s0 = kerr_state(e, *kerr_rays(spin))
+    cfg = tint.IntegratorConfig(**FLAGSHIP)
+    before = counts()
+    with torch.no_grad():
+        sk = cuda_kernel.integrate_cuda(e, s0, cfg)
+        sp = cuda_kernel.integrate_plain(e, s0, cfg)
+    assert launched(before) == {cuda_kernel.variant("rk4_fwd", True,
+                                                    events): 1}
+    assert torch.equal(sk.status, sp.status)
+    assert torch.equal(sk.hit_obj, sp.hit_obj)
+    assert float((sk.x - sp.x).abs().max()) <= TOL_X
+    assert float((sk.lam - sp.lam).abs().max()) <= TOL_X
+    assert kerr_dp(sk.p, sp.p) <= TOL_P
+    if events:
+        for st in (states.DISK, states.OBJECT):
+            assert int((sk.status == st).sum()) >= 20
+
+
+@pytest.mark.parametrize("spin", [0.45, -0.3])
+def test_kerr_ckpt_matches_fwd_and_the_plain_loop(spin):
+    """rk4_ckpt's Kerr variant: its final state equals rk4_fwd's Kerr
+    variant bit for bit and its checkpoint rows hold the plain loop's
+    states; 60 steps leave a partial last segment."""
+    e = kerr_env(spin, True)
+    s0 = kerr_state(e, *event_rays())
+    cfg = tint.IntegratorConfig(**{**FLAGSHIP, "n_steps": 60})
+    scal = cuda_kernel._scalars(e, cfg, DEV)
+    seg = cuda_kernel.segment(cfg.n_steps)
+    kw = dict(sph=cuda_kernel._sphere_table(e, DEV), has_disk=True,
+              obj=s0.hit_obj, kerr=True)
+    args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
+    fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5, **kw)
+    *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg,
+                                                      1.5, **kw)
+    for a, b in zip(fin, fwd):
+        assert torch.equal(a, b)
+    _, rows = cuda_kernel.integrate_ckpt_plain(e, s0, cfg, seg)
+    for k, row in enumerate(rows):
+        assert torch.equal(cst[k], row.status)
+        assert float((cx[k] - row.x).abs().max()) <= TOL_X
+        assert kerr_dp(cp[k], row.p) <= TOL_P
+
+
+def kerr_cotangents(spin, events, s0, cfg, wx, kernel):
+    """Cotangents of (x, p, E), the mass and the spin (and with events the
+    sphere centres and radii) for the loss of tests/test_pallas.py:82-92."""
+    e = kerr_env(spin, events)
+    mass = e.mass.clone().requires_grad_(True)
+    a = e.spin.clone().requires_grad_(True)
+    ee = dataclasses.replace(e, mass=mass, spin=a)
+    leaves = [mass, a]
+    if events:
+        center = e.spheres.center.clone().requires_grad_(True)
+        radius = e.spheres.radius.clone().requires_grad_(True)
+        ee.spheres = tint.SphereGeom(center=center, radius=radius)
+        leaves += [center, radius]
+    x, p, E = (t.clone().requires_grad_(True) for t in (s0.x, s0.p, s0.E))
+    s = dataclasses.replace(s0, x=x, p=p, E=E)
+    out = (cuda_kernel.integrate_cuda(ee, s, cfg) if kernel
+           else cuda_kernel.integrate_plain(ee, s, cfg))
+    ok = (out.status != states.CAPTURED) & (out.status != states.ERROR)
+    torch.where(ok[..., None], wx * out.x, 0.0).sum().backward()
+    return [t.grad for t in (x, p, E, *leaves)]
+
+
+@pytest.mark.parametrize("spin,events,n_steps", [
+    (0.45, False, 100), (0.45, True, 40), (-0.3, True, 100),
+    (-0.3, False, 40)])
+def test_kerr_bwd_matches_autograd_of_the_plain_loop(spin, events, n_steps):
+    """rk4_bwd's Kerr variant against autograd of the plain Kerr loop,
+    the spin cotangent included; at 40 steps rays are still ACTIVE at the
+    end of a partial last segment."""
+    e = kerr_env(spin, events)
+    s0 = kerr_state(e, *event_rays())
+    cfg = tint.IntegratorConfig(**{**FLAGSHIP, "n_steps": n_steps})
+    wx = torch.as_tensor(np.random.default_rng(2).normal(size=(3036, 3)),
+                         dtype=torch.float32, device=DEV)
+    before = counts()
+    gk = kerr_cotangents(spin, events, s0, cfg, wx, kernel=True)
+    assert launched(before) == {
+        cuda_kernel.variant(k, True, events): 1 for k in ("rk4_ckpt",
+                                                          "rk4_bwd")}
+    gp = kerr_cotangents(spin, events, s0, cfg, wx, kernel=False)
+    assert float(gp[4].abs()) > 0
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max() / b.abs().max()) <= TOL_GRAD
+
+
+def test_kerr_events_render_launches_the_kerr_variants():
+    """A 32x32 frame of bench.py's Kerr events scene (a = 0.45) renders
+    through rk4_fwd's Kerr variant alone, and its gradient through those of
+    rk4_ckpt and rk4_bwd; both agree with the plain path."""
+    cfg = P.RenderConfig(width=32, height=32, lam_max=100.0,
+                         integrator=P.IntegratorConfig(**FLAGSHIP))
+    plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch"))
+    cam = events_cam()
+
+    def scene():
+        return events_scene(spin=0.45)
+
+    before = counts()
+    with torch.no_grad():
+        img = P.render_image(scene(), cam, cfg)
+    assert launched(before) == {"rk4_fwd_kerr_events": 1}
+    diff = (img - P.render_image(scene(), cam, plain)).abs()
+    assert float(diff.mean()) < 2e-3
+    assert float((diff > 0.1).float().mean()) < 0.01
+
+    def grads(c):
+        sc = scene()
+        leaves = (sc.bh.mass, sc.bh.spin, sc.background)
+        for t in leaves:
+            t.requires_grad_(True)
+        P.render_image(sc, cam, c)[..., :3].pow(2).mean().backward()
+        return [t.grad for t in leaves]
+
+    before = counts()
+    gk = grads(cfg)
+    assert launched(before) == {"rk4_ckpt_kerr_events": 1,
+                                "rk4_bwd_kerr_events": 1}
+    gp = grads(plain)
+    # the mass and the spin: sums of parts of both signs that float32
+    # moves, as in the Schwarzschild events frame; the sky is per texel
+    for a, b, tol in zip(gk, gp, (5e-2, 5e-2, 1e-2)):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max() / b.abs().max()) <= tol

@@ -121,27 +121,35 @@ def test_convert_carries_trees_as_float32():
 
 
 def test_out_of_slice_renders_raise():
+    """Multisampling and Dormand-Prince are outside the ported slices and
+    raise, for a Kerr hole too (Kerr itself is ported)."""
     scene, cam, cfg = flagship(8)
     tscene, tcam, tcfg = port(scene, cam, cfg)
     with pytest.raises(NotImplementedError):
         render_image(tscene, tcam, dataclasses.replace(tcfg, samples=2))
     spun = dataclasses.replace(scene, bh=JBlackHole.make(mass=0.5,
                                                          spin=0.45))
+    dopri = dataclasses.replace(tcfg, integrator=dataclasses.replace(
+        tcfg.integrator, method="dopri"))
     with pytest.raises(NotImplementedError):
-        render_image(convert.scene_from_reference(spun), tcam, tcfg)
+        render_image(convert.scene_from_reference(spun), tcam, dopri)
 
 
 def test_import_leaves_jax_out():
     """The port runs where JAX is not installed: importing it and running
-    its CPU render path must not import jax."""
+    its CPU render path, for a Schwarzschild and a Kerr hole, must not
+    import jax."""
     code = (
         "import sys, torch\n"
         "import blackhole_geodesic_calculator_tpu_torch as P\n"
         "from blackhole_geodesic_calculator_tpu_torch import convert\n"
+        "from blackhole_geodesic_calculator_tpu_torch.models import kerr\n"
         "from blackhole_geodesic_calculator_tpu_torch.ops import cuda_kernel\n"
-        "s = P.Scene(bh=P.BlackHole.make(), background=torch.rand(8, 16, 3))\n"
-        "P.render_image(s, P.Camera.make((0, 0, 20)), P.RenderConfig(\n"
-        "    width=4, height=4, integrator=P.IntegratorConfig(n_steps=8)))\n"
+        "for spin in (None, 0.45):\n"
+        "    s = P.Scene(bh=P.BlackHole.make(spin=spin),\n"
+        "                background=torch.rand(8, 16, 3))\n"
+        "    P.render_image(s, P.Camera.make((0, 0, 20)), P.RenderConfig(\n"
+        "        width=4, height=4, integrator=P.IntegratorConfig(n_steps=8)))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('blackhole_geodesic_calculator_tpu.')\n"
         "               or m == 'blackhole_geodesic_calculator_tpu'\n"
