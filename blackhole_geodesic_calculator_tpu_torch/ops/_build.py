@@ -124,5 +124,25 @@ def load() -> ctypes.CDLL:
         lib.bhgc_rk4_bwd.restype = i32
         lib.bhgc_rk4_bwd_blocks.argtypes = [i32]
         lib.bhgc_rk4_bwd_blocks.restype = i32
+        ctl = [f32] * 4   # rtol, atol, min_step, max_step
+        # scal, sph, n_sph, has_disk, kerr, x, p, E, h, lam, status,
+        # hit_obj, x_out, p_out, lam_out, status_out, hit_obj_out, n,
+        # n_steps, the controller, stream
+        lib.bhgc_dopri_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 12
+                                       + [i32, i32] + ctl + [vp])
+        lib.bhgc_dopri_fwd.restype = i32
+        # as bhgc_dopri_fwd, then cx, cp, ch, clam, cst before n, n_steps,
+        # seg, the controller, stream
+        lib.bhgc_dopri_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 17
+                                        + [i32, i32, i32] + ctl + [vp])
+        lib.bhgc_dopri_ckpt.restype = i32
+        # scal, sph, n_sph, has_disk, kerr, cx, cp, ch, clam, cst, E, gx,
+        # gp, bx, bp, bE, partial, gscal, gsph, n, n_steps, seg, the
+        # controller, stream
+        lib.bhgc_dopri_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 14
+                                       + [i32, i32, i32] + ctl + [vp])
+        lib.bhgc_dopri_bwd.restype = i32
+        lib.bhgc_dopri_bwd_blocks.argtypes = [i32]
+        lib.bhgc_dopri_bwd_blocks.restype = i32
         _lib = lib
     return _lib

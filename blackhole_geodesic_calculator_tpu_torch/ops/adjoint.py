@@ -20,7 +20,12 @@ sphere events.  It is the plain PyTorch statement of what
   endpoint y and, for a sphere, to the hit sphere's centre and radius;
 * ``step_adjoint`` -- the RK4 skeleton transposed (:1124-1144) behind the
   transpose of the freeze ``y' = where(active & finite, rk4, y)``
-  (:1112-1122) and of the event points.
+  (:1112-1122) and of the event points;
+* ``dopri_trip`` -- one adaptive Dormand-Prince trip, ``_dopri_trip``
+  (:390-470) with ``events_merge`` (``_events_merge`` :272-317), and
+  ``dopri_trip_vjp``, its transpose derived by hand: what the TPU kernel
+  takes with a whole-trip ``jax.vjp`` (``_dopri_trip_adjoint`` :702-746),
+  the step controller included.  ``csrc/dopri_trip.cuh`` copies it.
 
 Every function works on structure-of-arrays tuples of tensors of one batch
 shape, one tensor per component.  The CUDA kernel cannot run on the CPU, so
@@ -40,10 +45,13 @@ transpose is the same for Kerr.
 
 from __future__ import annotations
 
+import typing
+
 import torch
 
 from .geodesic import kerr_rhs_soa
-from .states import ACTIVE
+from .integrate import _DP_A, _DP_B5, _DP_E, _clip
+from .states import ACTIVE, BUDGET, CAPTURED, DISK, ERROR, ESCAPED, OBJECT
 
 NSCAL = 10
 R2_FLOOR = 1e-12
@@ -568,3 +576,283 @@ def step_adjoint(x, p, E, status, scal, g, power, sph=None, has_disk=False,
     if kerr:
         g_scal[SPIN] = keep(gs_d + gs_c + gs_b + gs_a + gs_h[0]).sum()
     return g6, keep(g_E), g_scal, g_sph
+
+
+# =============================================================================
+# One adaptive Dormand-Prince trip and its transpose.
+# =============================================================================
+class Controller(typing.NamedTuple):
+    """The step controller's constants: the error norm's tolerances and
+    the clip of the per-ray step."""
+
+    rtol: float
+    atol: float
+    min_step: float
+    max_step: float
+
+
+def jax_abs(v):
+    """|v| with the derivative JAX gives it: +1 at v = 0 (sign(0) is 0 in
+    ``torch.abs``'s), so a component that is exactly 0 scales the error
+    norm's gradient as in the reference."""
+    return torch.where(v >= 0, v, -v)
+
+
+def _dmax(a, b):
+    """d max(a, b) / d a as ``jax.vjp`` takes it: 1, 1/2 at a tie, 0."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _dmin(a, b):
+    """d min(a, b) / d a: 1, 1/2 at a tie, 0."""
+    return torch.where(a < b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _stage_rhs(scal, E, pt, kerr):
+    if kerr:
+        return kerr_rhs_soa(scal[0], scal[SPIN], E, *pt)
+    return rhs(scal[0], E, pt[:3], pt[3:])
+
+
+def _dopri_stages(y, E, dt, scal, kerr):
+    """The seven stages of the trip from y (a 6-tuple) with step dt:
+    (k_0..k_6, Y_0..Y_6), Y_i = y + sum_j (dt a_ij) k_j."""
+    ks, pts = [], []
+    for i in range(7):
+        pt = y
+        for j, a in enumerate(_DP_A[i]):
+            if a != 0.0:
+                pt = tuple(b + (dt * a) * k for b, k in zip(pt, ks[j]))
+        pts.append(pt)
+        ks.append(_stage_rhs(scal, E, pt, kerr))
+    return ks, pts
+
+
+def _comb(ks, weights):
+    out = [torch.zeros_like(ks[0][0])] * 6
+    for k, b in zip(ks, weights):
+        if b != 0.0:
+            out = [o + b * kc for o, kc in zip(out, k)]
+    return out
+
+
+def _error_norm(y, y5, e, ctl):
+    """The scaled RMS error (1/6 sum_c (e_c / s_c)^2)^(1/2), s_c = atol +
+    rtol max(|y_c|, |y5_c|); 0 where it is 0 (the double-where guard of
+    pallas_kernel.py:445-449).  Returns (errn, err2, s, r = e / s)."""
+    scale = [ctl.atol + ctl.rtol * torch.maximum(jax_abs(b), jax_abs(c))
+             for b, c in zip(y, y5)]
+    r = [ec / sc for ec, sc in zip(e, scale)]
+    err2 = torch.zeros_like(r[0])
+    for rc in r:
+        err2 = err2 + rc * rc
+    err2 = err2 * (1.0 / 6.0)
+    pos = err2 > 0
+    errn = torch.where(pos, torch.sqrt(torch.where(pos, err2, 1.0)), 0.0)
+    return errn, err2, scale, r
+
+
+def events_merge(x, p, y, q, dt, lam, status, hit_obj, scal, sph=None,
+                 has_disk=False, kerr=False):
+    """The endpoint classification and freeze merge of ``_events_merge``
+    (:272-317) for the step (x, p) -> (y, q) of length dt (3-tuples;
+    ``sph`` the (K, 4) sphere table or None).  Returns (x', p', lam',
+    status', hit_obj'); a frozen ray keeps its state."""
+    active = status == ACTIVE
+    t_disk, t_sph, sid = segment_events(x, y, scal, sph, has_disk)
+    rb, _, _ = radius(y, scal[SPIN] if kerr else None)
+    lam1 = lam + dt
+    finite = torch.isfinite(y[0])
+    for c in (*y[1:], *q):
+        finite = finite & torch.isfinite(c)
+    st = torch.where(lam1 >= scal[6], BUDGET, ACTIVE)
+    st = torch.where(rb >= scal[5], ESCAPED, st)
+    st = torch.where(rb <= scal[4], CAPTURED, st)
+    st = torch.where(~finite, ERROR, st)
+    if sph is not None:
+        st = torch.where(torch.isfinite(t_sph), OBJECT, st)
+    if has_disk:
+        st = torch.where(torch.isfinite(t_disk) & (t_disk <= t_sph), DISK, st)
+    st = torch.where(active, st, status).to(status.dtype)
+    upd = active & finite
+    xn = [torch.where(upd, a, b) for a, b in zip(y, x)]
+    pn = [torch.where(upd, a, b) for a, b in zip(q, p)]
+    lam1 = torch.where(active, lam1, lam)
+    obj = hit_obj
+    for ev, t_ev in (("sph", t_sph), ("disk", t_disk)):
+        if (ev == "sph" and sph is None) or (ev == "disk" and not has_disk):
+            continue
+        sel = active & (st == (OBJECT if ev == "sph" else DISK))
+        t = torch.where(torch.isfinite(t_ev), t_ev, 0.0)
+        n = 3 if ev == "sph" else 2
+        for c in range(n):
+            xn[c] = torch.where(sel, x[c] + (y[c] - x[c]) * t, xn[c])
+        if ev == "disk":
+            xn[2] = torch.where(sel, 0.0, xn[2])
+        else:
+            obj = torch.where(sel, sid, obj)
+        lam1 = torch.where(sel, lam + dt * t, lam1)
+    return tuple(xn), tuple(pn), lam1, st, obj
+
+
+def dopri_trip(x, p, E, h, lam, status, hit_obj, scal, ctl, sph=None,
+               has_disk=False, kerr=False):
+    """One adaptive Dormand-Prince trip (``_dopri_trip``): the embedded
+    step of length h from (x, p) (3-tuples), its scaled RMS error, accept
+    if it is at most 1 or h is at most min_step, the events of an accepted
+    step, and the next h = clip(h f, min_step, max_step), f = clip(0.9
+    errn^-0.2, 0.2, 5), for a ray still ACTIVE after the trip; a frozen
+    ray keeps everything.  ``ctl`` is a ``Controller``.  Returns (x', p',
+    h', lam', status', hit_obj')."""
+    y = (*x, *p)
+    live = status == ACTIVE
+    dt = torch.where(live, h, 0.0)
+    ks, _ = _dopri_stages(y, E, dt, scal, kerr)
+    c5, ce = _comb(ks, _DP_B5), _comb(ks, _DP_E)
+    y5 = tuple(b + dt * c for b, c in zip(y, c5))
+    errn = _error_norm(y, y5, [dt * c for c in ce], ctl)[0]
+    accept = ((errn <= 1.0) | (h <= ctl.min_step)) & live
+    xm, pm, lam1, st1, obj1 = events_merge(
+        x, p, y5[:3], y5[3:], dt, lam, status, hit_obj, scal, sph, has_disk,
+        kerr)
+    x_next = tuple(torch.where(accept, a, b) for a, b in zip(xm, x))
+    p_next = tuple(torch.where(accept, a, b) for a, b in zip(pm, p))
+    st_next = torch.where(accept, st1, status)
+    factor = _clip(0.9 * torch.where(errn > 0, errn, 1e-10) ** -0.2, 0.2,
+                   5.0)
+    h_next = torch.where((st_next == ACTIVE) & live,
+                         _clip(h * factor, ctl.min_step, ctl.max_step), h)
+    return (x_next, p_next, h_next, torch.where(accept, lam1, lam), st_next,
+            torch.where(accept, obj1, hit_obj))
+
+
+def dopri_trip_vjp(x, p, E, h, lam, status, scal, ctl, g, gh, sph=None,
+                   has_disk=False, kerr=False):
+    """Transpose of ``dopri_trip`` with respect to (x, p, E, h, scal, sph)
+    for the cotangents ``g`` (6-tuple) of the next (x, p) and ``gh`` of the
+    next h, at the taped pre-trip state.  Accept, reject and the event
+    selectors are decisions (no gradient); the controller is
+    differentiated.  For a ray that was ACTIVE and whose step is finite:
+
+    * the controller: a ray still ACTIVE after the trip has h' = clip(h f)
+      and sends gh f to h and gh h 0.9 (-0.2) errn^-1.2 to errn inside
+      both clips (half at a tie, nothing past an edge; f is a constant
+      where errn = 0); a ray that ended passes gh to h;
+    * the state: an accepted trip transposes the merge (``events_vjp``,
+      the segment y -> y5) into cotangents of y5 and y; a rejected one
+      passes g to y;
+    * the error norm, accepted or rejected: errn = sqrt(err2), err2 = 1/6
+      sum_c (e_c / s_c)^2, e_c = dt sum_i E_i k_i,c, s_c = atol + rtol
+      max(|y_c|, |y5_c|); its cotangent reaches e (then the k_i and dt)
+      and s (then y and y5);
+    * y5 = y + dt sum_i b_i k_i, then the stages in reverse, i = 6..0:
+      ``rhs_vjp``/``rhs_kerr_vjp`` at Y_i adds the E, mass and spin
+      cotangents and sends the rest to y, to each k_j (j < i, through
+      dt a_ij) and to dt;
+    * dt = h.
+
+    A frozen ray, or one whose step is not finite (its state and h no
+    longer move, or move to NaN), passes g and gh through and adds
+    nothing.  Returns (g6, g_E, g_h, g_scal, g_sph): per ray the cotangents
+    of (x, p), E and h, the (NSCAL,) scalar cotangent summed over the rays
+    (mass and, for Kerr, the spin; the other entries are zero) and the
+    (K, 4) sphere cotangent (None without spheres)."""
+    y = (*x, *p)
+    live = status == ACTIVE
+    zero = torch.zeros_like(h)
+    dt = torch.where(live, h, zero)
+    ks, pts = _dopri_stages(y, E, dt, scal, kerr)
+    c5, ce = _comb(ks, _DP_B5), _comb(ks, _DP_E)
+    y5 = tuple(b + dt * c for b, c in zip(y, c5))
+    errn, err2, scale, r = _error_norm(y, y5, [dt * c for c in ce], ctl)
+    accept = ((errn <= 1.0) | (h <= ctl.min_step)) & live
+    finite = torch.isfinite(y5[0])
+    for c in y5[1:]:
+        finite = finite & torch.isfinite(c)
+    ok = live & finite
+    st1 = events_merge(x, p, y5[:3], y5[3:], dt, lam, status,
+                       torch.full_like(status, -1), scal, sph, has_disk,
+                       kerr)[3]
+    h_active = (torch.where(accept, st1, status) == ACTIVE) & live
+
+    # the controller: h' = min(max(h f, min_step), max_step),
+    # f = min(max(u, 0.2), 5), u = 0.9 errg^-0.2, errg = errn or 1e-10
+    errg = torch.where(errn > 0, errn, 1e-10)
+    u = 0.9 * errg ** -0.2
+    u1 = torch.maximum(u, u.new_tensor(0.2))
+    f = torch.minimum(u1, u.new_tensor(5.0))
+    v = h * f
+    v1 = torch.maximum(v, v.new_tensor(ctl.min_step))
+    g_v = torch.where(h_active, gh, zero) * _dmin(v1, ctl.max_step) \
+        * _dmax(v, ctl.min_step)
+    g_h = torch.where(h_active, g_v * f, gh)
+    g_u = g_v * h * _dmin(u1, 5.0) * _dmax(u, 0.2)
+    g_errn = torch.where(errn > 0, g_u * 0.9 * (-0.2 * errg ** -1.2), zero)
+
+    # the state: x' = merge(y, y5) if accepted, else y
+    upd = accept & finite
+    g_y5 = [None] * 6
+    g_sph = None
+    if has_disk or sph is not None:
+        g_old, g_y5[:3], g_sph = events_vjp(x, y5[:3], upd, scal, sph,
+                                            has_disk, g[:3])
+    else:
+        g_old = [torch.where(upd, zero, g[c]) for c in range(3)]
+        g_y5[:3] = [torch.where(upd, g[c], zero) for c in range(3)]
+    g_y = list(g_old) + [torch.where(upd, zero, g[c]) for c in range(3, 6)]
+    g_y5[3:] = [torch.where(upd, g[c], zero) for c in range(3, 6)]
+
+    # the error norm
+    safe = torch.where(err2 > 0, errn, 1.0)
+    g_err2 = torch.where(err2 > 0, g_errn * (0.5 / safe), zero)
+    g_dt = zero
+    g_ce = []
+    for c in range(6):
+        g_r = g_err2 * (1.0 / 6.0) * 2.0 * r[c]
+        g_e = g_r / scale[c]
+        g_m = -g_r * r[c] / scale[c] * ctl.rtol
+        a, b = jax_abs(y[c]), jax_abs(y5[c])
+        g_y[c] = g_y[c] + g_m * _dmax(a, b) * torch.where(y[c] >= 0, 1.0,
+                                                          -1.0)
+        g_y5[c] = g_y5[c] + g_m * _dmax(b, a) * torch.where(y5[c] >= 0, 1.0,
+                                                            -1.0)
+        g_dt = g_dt + g_e * ce[c]
+        g_ce.append(g_e * dt)
+
+    # y5 = y + dt c5
+    for c in range(6):
+        g_y[c] = g_y[c] + g_y5[c]
+        g_dt = g_dt + g_y5[c] * c5[c]
+    g_c5 = [dt * gc for gc in g_y5]
+    g_k = [[b5 * g_c5[c] + de * g_ce[c] for c in range(6)]
+           for b5, de in zip(_DP_B5, _DP_E)]
+
+    # the stages, last first
+    g_E, g_mass, g_spin = zero, zero, zero
+    for i in range(6, -1, -1):
+        pt = pts[i]
+        if kerr:
+            g_pt, gE_i, gm_i, gs_i = rhs_kerr_vjp(scal[0], scal[SPIN], E,
+                                                  pt[:3], pt[3:], g_k[i])
+            g_spin = g_spin + gs_i
+        else:
+            g_pt, gE_i, gm_i = rhs_vjp(scal[0], E, pt[:3], pt[3:], g_k[i])
+        g_E, g_mass = g_E + gE_i, g_mass + gm_i
+        for c in range(6):
+            g_y[c] = g_y[c] + g_pt[c]
+        for j, a in enumerate(_DP_A[i]):
+            if a != 0.0:
+                dot = g_pt[0] * ks[j][0]
+                for c in range(1, 6):
+                    dot = dot + g_pt[c] * ks[j][c]
+                g_dt = g_dt + a * dot
+                g_k[j] = [g_k[j][c] + (dt * a) * g_pt[c] for c in range(6)]
+    g_h = g_h + g_dt
+
+    g6 = tuple(torch.where(ok, g_y[c], g[c]) for c in range(6))
+    g_scal = torch.zeros(NSCAL, dtype=h.dtype, device=h.device)
+    g_scal[0] = torch.where(ok, g_mass, zero).sum()
+    if kerr:
+        g_scal[SPIN] = torch.where(ok, g_spin, zero).sum()
+    return (g6, torch.where(ok, g_E, zero), torch.where(ok, g_h, gh), g_scal,
+            g_sph)

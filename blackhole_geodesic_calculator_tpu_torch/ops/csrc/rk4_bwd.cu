@@ -23,12 +23,11 @@
 // Scalar cotangents (mass, dt, boost, r_ref, spin) are per-ray terms summed
 // over the grid, and so is the (K, 4) sphere cotangent; a ray enters at
 // most one sphere (the entry freezes it), so each thread holds one sphere's
-// four terms and its index.  The TPU revisits one output block in grid
-// order; CUDA blocks run in no order, so each block sums its threads' terms
-// in shared memory in a fixed tree into row blockIdx.x of a
-// (n_blocks, 5 + 4K) buffer, and `sum_blocks` adds the rows in a fixed
-// order.  No atomics: the gradient is the same bit for bit from run to run.
-// The Schwarzschild variants write 0 for the spin's column.
+// four terms and its index.  Each block sums its threads' terms in a fixed
+// tree into row blockIdx.x of a (n_blocks, 5 + 4K) buffer, and `sum_blocks`
+// adds the rows in a fixed order (block_sum.cuh): no atomics, the gradient
+// is the same bit for bit from run to run.  The Schwarzschild variants
+// write 0 for the spin's column.
 //
 // Bound: the FP32 pipes.  A taped step costs one forward step on recompute
 // plus about three more for the adjoint (four RHS and four RHS VJPs; the
@@ -39,26 +38,14 @@
 // Plain C interface (loaded with ctypes): `bhgc_rk4_bwd` launches both
 // kernels on the given stream and returns cudaGetLastError() as an int.
 
+#include "block_sum.cuh"
 #include "rk4_step.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kSumThreads;
 constexpr int kMaxSeg = 64;  // tape length; the wrapper caps seg at this
 constexpr int kNGrad = 5;    // scalar cotangents: mass, dt, boost, r_ref, spin
-
-// One block's fixed-tree sum of v over its threads; thread 0 returns it.
-__device__ __forceinline__ float block_sum(float* red, float v) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-    __syncthreads();
-  }
-  const float out = red[0];
-  __syncthreads();
-  return out;
-}
 
 template <int PMODE, bool KERR, int EV>
 __global__ void __launch_bounds__(kThreads)
@@ -140,33 +127,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block: column q of out = sum over b of partial[b, q], each thread
-// summing a fixed stride of rows in order, then a fixed tree over the
-// threads.  Columns 0..3 go to gscal[0..3] (mass, dt, boost, r_ref), column
-// 4 to gscal[9] (the spin, a), the rest to the (K, 4) gsph; the NSCAL
-// entries r_capture, r_escape, lam_max, r_in and r_out get zero: they enter
-// the step only through comparisons.
-__global__ void __launch_bounds__(kThreads)
-    sum_blocks(const float* __restrict__ partial, int n_blocks, int ncol,
-               float* __restrict__ gscal, float* __restrict__ gsph) {
-  __shared__ float red[kThreads];
-  for (int q = 0; q < ncol; ++q) {
-    float acc = 0.0f;
-    for (int b = threadIdx.x; b < n_blocks; b += kThreads) {
-      acc += partial[static_cast<long long>(b) * ncol + q];
-    }
-    const float v = block_sum(red, acc);
-    if (threadIdx.x == 0) {
-      if (q < kNGrad) {
-        gscal[q < 4 ? q : kNScal - 1] = v;
-      } else {
-        gsph[q - kNGrad] = v;
-      }
-    }
-  }
-  if (threadIdx.x >= 4 && threadIdx.x < kNScal - 1) gscal[threadIdx.x] = 0.0f;
-}
-
 }  // namespace
 
 // Rows of the block-partial buffer the wrapper allocates: bhgc_rk4_bwd
@@ -202,9 +162,8 @@ extern "C" int bhgc_rk4_bwd(const void* scal, const void* sph, int n_sph,
       });
     });
   });
-  sum_blocks<<<1, kThreads, 0, s>>>(static_cast<const float*>(partial), blocks,
-                                    kNGrad + 4 * n_sph,
-                                    static_cast<float*>(gscal),
-                                    static_cast<float*>(gsph));
+  sum_blocks<kNGrad><<<1, kThreads, 0, s>>>(
+      static_cast<const float*>(partial), blocks, kNGrad + 4 * n_sph,
+      static_cast<float*>(gscal), static_cast<float*>(gsph));
   return static_cast<int>(cudaGetLastError());
 }

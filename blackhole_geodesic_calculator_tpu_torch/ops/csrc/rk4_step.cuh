@@ -1,6 +1,8 @@
 // One fixed RK4 geodesic step and its exact adjoint, shared by the
 // forward kernel (rk4_fwd.cu), the checkpointing forward (rk4_ckpt.cu) and
-// the adjoint (rk4_bwd.cu), so the three run the same step code.
+// the adjoint (rk4_bwd.cu), so the three run the same step code; the
+// Dormand-Prince trip (dopri_trip.cuh) shares its right-hand sides, their
+// VJPs, the classification and merge (classify_merge) and the events.
 //
 // The step is `_soa_step` of blackhole_geodesic_calculator_tpu/ops/
 // pallas_kernel.py: the per-ray step size of `_dt_soa`, four evaluations of
@@ -330,40 +332,24 @@ __device__ __forceinline__ SegEvents segment_events(
   return ev;
 }
 
-// One RK4 step of an ACTIVE ray with endpoint classification, the segment
-// events and the freeze merge (never store a non-finite state; an event
-// ray freezes at the interpolated event point).
-template <int PMODE, bool KERR, bool DISK, bool SPH, bool GUARD>
-__device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
-                                         float E,
-                                         const float* __restrict__ sph,
-                                         int n_sph, Ray& r) {
-  const float h = step_size<PMODE, KERR>(sc, power, r.x0, r.x1, r.x2);
-
-  float ka[6], kb[6], kc[6], kd[6];
-  rhs<KERR>(sc, E, r.x0, r.x1, r.x2, r.p0, r.p1, r.p2, ka);
-  const float c = 0.5f * h;
-  rhs<KERR>(sc, E, r.x0 + c * ka[0], r.x1 + c * ka[1], r.x2 + c * ka[2],
-            r.p0 + c * ka[3], r.p1 + c * ka[4], r.p2 + c * ka[5], kb);
-  rhs<KERR>(sc, E, r.x0 + c * kb[0], r.x1 + c * kb[1], r.x2 + c * kb[2],
-            r.p0 + c * kb[3], r.p1 + c * kb[4], r.p2 + c * kb[5], kc);
-  rhs<KERR>(sc, E, r.x0 + h * kc[0], r.x1 + h * kc[1], r.x2 + h * kc[2],
-            r.p0 + h * kc[3], r.p1 + h * kc[4], r.p2 + h * kc[5], kd);
-  const float s6 = h * (1.0f / 6.0f);
-  const float y0 = r.x0 + s6 * (ka[0] + 2.0f * (kb[0] + kc[0]) + kd[0]);
-  const float y1 = r.x1 + s6 * (ka[1] + 2.0f * (kb[1] + kc[1]) + kd[1]);
-  const float y2 = r.x2 + s6 * (ka[2] + 2.0f * (kb[2] + kc[2]) + kd[2]);
-  const float q0 = r.p0 + s6 * (ka[3] + 2.0f * (kb[3] + kc[3]) + kd[3]);
-  const float q1 = r.p1 + s6 * (ka[4] + 2.0f * (kb[4] + kc[4]) + kd[4]);
-  const float q2 = r.p2 + s6 * (ka[5] + 2.0f * (kb[5] + kc[5]) + kd[5]);
-
+// Endpoint classification, the segment events and the freeze merge of the
+// step x -> y of an ACTIVE ray r, with endpoint momentum q and length dt
+// (`_events_merge`, :272-317): never store a non-finite state; an event
+// ray freezes at the interpolated event point.  Shared by rk4_step and
+// dopri_trip (dopri_trip.cuh), so the two integrators classify alike.
+template <bool KERR, bool DISK, bool SPH, bool GUARD>
+__device__ __forceinline__ void classify_merge(const Scalars& sc,
+                                               const float* __restrict__ sph,
+                                               int n_sph, float dt, float y0,
+                                               float y1, float y2, float q0,
+                                               float q1, float q2, Ray& r) {
   // Endpoint classification, lowest priority first (_events_merge); a
   // sphere entry overrides it, and a disk crossing no later on the segment
   // overrides that.
   const float rb = radius<KERR>(sc, y0, y1, y2);
   // not fused with h = dt * clip(...): kernels that fuse differently would
   // part in the last bit of lam
-  const float lam1 = __fadd_rn(r.lam, h);
+  const float lam1 = __fadd_rn(r.lam, dt);
   const bool finite = isfinite(y0) && isfinite(y1) && isfinite(y2) &&
                       isfinite(q0) && isfinite(q1) && isfinite(q2);
   int st = lam1 >= sc.lam_max ? kBudget : kActive;
@@ -387,15 +373,44 @@ __device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
     r.x0 = lerp_rn(x0, y0, ts);
     r.x1 = lerp_rn(x1, y1, ts);
     r.x2 = lerp_rn(x2, y2, ts);
-    r.lam = __fadd_rn(lam0, __fmul_rn(h, ts));
+    r.lam = __fadd_rn(lam0, __fmul_rn(dt, ts));
     r.obj = ev.sid;
   }
   if (DISK && st == kDisk) {
     r.x0 = ev.d0;
     r.x1 = ev.d1;
     r.x2 = 0.0f;
-    r.lam = __fadd_rn(lam0, __fmul_rn(h, ev.t_disk));
+    r.lam = __fadd_rn(lam0, __fmul_rn(dt, ev.t_disk));
   }
+}
+
+// One RK4 step of an ACTIVE ray with endpoint classification, the segment
+// events and the freeze merge (classify_merge).
+template <int PMODE, bool KERR, bool DISK, bool SPH, bool GUARD>
+__device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
+                                         float E,
+                                         const float* __restrict__ sph,
+                                         int n_sph, Ray& r) {
+  const float h = step_size<PMODE, KERR>(sc, power, r.x0, r.x1, r.x2);
+
+  float ka[6], kb[6], kc[6], kd[6];
+  rhs<KERR>(sc, E, r.x0, r.x1, r.x2, r.p0, r.p1, r.p2, ka);
+  const float c = 0.5f * h;
+  rhs<KERR>(sc, E, r.x0 + c * ka[0], r.x1 + c * ka[1], r.x2 + c * ka[2],
+            r.p0 + c * ka[3], r.p1 + c * ka[4], r.p2 + c * ka[5], kb);
+  rhs<KERR>(sc, E, r.x0 + c * kb[0], r.x1 + c * kb[1], r.x2 + c * kb[2],
+            r.p0 + c * kb[3], r.p1 + c * kb[4], r.p2 + c * kb[5], kc);
+  rhs<KERR>(sc, E, r.x0 + h * kc[0], r.x1 + h * kc[1], r.x2 + h * kc[2],
+            r.p0 + h * kc[3], r.p1 + h * kc[4], r.p2 + h * kc[5], kd);
+  const float s6 = h * (1.0f / 6.0f);
+  const float y0 = r.x0 + s6 * (ka[0] + 2.0f * (kb[0] + kc[0]) + kd[0]);
+  const float y1 = r.x1 + s6 * (ka[1] + 2.0f * (kb[1] + kc[1]) + kd[1]);
+  const float y2 = r.x2 + s6 * (ka[2] + 2.0f * (kb[2] + kc[2]) + kd[2]);
+  const float q0 = r.p0 + s6 * (ka[3] + 2.0f * (kb[3] + kc[3]) + kd[3]);
+  const float q1 = r.p1 + s6 * (ka[4] + 2.0f * (kb[4] + kc[4]) + kd[4]);
+  const float q2 = r.p2 + s6 * (ka[5] + 2.0f * (kb[5] + kc[5]) + kd[5]);
+  classify_merge<KERR, DISK, SPH, GUARD>(sc, sph, n_sph, h, y0, y1, y2, q0,
+                                         q1, q2, r);
 }
 
 // ---------------------------------------------------------------------------

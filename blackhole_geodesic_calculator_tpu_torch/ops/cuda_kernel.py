@@ -1,64 +1,85 @@
-"""The geodesic integrator as hand-written CUDA kernels, with its gradient.
+"""The geodesic integrators as hand-written CUDA kernels, with their gradients.
 
 Counterpart of ``blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py``:
-``integrate_cuda`` plays the part of ``integrate_pallas``.  With no
-gradient recorded it launches ``csrc/rk4_fwd.cu``; under autograd it runs
-``RK4Adjoint``, whose forward launches ``csrc/rk4_ckpt.cu`` and whose
-backward launches ``csrc/rk4_bwd.cu`` -- the ``jax.custom_vjp`` of
-``_build`` (pallas_kernel.py:1467-1491).  All three run the step of
-``csrc/rk4_step.cuh``.
+``integrate_cuda`` plays the part of ``integrate_pallas`` and
+``integrate_pallas_dopri``.  Fixed-step RK4: with no gradient recorded it
+launches ``csrc/rk4_fwd.cu``; under autograd it runs ``RK4Adjoint``, whose
+forward launches ``csrc/rk4_ckpt.cu`` and whose backward launches
+``csrc/rk4_bwd.cu`` -- the ``jax.custom_vjp`` of ``_build``
+(pallas_kernel.py:1467-1491).  All three run the step of
+``csrc/rk4_step.cuh``.  Adaptive Dormand-Prince: ``csrc/dopri_fwd.cu``
+with no gradient, ``DopriAdjoint`` (``csrc/dopri_ckpt.cu`` forward,
+``csrc/dopri_bwd.cu`` backward) under autograd -- the custom_vjp of
+``_build_dopri_grad`` (:995-1021); all three run the trip of
+``csrc/dopri_trip.cuh``, which shares the step's classification, events
+and right-hand sides.
 
 Source note
 -----------
-* **Replaces** the three TPU kernels of the step (``_soa_step`` with
-  ``_dt_soa`` and ``_events_merge``), each in the variants ``_build`` chooses
-  at compile time (pallas_kernel.py:1377-1379, :1619-1621): Schwarzschild
-  (``_rhs_schw_soa``, the Euclidean radius) or Kerr (``kerr``:
-  ``_rhs_kerr_soa`` :84-142, the Kerr-Schild radius ``_ks_radius_soa``
-  :145-153, the sphere guard widened by |a| :249-265, and in the adjoint the
-  VJP of the Kerr right-hand side, :1055-1074), each event-free or with the
-  segment events of a z = 0 disk and of K spheres (``has_disk``,
-  ``n_sph``):
+* **Replaces** the six TPU kernels, each in the variants the wrappers
+  choose at compile time (pallas_kernel.py:1377-1379, :1619-1621,
+  :668-678): Schwarzschild (``_rhs_schw_soa``, the Euclidean radius) or
+  Kerr (``kerr``: ``_rhs_kerr_soa`` :84-142, the Kerr-Schild radius
+  ``_ks_radius_soa`` :145-153, the sphere guard widened by |a| :249-265,
+  and in the adjoints the VJP of the Kerr right-hand side, :1055-1074),
+  each event-free or with the segment events of a z = 0 disk and of K
+  spheres (``has_disk``, ``n_sph``):
 
   - ``_fwd_fast_kernel`` (pallas_kernel.py:1159-1198), built by
     ``_build(...).fwd_fast`` (:1399-1415) -> ``rk4_fwd``;
   - ``_fwd_ckpt_kernel`` (:1201-1252), built by ``_build(...).fwd_ckpt``
     (:1417-1436) -> ``rk4_ckpt``;
   - ``_bwd_kernel`` (:1258-1357) with ``_step_adjoint`` (:1025-1153), built
-    by ``_build(...).bwd_call`` (:1438-1465) -> ``rk4_bwd``.
+    by ``_build(...).bwd_call`` (:1438-1465) -> ``rk4_bwd``;
+  - ``_fwd_dopri_kernel`` (:473-514) with ``_dopri_trip`` (:390-470),
+    built by ``_build_dopri(...).fwd`` (:540) and
+    ``_build_dopri_grad(...).fwd_fast`` (:939) -> ``dopri_fwd``;
+  - ``_fwd_dopri_ckpt_kernel`` (:749-801), built by
+    ``_build_dopri_grad(...).fwd_ckpt`` (:957) -> ``dopri_ckpt``;
+  - ``_bwd_dopri_kernel`` (:804-903) with ``_dopri_trip_adjoint``
+    (:702-746), built by ``_build_dopri_grad(...).bwd_call`` (:972) ->
+    ``dopri_bwd``.
 * **What bounds them on an H100.** Scalar float32 arithmetic: 276
   operations per ray-step forward in Schwarzschild (4 RHS evaluations with
   one ``rsqrtf`` each, the step-size schedule and the endpoint test) and
   about 750 in Kerr (a Kerr RHS is about 160, with two square roots and
   six divisions, and the Kerr-Schild radius adds two square roots), about
-  3.5 times that per taped step backward, against 40 bytes of ray state
-  read once and 36 written once per ray, plus 32 bytes per ray and segment
-  of checkpoints.  At the flagship's up to 100 steps that is
-  hundreds of operations per byte or more, far above the card's balance
-  point, so they are bound by the FP32 pipes and by warp divergence: a warp
-  runs until its slowest ray ends.  The events add one disk test and K
-  sphere quadratics (about 25 operations each) per step; the forward kernel
-  skips the quadratics for a ray whose segment cannot reach any sphere (the
-  TPU kernel's sphere guard, per ray).  ``chip_smoke.py`` counts the
-  operations per variant and the ray-steps of its inputs for the bound.
+  3.5 times that per taped step backward; a Dormand-Prince trip has seven
+  RHS evaluations, the error norm and the controller's power.  Against
+  that, 40 bytes of ray state read once and 36 written once per ray
+  (Dormand-Prince: 44 read, the per-ray h), plus 32 bytes (36) per ray and
+  segment of checkpoints.  At tens to hundreds of steps or trips per ray
+  that is hundreds of operations per byte or more, far above the card's
+  balance point, so they are bound by the FP32 pipes and by warp
+  divergence: a warp runs until its slowest ray ends, and an adaptive ray
+  ends after its own number of trips.  The events add one disk test and K
+  sphere quadratics (about 25 operations each) per step; the forward
+  kernels skip the quadratics for a ray whose segment cannot reach any
+  sphere (the TPU kernel's sphere guard, per ray).  ``chip_smoke.py``
+  counts the operations per variant and the ray-steps of its inputs for
+  the bound.
 * **What the design does about it.** One thread per ray with the whole
-  state and the four RK4 stages in registers.  The TPU kernels' tile-wide
-  "any ray ACTIVE" skips become per-thread exits as soon as the thread's
-  own ray leaves ACTIVE, which is exact because a frozen ray is an identity
-  under the step.  The adjoint recomputes one segment at a time onto a
-  per-thread tape in local memory and sweeps it backwards; it never
-  differentiates a frozen step, so it needs none of the TPU wrapper's
-  far-away ERROR padding rays.  Its scalar cotangents and the (K, 4)
-  sphere cotangent are summed per block in a fixed tree and then across
-  blocks in a fixed order, so they are the same bit for bit from run to
-  run.  The TPU-only machinery is not carried
-  over: the 128-lane row layout, the padding and the VMEM tile sizing.  The
-  cost-ordered tiling changes no output and is left to a measurement.
+  state, the per-ray step h and the RK4 or Dormand-Prince stages in
+  registers (the Dormand-Prince adjoint keeps its 84 stage values and its
+  tape in local memory).
+  The TPU kernels' tile-wide "any ray ACTIVE" skips become per-thread
+  exits as soon as the thread's own ray leaves ACTIVE, which is exact
+  because a frozen ray is an identity under a step or a trip.  The
+  adjoints recompute one segment at a time onto a per-thread tape in
+  local memory and sweep it backwards; they never differentiate a frozen
+  step, so they need none of the TPU wrapper's far-away ERROR padding
+  rays.  Their scalar cotangents and the (K, 4) sphere cotangent are
+  summed per block in a fixed tree and then across blocks in a fixed
+  order, so they are the same bit for bit from run to run.  The TPU-only
+  machinery is not carried over: the 128-lane row layout, the padding and
+  the VMEM tile sizing.  The cost-ordered tiling changes no output and is
+  left to a measurement.
 
 ``integrate_plain`` is the plain PyTorch version of ``integrate_cuda``
-(ops/integrate.py's step loops, ``integrate_fixed`` under autograd) and
-``integrate_ckpt_plain`` that of the checkpoints; they share no code with
-the kernels.  ``integrate`` takes them only for tensors on the CPU.
+(ops/integrate.py's loops, the checkpointed ones under autograd), and
+``integrate_ckpt_plain`` and ``integrate_adaptive_ckpt_plain`` those of the
+checkpoints; they share no code with the kernels.  ``integrate`` takes them
+only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -69,19 +90,24 @@ import dataclasses
 import torch
 
 from . import _build
-from .adjoint import NSCAL
+from .adjoint import NSCAL, Controller
 from .integrate import (
     GeodesicEnv,
     IntegratorConfig,
+    _dopri_trip,
     _fixed_step,
+    dopri_h0,
+    integrate_adaptive,
+    integrate_adaptive_scan,
     integrate_fixed,
     integrate_fixed_fast,
     needs_grad,
 )
 from .states import RayState
 
-MAX_SEG = 64   # the adjoint's tape length (csrc/rk4_bwd.cu kMaxSeg)
+MAX_SEG = 64   # the adjoints' tape length (csrc/rk4_bwd.cu, dopri_bwd.cu)
 N_GRAD = 5     # scalar cotangents per block row (csrc/rk4_bwd.cu kNGrad)
+N_GRAD_DOPRI = 2   # ... of dopri_bwd.cu: mass and spin
 
 # Launches of each kernel variant since import (or since a caller cleared
 # them), by variant name (``variant``); a wrapper adds one right where it
@@ -90,17 +116,24 @@ LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
 def variant(kernel: str, kerr: bool, events: bool) -> str:
-    """The name of a kernel's variant: ``kernel`` ("rk4_fwd", "rk4_ckpt" or
-    "rk4_bwd"), then "_kerr" for a Kerr hole and "_events" for a disk or
-    spheres, e.g. "rk4_bwd_kerr_events"."""
+    """The name of a kernel's variant: ``kernel`` ("rk4_fwd", "rk4_ckpt",
+    "rk4_bwd", "dopri_fwd", "dopri_ckpt" or "dopri_bwd"), then "_kerr" for
+    a Kerr hole and "_events" for a disk or spheres, e.g.
+    "rk4_bwd_kerr_events"."""
     return kernel + ("_kerr" if kerr else "") + ("_events" if events else "")
 
 
 def integrate_plain(env: GeodesicEnv, s0: RayState,
                     cfg: IntegratorConfig) -> RayState:
     """Plain PyTorch version of ``integrate_cuda``: the checkpointed step
-    loop when autograd records the call, the early-exit loop otherwise."""
-    if needs_grad(env, s0):
+    or trip loop when autograd records the call, the early-exit loop
+    otherwise."""
+    grad = needs_grad(env, s0)
+    if cfg.method == "dopri":
+        if grad:
+            return integrate_adaptive_scan(env, s0, cfg)
+        return integrate_adaptive(env, s0, cfg)[0]
+    if grad:
         return integrate_fixed(env, s0, cfg)
     return integrate_fixed_fast(env, s0, cfg)
 
@@ -128,6 +161,25 @@ def integrate_ckpt_plain(env: GeodesicEnv, s0: RayState,
     return s, ckpts
 
 
+def integrate_adaptive_ckpt_plain(
+        env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig,
+        seg: int) -> tuple[RayState, list[RayState], list[torch.Tensor]]:
+    """Plain PyTorch version of ``dopri_ckpt``: the final state, and the
+    states and per-ray steps h before trips 0, seg, 2 seg, ... of the trip
+    loop."""
+    s = s0
+    h = torch.full(s0.E.shape, dopri_h0(cfg), dtype=s0.x.dtype,
+                   device=s0.x.device)
+    rows, hs = [], []
+    for trip in range(cfg.n_steps):
+        if trip % seg == 0:
+            rows.append(s)
+            hs.append(h)
+        if bool(s.active.any()):   # else the trip is the identity
+            s, h, _ = _dopri_trip(env, cfg, s, h)
+    return s, rows, hs
+
+
 def _scalars(env: GeodesicEnv, cfg: IntegratorConfig,
              device: torch.device) -> torch.Tensor:
     """The (NSCAL,) float32 device vector, TPU kernel layout:
@@ -136,9 +188,13 @@ def _scalars(env: GeodesicEnv, cfg: IntegratorConfig,
     device and in the autograd graph: the mass cotangent of rk4_bwd reaches
     ``env.mass`` through entry 0, and through entry 3 when r_ref defaults
     to 6 M, and the spin cotangent reaches ``env.spin`` through entry 9.
-    r_in and r_out are 0 without a disk, a is 0 without a spin."""
+    r_in and r_out are 0 without a disk, a is 0 without a spin.  A
+    Dormand-Prince trip steps by its own h and reads no schedule: boost and
+    r_ref are 1, as the TPU wrapper packs them (pallas_kernel.py:641-654)."""
     r_ref = cfg.dt_boost_r_ref or 6.0 * env.mass
     boost = cfg.dt_boost if cfg.dt_boost > 1.0 else 1.0
+    if cfg.method == "dopri":
+        r_ref, boost = 1.0, 1.0
     r_in, r_out = ((env.disk.r_in, env.disk.r_out) if env.disk is not None
                    else (0.0, 0.0))
     vals = (env.mass, cfg.dt, boost, r_ref, env.r_capture, env.r_escape,
@@ -163,13 +219,6 @@ def _sphere_table(env: GeodesicEnv, device: torch.device) -> torch.Tensor:
         raise ValueError(f"spheres need centres (K, 3) and radii (K,); got "
                          f"{tuple(center.shape)} and {tuple(radius.shape)}")
     return torch.cat([center, radius[:, None]], dim=1).contiguous()
-
-
-def _check_slice(cfg: IntegratorConfig):
-    if cfg.method != "rk4":
-        raise NotImplementedError(
-            f"method={cfg.method!r} on CUDA needs the Dormand-Prince kernels "
-            "(_fwd_dopri_kernel and its gradient pair), not ported yet")
 
 
 def _flat(t: torch.Tensor, batch, tail, dtype, name) -> torch.Tensor:
@@ -342,15 +391,152 @@ class RK4Adjoint(torch.autograd.Function):
                 None, None)
 
 
+def controller(cfg: IntegratorConfig) -> Controller:
+    """The controller constants the Dormand-Prince kernels take; an
+    infinite max_step goes in as 1e30, as the TPU wrapper passes it
+    (pallas_kernel.py:667)."""
+    return Controller(float(cfg.rtol), float(cfg.atol), float(cfg.min_step),
+                      min(float(cfg.max_step), 1e30))
+
+
+def dopri_fwd(scal, x, p, E, h, lam, st, n_steps: int, ctl: Controller, *,
+              sph=None, has_disk=False, obj=None, kerr=False):
+    """Launch dopri_fwd on flat (n, 3) / (n,) tensors: up to ``n_steps``
+    Dormand-Prince trips from the per-ray steps ``h``, controller
+    ``ctl``.  Returns (x, p, lam, status, hit_obj); ``sph``,
+    ``has_disk``, ``obj`` and ``kerr`` as for rk4_fwd."""
+    sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
+    if obj is None:
+        obj = torch.full_like(st, -1)
+    x_out, p_out = torch.empty_like(x), torch.empty_like(p)
+    lam_out, st_out = torch.empty_like(lam), torch.empty_like(st)
+    obj_out = torch.empty_like(obj)
+    n = E.numel()
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _build.load().bhgc_dopri_fwd(
+                scal.data_ptr(), sph.data_ptr(), sph.shape[0], int(has_disk),
+                int(kerr), x.data_ptr(), p.data_ptr(), E.data_ptr(),
+                h.data_ptr(), lam.data_ptr(), st.data_ptr(), obj.data_ptr(),
+                x_out.data_ptr(), p_out.data_ptr(), lam_out.data_ptr(),
+                st_out.data_ptr(), obj_out.data_ptr(), n, n_steps, *ctl,
+                _stream(x.device))
+        _raise_on(rc, "dopri_fwd")
+        LAUNCHES[variant("dopri_fwd", kerr, _events(sph, has_disk))] += 1
+    return x_out, p_out, lam_out, st_out, obj_out
+
+
+def dopri_ckpt(scal, x, p, E, h, lam, st, n_steps: int, seg: int,
+               ctl: Controller, *, sph=None, has_disk=False, obj=None,
+               kerr=False):
+    """Launch dopri_ckpt on flat tensors; returns the final (x, p, lam,
+    status, hit_obj) and the checkpoints (cx, cp, ch, clam, cst) before
+    trips 0, seg, 2 seg, ..., each of leading dimension ceil(n_steps /
+    seg).  Arguments as for dopri_fwd."""
+    sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
+    if obj is None:
+        obj = torch.full_like(st, -1)
+    n = E.numel()
+    n_seg = -(-n_steps // seg)
+    x_out, p_out = torch.empty_like(x), torch.empty_like(p)
+    lam_out, st_out = torch.empty_like(lam), torch.empty_like(st)
+    obj_out = torch.empty_like(obj)
+    cx, cp = x.new_empty((n_seg, n, 3)), p.new_empty((n_seg, n, 3))
+    ch, clam = h.new_empty((n_seg, n)), lam.new_empty((n_seg, n))
+    cst = st.new_empty((n_seg, n))
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _build.load().bhgc_dopri_ckpt(
+                scal.data_ptr(), sph.data_ptr(), sph.shape[0], int(has_disk),
+                int(kerr), x.data_ptr(), p.data_ptr(), E.data_ptr(),
+                h.data_ptr(), lam.data_ptr(), st.data_ptr(), obj.data_ptr(),
+                x_out.data_ptr(), p_out.data_ptr(), lam_out.data_ptr(),
+                st_out.data_ptr(), obj_out.data_ptr(), cx.data_ptr(),
+                cp.data_ptr(), ch.data_ptr(), clam.data_ptr(), cst.data_ptr(),
+                n, n_steps, seg, *ctl, _stream(x.device))
+        _raise_on(rc, "dopri_ckpt")
+        LAUNCHES[variant("dopri_ckpt", kerr, _events(sph, has_disk))] += 1
+    return x_out, p_out, lam_out, st_out, obj_out, (cx, cp, ch, clam, cst)
+
+
+def dopri_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int,
+              ctl: Controller, *, sph=None, has_disk=False, kerr=False):
+    """Launch dopri_bwd: the cotangents (x, p, E) of the initial state, the
+    (NSCAL,) scalar cotangent (the mass's and, for Kerr, the spin's at
+    entry 9) and the (K, 4) sphere cotangent, from the checkpoints of
+    dopri_ckpt and the cotangents ``gx``, ``gp`` of the final (x, p).  The
+    initial h is a constant: its cotangent is dropped."""
+    if not 1 <= seg <= MAX_SEG:
+        raise ValueError(f"seg={seg} outside the adjoint's tape "
+                         f"(1..{MAX_SEG} trips)")
+    sph = _no_spheres(E) if sph is None else sph.detach().contiguous()
+    n_sph = sph.shape[0]
+    cx, cp, ch, clam, cst = ckpts
+    n = E.numel()
+    bx, bp = torch.empty_like(gx), torch.empty_like(gp)
+    bE = torch.empty_like(E)
+    gscal = torch.zeros(NSCAL, dtype=torch.float32, device=E.device)
+    gsph = torch.zeros((n_sph, 4), dtype=torch.float32, device=E.device)
+    if n:
+        lib = _build.load()
+        partial = E.new_empty((lib.bhgc_dopri_bwd_blocks(n),
+                               N_GRAD_DOPRI + 4 * n_sph))
+        with torch.cuda.device(E.device):
+            rc = lib.bhgc_dopri_bwd(
+                scal.data_ptr(), sph.data_ptr(), n_sph, int(has_disk),
+                int(kerr), cx.data_ptr(), cp.data_ptr(), ch.data_ptr(),
+                clam.data_ptr(), cst.data_ptr(), E.data_ptr(), gx.data_ptr(),
+                gp.data_ptr(), bx.data_ptr(), bp.data_ptr(), bE.data_ptr(),
+                partial.data_ptr(), gscal.data_ptr(), gsph.data_ptr(), n,
+                n_steps, seg, *ctl, _stream(E.device))
+        _raise_on(rc, "dopri_bwd")
+        LAUNCHES[variant("dopri_bwd", kerr, _events(sph, has_disk))] += 1
+    return bx, bp, bE, gscal, gsph
+
+
+class DopriAdjoint(torch.autograd.Function):
+    """(x, p, E, scal, sph) -> final (x, p, lam, status, hit_obj) through
+    dopri_ckpt, with dopri_bwd as the backward: the custom VJP of
+    ``_build_dopri_grad`` (pallas_kernel.py:995-1021).  The per-ray
+    initial step ``h`` is an input without a gradient (a constant of the
+    configuration); lam, status and hit_obj are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, p, E, scal, sph, h, lam, st, obj, has_disk, kerr,
+                n_steps, seg, ctl):
+        x1, p1, lam1, st1, obj1, ckpts = dopri_ckpt(
+            scal, x, p, E, h, lam, st, n_steps, seg, ctl, sph=sph,
+            has_disk=has_disk, obj=obj, kerr=kerr)
+        ctx.save_for_backward(scal, sph, E, *ckpts)
+        ctx.schedule = (n_steps, seg, ctl)
+        ctx.variant = dict(has_disk=has_disk, kerr=kerr)
+        ctx.mark_non_differentiable(lam1, st1, obj1)
+        return x1, p1, lam1, st1, obj1
+
+    @staticmethod
+    def backward(ctx, gx, gp, _glam, _gst, _gobj):
+        scal, sph, E, *ckpts = ctx.saved_tensors
+        n = E.numel()
+        gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
+        gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
+        bx, bp, bE, gscal, gsph = dopri_bwd(scal, ckpts, E, gx, gp,
+                                            *ctx.schedule, sph=sph,
+                                            **ctx.variant)
+        return (bx, bp, bE, gscal, gsph) + (None,) * 9
+
+
 def integrate_cuda(env: GeodesicEnv, s0: RayState,
                    cfg: IntegratorConfig) -> RayState:
     """Integrate ``s0`` with the CUDA kernels; any batch shape.
 
     Same env/state/config as ``integrate_plain``; the result is the state
-    after ``cfg.n_steps`` steps (rays frozen at their termination).  When
-    autograd records the call it goes through ``RK4Adjoint`` (rk4_ckpt, and
-    rk4_bwd in the backward); otherwise through rk4_fwd."""
-    _check_slice(cfg)
+    after ``cfg.n_steps`` steps or trips (rays frozen at their
+    termination).  When autograd records the call it goes through
+    ``RK4Adjoint`` (rk4_ckpt, and rk4_bwd in the backward) or, for
+    ``method="dopri"``, ``DopriAdjoint`` (dopri_ckpt, dopri_bwd);
+    otherwise through rk4_fwd or dopri_fwd."""
+    if cfg.method not in ("rk4", "dopri"):
+        raise ValueError(f"unknown integrator method {cfg.method!r}")
     batch = s0.E.shape
     if s0.E.numel() >= 2**31:
         raise ValueError(f"too many rays for one launch: {s0.E.numel()}")
@@ -366,7 +552,18 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
     has_disk, kerr = env.disk is not None, env.spin is not None
     n_steps, power = int(cfg.n_steps), float(cfg.dt_power)
 
-    if needs_grad(env, s0):
+    if cfg.method == "dopri":
+        h = torch.full_like(E, dopri_h0(cfg))
+        ctl = controller(cfg)
+        if needs_grad(env, s0):
+            x1, p1, lam1, st1, obj1 = DopriAdjoint.apply(
+                x, p, E, scal, sph, h, lam, st, obj, has_disk, kerr, n_steps,
+                segment(n_steps), ctl)
+        else:
+            x1, p1, lam1, st1, obj1 = dopri_fwd(
+                scal, x, p, E, h, lam, st, n_steps, ctl, sph=sph,
+                has_disk=has_disk, obj=obj, kerr=kerr)
+    elif needs_grad(env, s0):
         x1, p1, lam1, st1, obj1 = RK4Adjoint.apply(
             x, p, E, scal, sph, lam, st, obj, has_disk, kerr, n_steps,
             segment(n_steps), power)

@@ -1,25 +1,34 @@
-"""Batched fixed-step RK4 geodesic integration (PyTorch port of ops/integrate.py).
+"""Batched geodesic integration (PyTorch port of ops/integrate.py).
 
 The whole ray batch is stepped at once; every step classifies each ray
 (horizon capture, escape from the domain, affine budget, non-finite state)
 and freezes it in the carry, so a terminated ray is an exact identity under
-all later steps.  ``integrate`` dispatches between the hand-written CUDA
-kernels (ops/cuda_kernel.py) for tensors on a CUDA device and the plain
-PyTorch step loops below for tensors on the CPU: ``integrate_fixed`` when
-autograd records the call, ``integrate_fixed_fast`` otherwise.
+all later steps.  Two integrators, each with a forward-only loop that stops
+once no ray is ACTIVE and a checkpointed loop for autograd:
+
+* fixed-step RK4 (``method="rk4"``): ``integrate_fixed_fast`` and
+  ``integrate_fixed``;
+* adaptive Dormand-Prince 5(4) with a per-ray step controller
+  (``method="dopri"``, scipy's RK45 pair): ``integrate_adaptive`` and
+  ``integrate_adaptive_scan``.  A trip is one attempt: an accepted one
+  advances the ray, a rejected one only shrinks its step.
+
+``integrate`` dispatches between the hand-written CUDA kernels
+(ops/cuda_kernel.py) for tensors on a CUDA device and these plain PyTorch
+loops for tensors on the CPU, by whether autograd records the call.
 
 Schwarzschild and Kerr (``GeodesicEnv.spin``), forward and backward, with
 the segment events of a z = 0 disk and of K spheres: a ray whose step
 crosses the disk annulus or enters a sphere freezes at the interpolated
 event point (DISK or OBJECT).  Kerr steps with the analytic right-hand side
 ``kerr_rhs`` and classifies and sizes steps by the Kerr-Schild radius (JAX
-integrate.py:78-90).  Dormand-Prince and timelike rays raise
-``NotImplementedError``.
+integrate.py:78-90).  Timelike rays raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -81,7 +90,7 @@ class GeodesicEnv:
 class IntegratorConfig:
     n_steps: int = 512
     dt: float = 0.1
-    method: str = "rk4"          # 'rk4' | 'dopri' (dopri not ported yet)
+    method: str = "rk4"          # 'rk4' | 'dopri'
     mode: str = "scan"           # 'scan' | 'while'; the forward is the same
     # 'auto': the CUDA kernels for tensors on a CUDA device, the plain
     # PyTorch loops for tensors on the CPU; 'cuda' / 'torch' force a path.
@@ -97,7 +106,8 @@ class IntegratorConfig:
     # Tile ordering of the TPU kernel; the CUDA kernel runs one thread per
     # ray and takes no ordering, and the outputs never depend on it.
     tile_order: str = "cost"     # 'cost' | 'none'
-    # Dormand-Prince controls (kept for config parity with the reference).
+    # Dormand-Prince controls: the error norm's tolerances and the clip of
+    # the per-ray step; the first step is min(dt, max_step).
     rtol: float = 1e-5
     atol: float = 1e-8
     max_step: float = math.inf
@@ -120,6 +130,50 @@ def rk4_step(env: GeodesicEnv, x, p, E, dt):
     x1 = x + h * sixth * (k1x + 2.0 * (k2x + k3x) + k4x)
     p1 = p + h * sixth * (k1p + 2.0 * (k2p + k3p) + k4p)
     return x1, p1
+
+
+# Dormand-Prince 5(4) Butcher tableau (scipy's RK45 pair; JAX
+# integrate.py:152-172).
+_DP_A = (
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_DP_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+          187 / 2100, 1 / 40)
+# the error weights b5 - b4 of the embedded pair (pallas_kernel.py:383-387)
+_DP_E = tuple(b5 - b4 for b5, b4 in zip(_DP_B5, _DP_B4))
+
+
+def dopri_step(env: GeodesicEnv, x, p, E, dt):
+    """One embedded Dormand-Prince 5(4) step; dt is per-ray.  Returns the
+    5th-order (x5, p5) and the embedded error estimate (ex, ep)."""
+    h = dt[..., None]
+    kx, kp = [], []
+    for i in range(7):
+        xi, pi = x, p
+        for j, aij in enumerate(_DP_A[i]):
+            xi = xi + h * aij * kx[j]
+            pi = pi + h * aij * kp[j]
+        dxi, dpi = env.rhs(xi, pi, E)
+        kx.append(dxi)
+        kp.append(dpi)
+
+    def comb(ks, bs):
+        out = 0.0
+        for k, b in zip(ks, bs):
+            if b != 0.0:
+                out = out + b * k
+        return out
+
+    x5 = x + h * comb(kx, _DP_B5)
+    p5 = p + h * comb(kp, _DP_B5)
+    return x5, p5, h * comb(kx, _DP_E), h * comb(kp, _DP_E)
 
 
 # =============================================================================
@@ -275,30 +329,127 @@ def _steps(env, cfg, n, x, p, E, lam, status, hit_obj):
     s = RayState(x=x, p=p, E=E, lam=lam, status=status, hit_obj=hit_obj)
     for _ in range(n):
         s = _fixed_step(env, cfg, s)
-    return s.x, s.p, s.lam, s.status, s.hit_obj
+    return s.x, s.p, s.E, s.lam, s.status, s.hit_obj
+
+
+def _segmented(run, n_steps: int, seg: int, carry):
+    """``run(n, *carry)`` for exactly ``n_steps`` steps: full segments of
+    ``seg`` steps, each under ``torch.utils.checkpoint`` (its activations
+    are recomputed in the backward pass instead of kept), then a tail of
+    ``n_steps % seg`` steps that is not checkpointed."""
+    n_full, rem = divmod(n_steps, seg)
+    for _ in range(n_full):
+        if seg > 1:
+            carry = torch.utils.checkpoint.checkpoint(run, seg, *carry,
+                                                      use_reentrant=False)
+        else:
+            carry = run(seg, *carry)
+    return run(rem, *carry)
 
 
 def integrate_fixed(env: GeodesicEnv, s0: RayState,
                     cfg: IntegratorConfig) -> RayState:
-    """RK4 step loop for autograd, checkpointed in segments.
-
-    Runs exactly ``cfg.n_steps`` steps: full segments of ``seg`` steps,
-    each under ``torch.utils.checkpoint`` (its activations are recomputed
-    in the backward pass instead of kept), then a tail of
-    ``n_steps % seg`` steps that is not checkpointed.  The forward equals
-    ``integrate_fixed_fast``: a frozen ray is an identity under the step."""
+    """RK4 step loop for autograd, checkpointed in segments of
+    ``cfg.remat_segment`` or sqrt(n_steps) steps (``_segmented``).  The
+    forward equals ``integrate_fixed_fast``: a frozen ray is an identity
+    under the step."""
     seg = cfg.remat_segment or max(1, int(cfg.n_steps ** 0.5))
-    n_full, rem = divmod(cfg.n_steps, seg)
-    x, p, lam, st, obj = s0.x, s0.p, s0.lam, s0.status, s0.hit_obj
-    for _ in range(n_full):
-        args = (env, cfg, seg, x, p, s0.E, lam, st, obj)
-        if seg > 1:
-            x, p, lam, st, obj = torch.utils.checkpoint.checkpoint(
-                _steps, *args, use_reentrant=False)
-        else:
-            x, p, lam, st, obj = _steps(*args)
-    x, p, lam, st, obj = _steps(env, cfg, rem, x, p, s0.E, lam, st, obj)
-    return RayState(x=x, p=p, E=s0.E, lam=lam, status=st, hit_obj=obj)
+    x, p, E, lam, st, obj = _segmented(
+        functools.partial(_steps, env, cfg), cfg.n_steps, seg,
+        (s0.x, s0.p, s0.E, s0.lam, s0.status, s0.hit_obj))
+    return RayState(x=x, p=p, E=E, lam=lam, status=st, hit_obj=obj)
+
+
+def _clip(v, lo: float, hi: float):
+    """``jnp.clip``: a maximum, then a minimum, each splitting the gradient
+    of a tie in two as ``jax.vjp`` does (``torch.clamp`` would pass it all
+    at the bound); NaN passes through."""
+    return torch.minimum(torch.maximum(v, v.new_tensor(lo)), v.new_tensor(hi))
+
+
+def dopri_h0(cfg: IntegratorConfig) -> float:
+    """The first step of every ray, min(dt, max_step): a constant of the
+    configuration, so no cotangent reaches it."""
+    return min(cfg.dt, cfg.max_step)
+
+
+def _dopri_trip(env: GeodesicEnv, cfg: IntegratorConfig, s: RayState, h):
+    """One Dormand-Prince trip of the batch (one body of JAX's
+    ``integrate_adaptive`` loop, integrate.py:400-431): the embedded step
+    of each ACTIVE ray, its scaled RMS error, accept or reject, the events
+    of an accepted step, and the 0.2-power controller's next h, clipped to
+    [min_step, max_step], for a ray still ACTIVE.  A frozen ray (dt = 0)
+    keeps its state and h.  Returns (state, h, accepted)."""
+    dt = torch.where(s.active, h, 0.0)
+    x5, p5, ex, ep = dopri_step(env, s.x, s.p, s.E, dt)
+    scale_x = cfg.atol + cfg.rtol * torch.maximum(s.x.abs(), x5.abs())
+    scale_p = cfg.atol + cfg.rtol * torch.maximum(s.p.abs(), p5.abs())
+    err2 = (((ex / scale_x) ** 2).sum(-1)
+            + ((ep / scale_p) ** 2).sum(-1)) / 6.0
+    # double-where guard: sqrt has an infinite derivative at 0, and frozen
+    # rays (dt = 0) have exactly zero embedded error -- without the guard
+    # the adjoint turns their zero cotangent into NaN
+    pos = err2 > 0
+    err = torch.where(pos, torch.sqrt(torch.where(pos, err2, 1.0)), 0.0)
+    accept = ((err <= 1.0) | (h <= cfg.min_step)) & s.active
+    s1 = _apply_events(env, s, x5, p5, dt)
+    a3 = accept[..., None]
+    s = RayState(x=torch.where(a3, s1.x, s.x), p=torch.where(a3, s1.p, s.p),
+                 E=s.E, lam=torch.where(accept, s1.lam, s.lam),
+                 status=torch.where(accept, s1.status, s.status),
+                 hit_obj=torch.where(accept, s1.hit_obj, s.hit_obj))
+    factor = _clip(0.9 * torch.where(err > 0, err, 1e-10) ** -0.2, 0.2, 5.0)
+    h = torch.where(s.active, _clip(h * factor, cfg.min_step, cfg.max_step),
+                    h)
+    return s, h, accept
+
+
+def integrate_adaptive(env: GeodesicEnv, s0: RayState,
+                       cfg: IntegratorConfig):
+    """Dormand-Prince 5(4) trip loop that stops once no ray is ACTIVE or
+    after ``cfg.n_steps`` trips (JAX integrate.py:385-436).  A frozen ray
+    is an exact identity under a trip, so stopping early changes nothing.
+    Returns (final state, per-ray accepted-step counts)."""
+    h = torch.full(s0.E.shape, dopri_h0(cfg), dtype=s0.x.dtype,
+                   device=s0.x.device)
+    nacc = torch.zeros(s0.E.shape, dtype=torch.int32, device=s0.x.device)
+    s = s0
+    for _ in range(cfg.n_steps):
+        if not bool(s.active.any()):
+            break
+        s, h, accept = _dopri_trip(env, cfg, s, h)
+        nacc = nacc + accept.to(torch.int32)
+    return s, nacc
+
+
+def _trips(env, cfg, n, x, p, E, lam, status, hit_obj, h):
+    """``n`` Dormand-Prince trips, as a function of tensors (the unit
+    ``torch.utils.checkpoint`` recomputes).  Once no ray is ACTIVE every
+    later trip is the identity, values and gradients alike, and is not
+    run."""
+    s = RayState(x=x, p=p, E=E, lam=lam, status=status, hit_obj=hit_obj)
+    for _ in range(n):
+        if not bool(s.active.any()):
+            break
+        s, h, _ = _dopri_trip(env, cfg, s, h)
+    return s.x, s.p, s.E, s.lam, s.status, s.hit_obj, h
+
+
+def integrate_adaptive_scan(env: GeodesicEnv, s0: RayState,
+                            cfg: IntegratorConfig) -> RayState:
+    """Dormand-Prince for autograd (JAX integrate.py:439-499): exactly
+    ``cfg.n_steps`` trips, checkpointed as ``integrate_fixed`` is, with the
+    per-ray h in the carry, so the gradient is the exact discrete adjoint
+    through the step controller.  The forward equals
+    ``integrate_adaptive``'s; trips after the last ray froze are identities
+    and are skipped (``_trips``)."""
+    seg = cfg.remat_segment or max(1, int(cfg.n_steps ** 0.5))
+    h = torch.full(s0.E.shape, dopri_h0(cfg), dtype=s0.x.dtype,
+                   device=s0.x.device)
+    x, p, E, lam, st, obj, _ = _segmented(
+        functools.partial(_trips, env, cfg), cfg.n_steps, seg,
+        (s0.x, s0.p, s0.E, s0.lam, s0.status, s0.hit_obj, h))
+    return RayState(x=x, p=p, E=E, lam=lam, status=st, hit_obj=obj)
 
 
 def needs_grad(env: GeodesicEnv, s0: RayState) -> bool:
@@ -328,10 +479,12 @@ def _use_cuda(s0: RayState, cfg: IntegratorConfig) -> bool:
 
 def integrate(env: GeodesicEnv, s0: RayState,
               cfg: IntegratorConfig) -> RayState:
-    if cfg.method != "rk4":
-        raise NotImplementedError(
-            f"method={cfg.method!r} is not ported yet; the adaptive "
-            "Dormand-Prince integrator comes with its kernels")
+    """The state after ``cfg.n_steps`` steps (RK4) or trips (Dormand-Prince)
+    of ``cfg.method``, through the CUDA kernels for tensors on a CUDA device
+    and the plain loops for tensors on the CPU (``cfg.backend``)."""
+    if cfg.method not in ("rk4", "dopri"):
+        raise ValueError(f"unknown integrator method {cfg.method!r}; "
+                         "expected 'rk4' or 'dopri'")
     from . import cuda_kernel
 
     if _use_cuda(s0, cfg):

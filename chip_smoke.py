@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It drives the port's two main paths --
-the forward render through rk4_fwd and its gradient through rk4_ckpt and
-rk4_bwd -- and fails (non-zero exit, no result line) if anything is off:
+Run from the root of a checkout.  It drives the port's main paths -- the
+forward render through rk4_fwd and its gradient through rk4_ckpt and
+rk4_bwd, and the adaptive Dormand-Prince render and gradient through
+dopri_fwd, dopri_ckpt and dopri_bwd -- and fails (non-zero exit, no result
+line) if anything is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
   1. builds the kernels from the checkout's sources (build/kernels/), one
@@ -87,7 +89,33 @@ rk4_bwd -- and fails (non-zero exit, no result line) if anything is off:
      the plain loop, and times it and each kernel;
  19. computes each kernel's bound at the main path's inputs: the ray-steps
      of its frame, the operations per ray-step counted on the plain
-     statement of its variant, and the bytes it must move.
+     statement of its variant, and the bytes it must move;
+ 20. holds dopri_fwd (adaptive Dormand-Prince, K4) against the plain trip
+     loop on 65,536-ray fans (camera and events, Schwarzschild and a =
+     0.45) at bench.py's adaptive configuration: the reference's
+     invariants between two implementations (compare_adaptive), tighter on
+     rays that took the same trips; and bench.py's dopri parity rows;
+ 21. holds dopri_ckpt (K5) against dopri_fwd bit for bit, and its
+     checkpoint rows of (x, p, h, lam, status) against the plain loop's;
+ 22. holds dopri_bwd (K6) against autograd of the plain checkpointed trip
+     loop on the reference's weak-field fans (Schwarzschild and Kerr, with
+     and without the disk and a sphere, also cut to 20 trips so rays are
+     ACTIVE at the end), and checks that two runs give the same bits;
+ 23. renders BASELINE config 2, the 512x512 Einstein ring, through
+     render_image: dopri_fwd's event variant alone, held to the golden
+     einstein_ring_512 and its oracles and to the plain render; its
+     gradient to the mass, camera, sky and the moon's centre and radius
+     through dopri_ckpt and dopri_bwd alone, held to the plain path (the
+     sky whole, the rest on the calm pixels); times;
+ 24. the same ring around a Kerr hole (a = 0.45): the Kerr event variants,
+     the gradient's sky held to the plain path; times;
+ 25. runs bench.py's adaptive rows (bench_adaptive) at 262,144 rays,
+     Schwarzschild and Kerr: the forward through dopri_fwd and the mass
+     (and spin) gradient through dopri_ckpt and dopri_bwd, held to the
+     plain path; times;
+ 26. computes the Dormand-Prince kernels' bounds as phase 19 does, from the
+     ray-trips of the plain trip loop replayed and the operations per trip
+     counted on ``adjoint.dopri_trip`` and ``dopri_trip_vjp``.
 
 Every check of a phase is recorded; after the last phase the run fails if
 any check failed.  The last line of standard output is
@@ -117,8 +145,9 @@ from blackhole_geodesic_calculator_tpu_torch.ops import (
     _build, adjoint, cuda_kernel, states)
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init
 from blackhole_geodesic_calculator_tpu_torch.ops.integrate import (
-    DiskGeom, GeodesicEnv, SphereGeom, _disk_event, _dt_eff, _fixed_step,
-    _sphere_events, final_direction, rk4_step)
+    DiskGeom, GeodesicEnv, SphereGeom, _disk_event, _dopri_trip, _dt_eff,
+    _fixed_step, _sphere_events, dopri_h0, dopri_step, final_direction,
+    rk4_step)
 from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
     _bh_frame, scene_env)
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
@@ -144,6 +173,11 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "rk4_ckpt_kerr_events": (f"{PKG}/ops/csrc/rk4_ckpt.cu", f"{PALLAS}:1201"),
     "rk4_bwd_kerr_events": (f"{PKG}/ops/csrc/rk4_bwd.cu", f"{PALLAS}:1258"),
 }
+# the adaptive Dormand-Prince kernels (K4-K6), in the same four variants
+for _kind, _line in (("fwd", 473), ("ckpt", 749), ("bwd", 804)):
+    for _suffix in ("", "_events", "_kerr", "_kerr_events"):
+        KERNELS[f"dopri_{_kind}{_suffix}"] = (
+            f"{PKG}/ops/csrc/dopri_{_kind}.cu", f"{PALLAS}:{_line}")
 
 # Tolerances of the kernels against their plain versions.  Both are
 # float32; they differ in rsqrtf against torch.rsqrt and in nvcc's fused
@@ -229,6 +263,49 @@ SPINS = (0.45, -0.3)
 # about three times the operations, so two float32 paths part farther
 # from b_c: at 0.3 M the fans read |dp| 1.2e-4 and lam a step apart (H100).
 KERR_BAND = 0.5
+# Dormand-Prince, kernel against the plain trip loop.  The reference's
+# invariants between two implementations (tests/test_pallas.py:187-206,
+# bench.py:296-304): statuses (and hit ids) equal on >= 99.8% of the rays,
+# lam within max_step, the directions of rays that end on the sky within
+# 2e-3 rad.  Two float32 controllers part on accept and reject where the
+# error norm sits at 1 (its float32 rounding is ~1e-3 of it) and then
+# sample the same path at other points; rays whose lam agrees within TOL_X
+# took the same trips, and away from b_c their sky directions are held to
+# TOL_DIR.  At most DOPRI_APART of the rays away from b_c may take other
+# trips (a CPU emulation of the kernels read up to 0.51 on the Kerr fans; a
+# controller with another constant moves nearly all of them).
+DOPRI_AGREE = 0.998
+DOPRI_ANGLE = 2e-3
+DOPRI_APART = 0.8
+# An event ray freezes where the chord of its last step meets the disk or a
+# sphere, so two samplings of one path put its event point apart by the
+# chords' error: an H100 read 2.2e-2 on the events fans (max_step 8) and
+# 3.4e-4 on the Einstein rings (max_step 2).  The positions of checkpoint
+# rows of rays whose lam agrees within TOL_X part as far (8.1e-3).
+DOPRI_EVENT_X = 5e-2
+# dopri_bwd against autograd of the plain trip loop, loss of final
+# directions and event points (the reference's, tests/test_pallas.py:262):
+# the median over the rays that end on the sky or are still ACTIVE and took
+# the same trips of each ray's |difference| over its |value| (ray_rel), for
+# the cotangents of x and p, and the mass, spin and sphere cotangents,
+# relative, to the reference's 5e-2.  The median, because float32 h
+# sequences that part by ~1% on a few rays move their cotangents by up to
+# 2e-2 (an H100 reading) while the typical ray agrees to ~1e-6 (a CPU
+# emulation of the kernels); the emulation's adjoint without the errn -> h
+# term, a trip long or restarting from h0 moved the medians to 2e-4 - 1e-1.
+# An event point is where a straight chord of the last step meets the disk
+# or a sphere: two samplings of one path put it apart by the chord's error
+# and its derivative further, so the event rays' cotangents are a reading.
+TOL_DOPRI_GRAD = 2e-4
+TOL_DOPRI_GRAD_SCALAR = 5e-2
+# bench.py's adaptive gradient row: its own gate between two
+# implementations, the mass gradient within 1e-2 (bench.py:594-600); the
+# spin's (a Kerr fan; the loss sum(x^2) reads where each escaped ray's last
+# step overshoots r_escape, and the spin's part of it is small) within the
+# reference's 5e-2, TOL_DOPRI_GRAD_SCALAR.
+TOL_ADAPTIVE_GRAD = 1e-2
+ADAPTIVE_RAYS = 512 * 512   # bench.py's bench_adaptive fan
+RING = 512                  # the Einstein ring (BASELINE config 2) is RING^2
 # The card's peak rates for the bound of each kernel (NVIDIA's data sheet
 # for the H100 SXM at 700 W, float32 outside the tensor cores).
 PEAK_FLOPS = 67e12
@@ -236,6 +313,9 @@ PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
 
 FAILURES: list[str] = []
+# The readings each kernel's entry in the kernels line must carry.
+KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
 
 
 def log(msg: str) -> None:
@@ -514,17 +594,25 @@ def timed(fn, runs=10):
     return statistics.median(times)
 
 
-def timed_backward(forward, runs=3):
-    """Median host-clock ms of ``forward().backward()``'s backward alone."""
-    times = []
-    for _ in range(runs + 1):
-        loss = forward()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times[1:])
+def once(fn):
+    """(fn(), host-clock ms of that one call, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def once_ms(fn):
+    """Host-clock ms of one call of ``fn`` (a plain path, seconds long: no
+    warm-up, nothing to compile)."""
+    return once(fn)[1]
+
+
+def backward_ms(forward):
+    """Host-clock ms of one ``forward().backward()``'s backward."""
+    loss = forward()
+    return once(loss.backward)[1]
 
 
 def profile(fn, runs=10):
@@ -678,11 +766,11 @@ def phase_flagship_fwd(scene, cam, dev, readings):
         + " ".join(f"{k}={v}" for k, v in zip(names, hist) if v))
 
 
-def flagship_rays(scene, cam, cfg, dev):
-    """The flagship's environment and initial ray state, as render_image
-    builds them, with (SIZE, SIZE) batch shape."""
-    ys, xs = pixel_grid(SIZE, SIZE, device=dev)
-    o, d = generate_rays(cam, SIZE, SIZE, ys, xs)
+def flagship_rays(scene, cam, cfg, dev, size=SIZE):
+    """A frame's environment and initial ray state, as render_image builds
+    them, with (size, size) batch shape (the flagship's SIZE)."""
+    ys, xs = pixel_grid(size, size, device=dev)
+    o, d = generate_rays(cam, size, size, ys, xs)
     fenv = scene_env(scene, cfg, cam)
     return fenv, initial_state(fenv, o, d)
 
@@ -1039,12 +1127,12 @@ def phase_times(scene, cam, dev, name_limit, readings):
     bwd = no_grad(lambda: cuda_kernel.rk4_bwd(scal, ck, flat.E, g, g,
                                               icfg.n_steps, seg, 1.5))
     ms["rk4_bwd call"] = timed(bwd)
-    ms["plain integrator, forward"] = timed(no_grad(
+    ms["plain integrator, forward"] = once_ms(no_grad(
         lambda: cuda_kernel.integrate_plain(fenv, s0, icfg)))
-    ms["forward render (plain)"] = timed(no_grad(
+    ms["forward render (plain)"] = once_ms(no_grad(
         lambda: P.render_image(scene, cam, cfg_plain)))
-    ms["forward+backward step (plain)"] = timed(
-        lambda: render_grads(scene, cam, cfg_plain), runs=3)
+    ms["forward+backward step (plain)"] = once_ms(
+        lambda: render_grads(scene, cam, cfg_plain))
 
     # the plain versions of rk4_ckpt and rk4_bwd: the checkpointed plain
     # loop's forward under autograd, and its backward
@@ -1053,10 +1141,10 @@ def phase_times(scene, cam, dev, name_limit, readings):
         s = dataclasses.replace(flat, x=x)
         return cuda_kernel.integrate_plain(fenv, s, icfg).x.sum()
 
-    ms["plain checkpointed loop, forward (rk4_ckpt's plain)"] = timed(
-        plain_forward, runs=3)
+    ms["plain checkpointed loop, forward (rk4_ckpt's plain)"] = once_ms(
+        plain_forward)
     ms["plain checkpointed loop, backward (rk4_bwd's plain)"] = \
-        timed_backward(plain_forward, runs=3)
+        backward_ms(plain_forward)
     for what, v in ms.items():
         log(f"# phase 7: {what} {SIZE}x{SIZE}: median {v:.3f} ms, "
             f"{rays_n / (v * 1e-3):.4e} rays/s [{name_limit}]")
@@ -1578,6 +1666,8 @@ def texel_flips(scene, a, end_a, b, end_b):
     in the final state ``a`` (end direction ``end_a``) than in ``b``."""
     def cells(s, end):
         sky = texel_cell(scene.background, *equirect_uv(end))
+        if scene.disk is None:
+            return sky
         disk = texel_cell(scene.disk.texture, *disk_uv(scene.disk, s.x))
         on_disk = s.status == states.DISK
         return [torch.where(on_disk, d, k) for d, k in zip(disk, sky)]
@@ -1788,16 +1878,15 @@ def phase_events_times(dev, name_limit, readings, spin=None):
         f"{names['fwd']} call": timed(fwd),
         f"{names['ckpt']} call": timed(ckpt),
         f"{names['bwd']} call": timed(bwd),
-        f"{label} plain integrator, forward": timed(no_grad(
-            lambda: cuda_kernel.integrate_plain(fenv, s0, icfg)), runs=5),
-        f"{label} forward render (plain)": timed(no_grad(
-            lambda: P.render_image(scene, cam, cfg_plain)), runs=3),
-        f"{label} forward+backward step (plain)": timed(
-            lambda: render_grads(scene, cam, cfg_plain), runs=2),
-        f"{label} plain checkpointed loop, forward": timed(plain_forward,
-                                                           runs=2),
-        f"{label} plain checkpointed loop, backward": timed_backward(
-            plain_forward, runs=2),
+        f"{label} plain integrator, forward": once_ms(no_grad(
+            lambda: cuda_kernel.integrate_plain(fenv, s0, icfg))),
+        f"{label} forward render (plain)": once_ms(no_grad(
+            lambda: P.render_image(scene, cam, cfg_plain))),
+        f"{label} forward+backward step (plain)": once_ms(
+            lambda: render_grads(scene, cam, cfg_plain)),
+        f"{label} plain checkpointed loop, forward": once_ms(plain_forward),
+        f"{label} plain checkpointed loop, backward": backward_ms(
+            plain_forward),
     }
     tag = "phase 12" if spin is None else "phase 17"
     for what, v in ms.items():
@@ -2239,17 +2328,15 @@ def phase_kerr_integrator(dev, name_limit, readings):
 
     ms = {"forward (kernel)": timed(lambda: forward("auto")),
           "forward+gradient (kernels)": timed(lambda: gradient("auto")),
-          "forward (plain)": timed(lambda: forward("torch"), runs=3),
-          "forward+gradient (plain)": timed(lambda: gradient("torch"),
-                                            runs=1),
+          "forward (plain)": once_ms(lambda: forward("torch")),
+          "forward+gradient (plain)": once_ms(lambda: gradient("torch")),
           "rk4_fwd_kerr call": timed(fwd),
           "rk4_ckpt_kerr call": timed(ckpt),
           "rk4_bwd_kerr call": timed(bwd),
-          "plain integrator, forward": timed(no_grad(
-              lambda: cuda_kernel.integrate_plain(env, s0, cfg)), runs=3),
-          "plain checkpointed loop, forward": timed(plain_forward, runs=1),
-          "plain checkpointed loop, backward": timed_backward(plain_forward,
-                                                              runs=1)}
+          "plain integrator, forward": once_ms(no_grad(
+              lambda: cuda_kernel.integrate_plain(env, s0, cfg))),
+          "plain checkpointed loop, forward": once_ms(plain_forward),
+          "plain checkpointed loop, backward": backward_ms(plain_forward)}
     for k, v in ms.items():
         log(f"# phase 18: Kerr integrator {k} {n} rays: median "
             f"{v:.3f} ms, {n / (v * 1e-3):.4e} rays/s [{name_limit}]")
@@ -2265,6 +2352,783 @@ def phase_kerr_integrator(dev, name_limit, readings):
         readings[name].update(ms=ms[f"{name} call"], device_ms=dev_ms[name],
                               plain_ms=ms[plain])
     readings["kerr_integrator"] = {k: ms[k] for k in list(ms)[:4]}
+
+
+# =============================================================================
+# Adaptive Dormand-Prince: dopri_fwd (K4), dopri_ckpt (K5), dopri_bwd (K6).
+# =============================================================================
+def adaptive_cfg(n_steps=2000, max_step=8.0, backend="auto"):
+    """bench.py's bench_adaptive configuration (:528-531): Dormand-Prince,
+    rtol 1e-5, atol 1e-8, first step 0.05, at most n_steps trips."""
+    return P.IntegratorConfig(n_steps=n_steps, dt=0.05, method="dopri",
+                              rtol=1e-5, atol=1e-8, max_step=max_step,
+                              backend=backend)
+
+
+def angle(env, a, b):
+    """Per ray, the angle between the final directions of the states a and
+    b, as 2 asin(|a - b| / 2) in float64."""
+    chord = (final_direction(env, a) - final_direction(env, b)).norm(dim=-1)
+    return 2.0 * torch.asin((0.5 * chord.double()).clamp(max=1.0))
+
+
+def masked_max(t, m) -> float:
+    return float(t[m].max()) if bool(m.any()) else 0.0
+
+
+def compare_adaptive(env, s0, a, b, what, max_step):
+    """Kernel state ``a`` against the plain trip loop's ``b`` from ``s0``
+    (see DOPRI_AGREE): the reference's invariants on every ray (sky
+    directions away from b_c), and, away from b_c, the rays that took the
+    same trips (lam within TOL_X) to TOL_DIR on the sky, and event points
+    within DOPRI_EVENT_X.  Returns (error, rays away from b_c that took
+    other trips)."""
+    same = (a.status == b.status) & (a.hit_obj == b.hit_obj)
+    agree = float(same.float().mean())
+    dlam = (a.lam - b.lam).abs()
+    ang = angle(env, a, b)
+    sky = (b.status == states.ESCAPED) | (b.status == states.BUDGET)
+    ev = (b.status == states.DISK) | (b.status == states.OBJECT)
+    near = near_b_c(env, s0)
+    away = same & ~near
+    trips = away & (dlam <= TOL_X)
+    n_apart = int((away & ~trips).sum())
+    share = n_apart / max(int(away.sum()), 1)
+    dl = masked_max(dlam, same)
+    ang_sky = masked_max(ang, away & sky)
+    ang_near = masked_max(ang, same & near & sky)
+    ang_t = masked_max(ang, trips & sky)
+    dx_ev = masked_max((a.x - b.x).abs().amax(-1), same & ~near & ev)
+    hist = torch.bincount(b.status.reshape(-1).long(), minlength=8).tolist()
+    log(f"# dopri [{what}] n={same.numel()} statuses and hit ids equal on "
+        f"{agree:.6f}; max|dlam| {dl:.3e} (limit {max_step:g}); sky "
+        f"directions {ang_sky:.3e} rad away from b_c, {ang_near:.3e} near "
+        f"it; {n_apart} rays away from b_c ({share:.4f}) took other trips; "
+        f"the others: sky {ang_t:.3e} rad; event points {dx_ev:.3e}; "
+        f"CAPTURED {hist[1]} ESCAPED {hist[2]} BUDGET {hist[3]} DISK "
+        f"{hist[4]} OBJECT {hist[5]}")
+    if not (agree >= DOPRI_AGREE and dl <= max_step + 1e-3
+            and ang_sky < DOPRI_ANGLE and ang_t <= TOL_DIR
+            and dx_ev <= DOPRI_EVENT_X and share <= DOPRI_APART):
+        raise AssertionError(
+            f"{what}: outside the Dormand-Prince invariants (statuses "
+            f"{DOPRI_AGREE}, lam {max_step:g}, sky {DOPRI_ANGLE:g} rad, "
+            f"event points {DOPRI_EVENT_X:g}; same trips {TOL_DIR:g} rad; "
+            f"other trips {DOPRI_APART})")
+    return max(ang_t, dx_ev), n_apart
+
+
+def dopri_batches(dev):
+    """(label, environment, initial state) of the Dormand-Prince fans: the
+    65,536-ray camera fan around a Schwarzschild hole and around a = 0.45
+    (the band around the critical impact parameter left out), and the
+    events fan over the disk and the moons of bench.py's events scene
+    around each."""
+    env, kenv = fan_env(dev), kerr_env(0.45, dev)
+    out = [(f"fan {FAN}", env, initial_state(env, *camera_fan(FAN, dev))),
+           (f"Kerr a=0.45 fan {FAN}", kenv,
+            initial_state(kenv, *camera_fan(FAN, dev, kerr_gap(kenv))))]
+    for tag, e in (("", env), ("Kerr a=0.45 ", kenv)):
+        ee = with_events(e)
+        out.append((f"{tag}events fan {FAN}", ee,
+                    initial_state(ee, *events_fan(FAN, dev))))
+    return out
+
+
+def dopri_name(kind, env):
+    return cuda_kernel.variant(f"dopri_{kind}", env.spin is not None,
+                               env.disk is not None or env.spheres is not None)
+
+
+def phase_dopri_fwd(dev, readings):
+    """dopri_fwd against integrate_adaptive on the card (bench.py's
+    adaptive configuration), and bench.py's dopri parity rows."""
+    cfg = adaptive_cfg()
+    for what, e, s0 in dopri_batches(dev):
+        with torch.no_grad():
+            sk = cuda_kernel.integrate_cuda(e, s0, cfg)
+            sp, _ = cuda_kernel.integrate_adaptive(e, s0, cfg)
+        got = phase(f"phase 20 ({what})", compare_adaptive, e, s0, sk, sp,
+                    what, cfg.max_step)
+        if got is not None:
+            r = readings[dopri_name("fwd", e)]
+            r.update(max_abs_err=max(r.get("max_abs_err", 0.0), got[0]),
+                     other_trips=r.get("other_trips", 0) + got[1])
+    # bench.py's run_dopri (:253-308): its 4,096-ray fan, 1000 trips,
+    # max_step 4, with and without the disk and two spheres; statuses on
+    # >= 99.8% and escaped directions within 2e-3 rad
+    x0, d0 = camera_fan(4096, dev)
+    for events in (False, True):
+        e = fan_env(dev)
+        if events:
+            e = with_events(e, [[7.0, 0.0, 0.0], [-5.0, -5.0, 1.0]],
+                            [1.0, 0.8])
+        cfg = adaptive_cfg(1000, 4.0)
+        s0 = initial_state(e, x0, d0)
+        with torch.no_grad():
+            sk = cuda_kernel.integrate_cuda(e, s0, cfg)
+            sp, _ = cuda_kernel.integrate_adaptive(e, s0, cfg)
+        agree = sk.status == sp.status
+        esc = agree & (sp.status == states.ESCAPED)
+        derr = masked_max(angle(e, sk, sp), esc)
+        frac = float(agree.float().mean())
+        row = "dopri-events" if events else "dopri"
+        log(f"# phase 20: bench.py dopri parity [{row}] statuses={frac:.4f} "
+            f"escape_dir_err={derr:.3e}")
+        check(frac >= DOPRI_AGREE and derr < DOPRI_ANGLE,
+              f"bench.py dopri parity row (events={events}) failed")
+    log("# phase 20: dopri_fwd agrees with the plain trip loop on the card")
+
+
+def dopri_args(env, cfg, s0):
+    """(scal, x, p, E, h, lam, status, n_steps, controller) and the event
+    keywords of the dopri wrappers for the flat state ``s0``."""
+    h = torch.full_like(s0.E, dopri_h0(cfg))
+    return ((cuda_kernel._scalars(env, cfg, s0.x.device), s0.x, s0.p, s0.E,
+             h, s0.lam, s0.status, cfg.n_steps), cuda_kernel.controller(cfg),
+            event_kw(env, s0))
+
+
+def phase_dopri_ckpt(dev, readings):
+    """dopri_ckpt's final state against dopri_fwd's, bit for bit, and its
+    checkpoint rows against the plain trip loop's states and h at the same
+    trips: the Dormand-Prince fans at bench.py's gradient row's 600 trips;
+    and bit for bit alone on the rays of the two Einstein rings."""
+    cfg = adaptive_cfg(600)
+    cases = [(what, e, cfg, flat_state(s0), True)
+             for what, e, s0 in dopri_batches(dev)]
+    for spin in (None, 0.45):
+        scene, cam, rcfg = ring_scene(dev, spin)
+        fenv, s0 = flagship_rays(scene, cam, rcfg, dev, RING)
+        cases.append((f"{RING}x{RING} " + ("" if spin is None else "Kerr ")
+                      + "Einstein ring", fenv, rcfg.integrator,
+                      flat_state(s0), False))
+    bitwise, errs = {}, {}
+    for what, e, c, s0, with_rows in cases:
+        args, ctl, kw = dopri_args(e, c, s0)
+        seg = cuda_kernel.segment(c.n_steps)
+        with torch.no_grad():
+            fwd = cuda_kernel.dopri_fwd(*args, ctl, **kw)
+            *fin, ck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(fwd, fin))
+        name = dopri_name("ckpt", e)
+        bitwise[name] = bitwise.get(name, True) and same
+        check(same, f"{what}: dopri_ckpt's final state differs from "
+              "dopri_fwd's")
+        msg = ""
+        if with_rows:
+            with torch.no_grad():
+                _, rows, hs = cuda_kernel.integrate_adaptive_ckpt_plain(
+                    e, s0, c, seg)
+            near = near_b_c(e, s0)
+            worst_st, worst_dx, worst_dh, fewest = 1.0, 0.0, 0.0, 1.0
+            for k, (row, h) in enumerate(zip(rows, hs)):
+                cx, cp, ch, clam, cst = (t[k] for t in ck)
+                worst_st = min(worst_st,
+                               float((cst == row.status).float().mean()))
+                keep = ((clam - row.lam).abs() <= TOL_X) & ~near
+                fewest = min(fewest, float(keep.float().mean()))
+                worst_dx = max(worst_dx, masked_max(
+                    (cx - row.x).abs().amax(-1), keep))
+                worst_dh = max(worst_dh, masked_max((ch - h).abs() / h, keep))
+            msg = (f"; {len(rows)} checkpoint rows of seg {seg}: statuses "
+                   f"equal on >= {worst_st:.6f}; away from b_c >= "
+                   f"{fewest:.4f} of the rays on the same trips (lam), their "
+                   f"max|dx| {worst_dx:.3e}, h relative {worst_dh:.3e}")
+            check(worst_st >= DOPRI_AGREE and worst_dx <= DOPRI_EVENT_X
+                  and fewest >= 1.0 - DOPRI_APART,
+                  f"{what}: dopri_ckpt's checkpoint rows outside "
+                  f"({DOPRI_AGREE}, {DOPRI_EVENT_X:g}, {DOPRI_APART})")
+            errs[name] = max(errs.get(name, 0.0), worst_dx)
+        log(f"# phase 21: [{what}] dopri_ckpt "
+            + ("equals dopri_fwd bit for bit" if same else "DIFFERS") + msg)
+    for name, same in bitwise.items():
+        readings[name].update(equals_dopri_fwd=same,
+                              max_abs_err=errs.get(name, 0.0))
+
+
+def weak_env(dev, spin=None, events=False):
+    """The environments of tests/test_pallas.py's dopri gradient tests
+    (:241-287, :324-353): r_escape 60, lam_max 70, capture at r = 1 (Kerr:
+    at r_+), with the disk r_in 5, r_out 9 and a sphere of radius 1.5 at
+    (6.5, 0, 10)."""
+    f = lambda v: torch.tensor(v, device=dev)  # noqa: E731
+    e = GeodesicEnv(mass=f(0.5), r_capture=f(1.0), r_escape=f(60.0),
+                    lam_max=f(70.0))
+    if spin is not None:
+        e.spin = f(spin)
+        e.r_capture = horizon_radius(e.mass, e.spin)
+    if events:
+        e.disk = DiskGeom(r_in=f(5.0), r_out=f(9.0))
+        e.spheres = SphereGeom(center=f([[6.5, 0.0, 10.0]]), radius=f([1.5]))
+    return e
+
+
+def weak_fan(n, dev, seed=3):
+    """The weak-field fan of those tests: b in [6.5, 12] at z = 25,
+    direction -z, and weights for the loss."""
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(6.5, 12.0, n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    x0 = np.stack([b * np.cos(ang), b * np.sin(ang), np.full(n, 25.0)], -1)
+    d0 = np.tile([0.0, 0.0, -1.0], (n, 1))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    return f(x0), f(d0), f(rng.normal(size=(n, 3)))
+
+
+def observable_loss(env, s, w):
+    """The reference's loss (tests/test_pallas.py:262-275): weighted event
+    points, and weighted final directions of the rays that end on the sky
+    or are still ACTIVE."""
+    ev = ((s.status == states.DISK) | (s.status == states.OBJECT))[..., None]
+    sky = ((s.status != states.CAPTURED) & (s.status != states.ERROR)
+           )[..., None] & ~ev
+    return (torch.where(sky, w * final_direction(env, s), 0.0)
+            + torch.where(ev, w * s.x, 0.0)).sum()
+
+
+def phase_dopri_bwd(dev, readings):
+    """dopri_bwd against autograd of integrate_adaptive_scan on the card:
+    the weak-field fans of the reference, Schwarzschild and Kerr, with and
+    without the disk and the sphere, at 96 or 80 trips (every ray ends) and
+    at 20 (every ray still ACTIVE); per-ray cotangents of the rays that
+    took the same trips, the mass, spin and sphere cotangents; two runs
+    give the same bits."""
+    x0, d0, w = weak_fan(FAN, dev)
+    cases = [(None, False, 96), (None, True, 96), (None, True, 20),
+             (0.45, False, 80), (0.45, True, 80), (0.45, False, 20)]
+    err = {}
+    for spin, events, n in cases:
+        e = weak_env(dev, spin, events)
+        what = (f"weak fan {FAN}" + (f", Kerr a={spin:g}" if spin else "")
+                + (", disk and sphere" if events else "") + f", {n} trips")
+        cfg = adaptive_cfg(n, 4.0)
+        s0 = initial_state(e, x0, d0)
+        loss = lambda s, e=e: observable_loss(e, s, w)  # noqa: E731
+        out_k, gk = kerr_grads(e, s0, cfg, loss, True) if spin else \
+            event_or_plain_grads(e, s0, cfg, loss, True)
+        out_p, gp = kerr_grads(e, s0, cfg, loss, False) if spin else \
+            event_or_plain_grads(e, s0, cfg, loss, False)
+        same = ((out_k.status == out_p.status)
+                & ((out_k.lam - out_p.lam).abs() <= TOL_X))
+        ev = (out_p.status == states.DISK) | (out_p.status == states.OBJECT)
+        sky = same & ~ev
+        rr = [ray_rel(a, b) for a, b in zip(gk[:3], gp[:3])]
+        med = [float(r[sky].median()) for r in rr]
+        q90 = [float(r[sky].quantile(0.9)) for r in rr]
+        errs = [rel_err(a[sky], b[sky]) for a, b in zip(gk[:3], gp[:3])]
+        ev_errs = [rel_err(a[same & ev], b[same & ev]) if bool(ev.any())
+                   else 0.0 for a, b in zip(gk[:3], gp[:3])]
+        scalars = [rel_err(a, b) for a, b in zip(gk[3:], gp[3:])
+                   if a is not None]
+        active = int((out_p.status == states.ACTIVE).sum())
+        log(f"# grad [{what}: {int(sky.sum())} sky or ACTIVE rays and "
+            f"{int((same & ev).sum())} event rays on the same trips, "
+            f"{active} ACTIVE at the end] per ray |d| / |plain|, median "
+            f"(90th percentile): x {med[0]:.3e} ({q90[0]:.3e}) p "
+            f"{med[1]:.3e} ({q90[1]:.3e}) E {med[2]:.3e} ({q90[2]:.3e}); "
+            f"max |d| / max |plain| x {errs[0]:.3e} p {errs[1]:.3e} E "
+            f"{errs[2]:.3e}, event rays x {ev_errs[0]:.3e} p "
+            f"{ev_errs[1]:.3e} E {ev_errs[2]:.3e} (readings); mass"
+            + (", spin" if spin else "") + (", spheres" if events else "")
+            + " " + " ".join(f"{v:.3e}" for v in scalars)
+            + f" (mass {float(gk[3]):.7g} vs {float(gp[3]):.7g})")
+        check(max(med[:2]) <= TOL_DOPRI_GRAD
+              and max(scalars) <= TOL_DOPRI_GRAD_SCALAR,
+              f"{what}: cotangents outside {TOL_DOPRI_GRAD:g} (median; "
+              f"scalars {TOL_DOPRI_GRAD_SCALAR:g})")
+        name = dopri_name("bwd", e)
+        err[name] = max(err.get(name, 0.0), *med[:2], *scalars)
+    for name, v in err.items():
+        readings[name]["max_abs_err"] = v
+    # two runs of dopri_bwd give the same bits
+    e = weak_env(dev, 0.45, True)
+    s0 = flat_state(initial_state(e, x0, d0))
+    cfg = adaptive_cfg(96, 4.0)
+    args, ctl, kw = dopri_args(e, cfg, s0)
+    del kw["obj"]
+    seg = cuda_kernel.segment(cfg.n_steps)
+    with torch.no_grad():
+        ck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)[-1]
+        runs = [cuda_kernel.dopri_bwd(args[0], ck, s0.E, w, w, cfg.n_steps,
+                                      seg, ctl, **kw) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log("# determinism: two runs of dopri_bwd's Kerr event variant give "
+        + ("bitwise-equal" if same else "DIFFERENT") + " outputs")
+    check(same, "dopri_bwd is not deterministic")
+    log("# phase 22: dopri_bwd agrees with autograd of the plain trip loop")
+
+
+def ray_rel(a, b):
+    """Per ray, |a - b| / |b| over the last axis, |b| floored at 1e-3 of
+    the largest (rays whose cotangent is nearly 0 do not divide by it)."""
+    nb = b.norm(dim=-1) if b.dim() > 1 else b.abs()
+    d = (a - b).norm(dim=-1) if b.dim() > 1 else (a - b).abs()
+    return d / (nb + 1e-3 * nb.max())
+
+
+def event_or_plain_grads(env, s0, cfg, loss_fn, kernel):
+    """integrator_grads, with the (K, 4) sphere cotangent when ``env`` has
+    spheres (event_grads); the mass's as entry 3 either way."""
+    if env.spheres is not None:
+        return event_grads(env, s0, cfg, loss_fn, kernel)
+    return integrator_grads(env, s0, cfg, loss_fn, kernel)
+
+
+def ring_scene(dev, spin=None):
+    """BASELINE config 2 (tests/test_golden_baseline.py:65-91) at RING^2:
+    the 64x128 sky, a pure-green moon of radius 1 at (0, 0, -12) behind a
+    hole of mass 0.5 (and spin ``spin``), camera (0, 0, 20), fov 0.9,
+    Dormand-Prince n_steps 2000, dt 0.5, rtol 1e-5, atol 1e-8, max_step 2,
+    lam_max 120."""
+    moon = np.zeros((1, 8, 16, 3), np.float32)
+    moon[..., 1] = 1.0
+    scene = P.Scene(
+        bh=P.BlackHole.make(mass=0.5, spin=spin, device=dev),
+        background=torch.as_tensor(make_sky(64, 128, check=8),
+                                   dtype=torch.float32, device=dev),
+        spheres=P.Spheres.make(center=[[0.0, 0.0, -12.0]], radius=[1.0],
+                               texture=moon, device=dev))
+    cam = P.Camera.make(position=(0.0, 0.0, 20.0), fov=(0.9, 0.9),
+                        device=dev)
+    cfg = P.RenderConfig(width=RING, height=RING, samples=1, lam_max=120.0,
+                         integrator=P.IntegratorConfig(
+                             n_steps=2000, dt=0.5, method="dopri", rtol=1e-5,
+                             atol=1e-8, max_step=2.0))
+    return scene, cam, cfg
+
+
+def plain(cfg):
+    """``cfg`` on the plain PyTorch path."""
+    return dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch"))
+
+
+def ring_grads(scene0, cam0, cfg, mask=None, timing=None):
+    """d mean(img[..., :3]^2) / d (mass, camera position, sky, the moon's
+    centre and radius (4,), and the spin for a Kerr hole); ``mask`` (H, W)
+    weights the pixels; ``timing`` (a dict) gets the ms of the forward and
+    of the backward."""
+    leaf = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
+    bh, sph = scene0.bh, scene0.spheres
+    scene = dataclasses.replace(
+        scene0, background=leaf(scene0.background),
+        bh=dataclasses.replace(bh, mass=leaf(bh.mass),
+                               spin=None if bh.spin is None
+                               else leaf(bh.spin)),
+        spheres=dataclasses.replace(sph, center=leaf(sph.center),
+                                    radius=leaf(sph.radius)))
+    cam = dataclasses.replace(cam0, position=leaf(cam0.position))
+    img, t_fwd = once(lambda: P.render_image(scene, cam, cfg))
+    sq = img[..., :3].pow(2)
+    if mask is not None:
+        sq = sq * mask[..., None]
+    _, t_bwd = once(sq.mean().backward)
+    if timing is not None:
+        timing.update(fwd=t_fwd, bwd=t_bwd)
+    out = (scene.bh.mass.grad, cam.position.grad, scene.background.grad,
+           torch.cat([scene.spheres.center.grad[0],
+                      scene.spheres.radius.grad[:1]]))
+    return out if bh.spin is None else out + (scene.bh.spin.grad,)
+
+
+RING_PARTS = ("mass", "camera", "sky", "moon", "spin")
+
+
+def compare_ring_grads(gk, gp, what, tol, held=RING_PARTS):
+    """The ring's gradients, kernel path against plain path: each part's
+    max |d| / max |plain|; those in ``held`` within ``tol``."""
+    errs = dict(zip(RING_PARTS, (rel_err(a, b) for a, b in zip(gk, gp))))
+    log(f"# grad [{what}] " + "; ".join(
+        f"{k} {errs[k]:.3e}" for k in errs)
+        + f" (mass {float(gk[0]):.7g} vs {float(gp[0]):.7g}; moon "
+        f"{gk[3].tolist()} vs {gp[3].tolist()})")
+    bad = [k for k in errs if k in held and errs[k] > tol]
+    check(not bad, f"{what}: {bad} outside {tol:g}")
+    return errs
+
+
+def pool4(img):
+    h, w, c = img.shape
+    return img.reshape(h // 4, 4, w // 4, 4, c).mean((1, 3))
+
+
+def phase_dopri_ring(dev, name_limit, readings, spin=None):
+    """BASELINE config 2, the RING^2 Einstein ring (with ``spin``, around a
+    Kerr hole of a = spin): the forward render through dopri_fwd's event
+    variant alone, held to the golden einstein_ring_512 and its physics
+    oracles (Schwarzschild) and to the plain render, its final states to
+    the plain trip loop's; the gradient of mean(img^2) to the mass, the
+    camera, the sky and the moon's centre and radius (and the spin)
+    through dopri_ckpt and dopri_bwd alone, held to the plain path: the
+    sky whole, and (Schwarzschild) the mass, camera and moon on the calm
+    pixels; times."""
+    tag = "Einstein ring" if spin is None else f"Kerr a={spin:g} Einstein ring"
+    tag = f"{RING}x{RING} {tag}"
+    suffix = "_events" if spin is None else "_kerr_events"
+    fwd_k, ckpt_k, bwd_k = (f"dopri_{k}{suffix}" for k in ("fwd", "ckpt",
+                                                            "bwd"))
+    scene, cam, cfg = ring_scene(dev, spin)
+    reset_counts()
+    with torch.no_grad():
+        img, t_fwd = once(lambda: P.render_image(scene, cam, cfg))
+    launches = read_counts()
+    readings[fwd_k]["launches"] = launches.get(fwd_k, 0)
+    check(launches == only(**{fwd_k: 1}),
+          f"{tag} render launched {launches}, expected {fwd_k} once")
+    if img.shape != (RING, RING, 4) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{tag} image is not a finite {RING}^2 x 4")
+    with torch.no_grad():
+        img_plain, t_fwd_plain = once(
+            lambda: P.render_image(scene, cam, plain(cfg)))
+    image_rule(img, img_plain, f"{tag}, kernel vs plain", GOLDEN_MEAN,
+               GOLDEN_FRAC)
+    if spin is None:
+        # tests/test_golden_baseline.py:78-91: the golden (4x mean-pooled,
+        # float16) and the physics oracles
+        ref = np.load(ROOT / "tests" / "golden" / "einstein_ring_512.npz")[
+            "img"].astype(np.float32)
+        small = pool4(img.cpu().numpy()).astype(np.float16).astype(np.float32)
+        diff = np.abs(small - ref)
+        c, q = RING // 2, RING / 512   # the oracles' pixels at 512^2
+        oracles = (bool((img[c, c, :3] < 0.02).all()),
+                   float(img[c, c + int(100 * q):c + int(180 * q), 1].max())
+                   > 0.5, float(img[c, c + int(30 * q), 1]) < 0.3)
+        log(f"# golden [einstein_ring_512, kernel] mean drift "
+            f"{diff.mean():.3e} (limit 1e-3), {(diff > 0.05).mean():.3e} of "
+            f"cells moved > 0.05 (limit 0.005); shadow black, ring green, "
+            f"interior dark: {oracles}")
+        check(diff.mean() < 1e-3 and (diff > 0.05).mean() < 0.005
+              and all(oracles), f"{tag}: golden or oracles failed")
+    fenv, s0 = flagship_rays(scene, cam, cfg, dev, RING)
+    icfg = cfg.integrator
+    with torch.no_grad():
+        sk = cuda_kernel.integrate_cuda(fenv, s0, icfg)
+        sp, _ = cuda_kernel.integrate_adaptive(fenv, s0, icfg)
+    got = phase(f"{tag} final states", compare_adaptive, fenv, s0, sk, sp,
+                tag, icfg.max_step)
+    if got is not None:
+        r = readings[fwd_k]
+        r.update(max_abs_err=max(r.get("max_abs_err", 0.0), got[0]),
+                 other_trips=r.get("other_trips", 0) + got[1])
+
+    # forward+backward through dopri_ckpt and dopri_bwd
+    reset_counts()
+    gk, t_step = once(lambda: ring_grads(scene, cam, cfg))
+    launches = read_counts()
+    for name in (ckpt_k, bwd_k):
+        readings[name]["launches"] = launches.get(name, 0)
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1}),
+          f"{tag} forward+backward launched {launches}, expected {ckpt_k} "
+          f"and {bwd_k} once each")
+    for g in gk:
+        check(bool(torch.isfinite(g).all()), f"{tag} gradient not finite")
+    timing = {}
+    gp, t_step_plain = once(lambda: ring_grads(scene, cam, plain(cfg),
+                                               timing=timing))
+    errs = compare_ring_grads(gk, gp, f"{tag}, kernel vs plain (the sky "
+                              "held, the rest a reading)", TOL_EVENTS_GRAD,
+                              held=("sky",))
+    held = [errs["sky"]]
+    if spin is None:
+        # the calm pixels: away from b_c, the sky's pole, the silhouettes
+        # of the shadow and the moon, texel flips and rays whose trips
+        # differ between the two paths
+        end = final_direction(fenv, sp)
+        rho = end[..., :2].norm(dim=-1)
+        flips = texel_flips(scene, sk, final_direction(fenv, sk), sp, end)
+        parts = {"near b_c": near_b_c(fenv, s0), "near the pole":
+                 rho < POLE_RHO,
+                 "silhouettes": silhouettes(sp.status, sp.hit_obj),
+                 "other trips": (sk.lam - sp.lam).abs() > TOL_X,
+                 "texel flips": flips}
+        calm = torch.ones_like(rho, dtype=torch.bool)
+        for name, m in parts.items():
+            calm &= ~m
+            log(f"# grad [{tag}] {int(m.sum())} pixels {name}")
+        mk = calm.float()
+        calm_errs = compare_ring_grads(
+            ring_grads(scene, cam, cfg, mk), ring_grads(scene, cam,
+                                                        plain(cfg), mk),
+            f"{tag}, {int(calm.sum())} calm pixels, kernel vs plain",
+            TOL_CALM_GRAD)
+        held += list(calm_errs.values())
+    readings[bwd_k]["render_grad_err"] = max(held)
+
+    # times: the kernels on the frame's rays, against their plain versions
+    flat = flat_state(s0)
+    args, ctl, kw = dopri_args(fenv, icfg, flat)
+    seg = cuda_kernel.segment(icfg.n_steps)
+    fwd = no_grad(lambda: cuda_kernel.dopri_fwd(*args, ctl, **kw))
+    ckpt = no_grad(lambda: cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw))
+    ck = ckpt()[-1]
+    bkw = dict(kw)
+    del bkw["obj"]
+    g = torch.ones_like(flat.x)
+    bwd = no_grad(lambda: cuda_kernel.dopri_bwd(args[0], ck, flat.E, g, g,
+                                                icfg.n_steps, seg, ctl,
+                                                **bkw))
+    if spin is not None:
+        runs = [bwd() for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"# determinism: two runs of {bwd_k} on the {tag} rays give "
+            + ("bitwise-equal" if same else "DIFFERENT") + " outputs")
+        check(same, f"{bwd_k} is not deterministic")
+    _, t_plain_int = once(no_grad(
+        lambda: cuda_kernel.integrate_adaptive(fenv, s0, icfg)))
+    ms = {"forward render (kernel)": t_fwd,
+          "forward render (plain)": t_fwd_plain,
+          "forward+backward step (kernels)": timed(
+              lambda: ring_grads(scene, cam, cfg), runs=3),
+          "forward+backward step (plain)": t_step_plain,
+          f"{fwd_k} call": timed(fwd, runs=5),
+          f"{ckpt_k} call": timed(ckpt, runs=5),
+          f"{bwd_k} call": timed(bwd, runs=5),
+          "plain trip loop, forward": t_plain_int,
+          # the plain step's forward and backward: the checkpointed trip
+          # loop, with the camera and the shading (a few ms of seconds)
+          "plain checkpointed trip loop, forward": timing["fwd"],
+          "plain checkpointed trip loop, backward": timing["bwd"]}
+    dev_ms = {k: device_ms(f, runs=5) for k, f in ((fwd_k, fwd),
+                                                    (ckpt_k, ckpt),
+                                                    (bwd_k, bwd))}
+    for what, v in ms.items():
+        log(f"# {tag}: {what}: {v:.3f} ms, "
+            f"{RING * RING / (v * 1e-3):.4e} rays/s [{name_limit}]")
+    log(f"# {tag}: device time (CUDA events, median of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items())
+        + f" [{name_limit}]")
+    for name, p in ((fwd_k, "plain trip loop, forward"),
+                    (ckpt_k, "plain checkpointed trip loop, forward"),
+                    (bwd_k, "plain checkpointed trip loop, backward")):
+        readings[name].update(ms=ms[f"{name} call"], device_ms=dev_ms[name],
+                              plain_ms=ms[p])
+    readings[f"ring{suffix}"] = {
+        "fwd_ms": t_fwd, "fwd_bwd_ms": ms["forward+backward step (kernels)"],
+        "fwd_bwd_plain_ms": t_step_plain}
+
+
+def phase_dopri_adaptive(dev, name_limit, readings, spin=None):
+    """bench.py's bench_adaptive rows (:511-608) at ADAPTIVE_RAYS rays of
+    its camera fan (M = 0.5, r_capture 1, r_escape 70, lam_max 100, rtol
+    1e-5, atol 1e-8, max_step 8), around a Schwarzschild hole or (``spin``)
+    a Kerr hole: the forward (2000 trips) through dopri_fwd alone, held to
+    the plain trip loop; the gradient of sum(x^2) 1e-6 to the mass (and the
+    spin) at 600 trips through dopri_ckpt and dopri_bwd alone, held to the
+    plain path within bench.py's 1e-2; dopri_ckpt = dopri_fwd bit for bit
+    on these rays; times."""
+    env = fan_env(dev)
+    if spin is not None:
+        env.spin = torch.tensor(spin, device=dev)
+    tag = "adaptive row" + ("" if spin is None else f", Kerr a={spin:g}")
+    tag = f"{tag} {ADAPTIVE_RAYS}"
+    suffix = "" if spin is None else "_kerr"
+    fwd_k, ckpt_k, bwd_k = (f"dopri_{k}{suffix}" for k in ("fwd", "ckpt",
+                                                            "bwd"))
+    x0, d0 = camera_fan(ADAPTIVE_RAYS, dev)
+    cfg_f, cfg_g = adaptive_cfg(2000), adaptive_cfg(600)
+
+    def forward(backend):
+        with torch.no_grad():
+            return P.launch(env, x0, d0, dataclasses.replace(
+                cfg_f, backend=backend))
+
+    def gradient(backend, timing=None):
+        leaf = lambda v: v.detach().clone().requires_grad_(True)  # noqa
+        e = dataclasses.replace(env, mass=leaf(env.mass),
+                                spin=None if spin is None else leaf(env.spin))
+        s, t_f = once(lambda: P.launch(e, x0, d0, dataclasses.replace(
+            cfg_g, backend=backend)))
+        _, t_b = once(((s.x ** 2).sum() * 1e-6).backward)
+        if timing is not None:
+            timing.update(fwd=t_f, bwd=t_b)
+        return (e.mass.grad,) + (() if spin is None else (e.spin.grad,))
+
+    reset_counts()
+    sk, t_fwd = once(lambda: forward("auto"))
+    launches = read_counts()
+    readings[fwd_k]["launches"] = launches.get(fwd_k, 0)
+    check(launches == only(**{fwd_k: 1}),
+          f"{tag} forward launched {launches}, expected {fwd_k} once")
+    reset_counts()
+    gk, t_grad = once(lambda: gradient("auto"))
+    launches = read_counts()
+    for name in (ckpt_k, bwd_k):
+        readings[name]["launches"] = launches.get(name, 0)
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1}),
+          f"{tag} gradient launched {launches}, expected {ckpt_k} and "
+          f"{bwd_k} once each")
+    sp, t_fwd_plain = once(lambda: forward("torch"))
+    timing = {}
+    gp, t_grad_plain = once(lambda: gradient("torch", timing))
+    s0 = initial_state(env, x0, d0)
+    got = phase(f"{tag} final states", compare_adaptive, env, s0, sk, sp,
+                tag, cfg_f.max_step)
+    if got is not None:
+        r = readings[fwd_k]
+        r.update(max_abs_err=max(r.get("max_abs_err", 0.0), got[0]),
+                 other_trips=r.get("other_trips", 0) + got[1])
+    rels = [abs(float(a) / float(b) - 1.0) for a, b in zip(gk, gp)]
+    log(f"# {tag}: d/dmass {float(gk[0]):.7g} vs plain {float(gp[0]):.7g} "
+        f"(rel {rels[0]:.3e}, limit {TOL_ADAPTIVE_GRAD:g})"
+        + ("" if spin is None else f"; d/dspin {float(gk[1]):.7g} vs "
+           f"{float(gp[1]):.7g} (rel {rels[1]:.3e})"))
+    check(rels[0] <= TOL_ADAPTIVE_GRAD
+          and max(rels[1:], default=0.0) <= TOL_DOPRI_GRAD_SCALAR,
+          f"{tag}: gradient outside {TOL_ADAPTIVE_GRAD:g} (spin "
+          f"{TOL_DOPRI_GRAD_SCALAR:g})")
+    r = readings[bwd_k]
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), *rels)
+
+    # times: each kernel on the fan's rays against its plain version
+    flat = flat_state(s0)
+    args_f, ctl, kw = dopri_args(env, cfg_f, flat)
+    args_g, _, _ = dopri_args(env, cfg_g, flat)
+    seg = cuda_kernel.segment(cfg_g.n_steps)
+    fwd = no_grad(lambda: cuda_kernel.dopri_fwd(*args_f, ctl, **kw))
+    ckpt = no_grad(lambda: cuda_kernel.dopri_ckpt(*args_g, seg, ctl, **kw))
+    with torch.no_grad():
+        ck_out = ckpt()
+        fin_f = cuda_kernel.dopri_fwd(*args_g, ctl, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(fin_f, ck_out[:5]))
+    check(same, f"{tag}: dopri_ckpt's final state differs from dopri_fwd's")
+    readings[ckpt_k]["equals_dopri_fwd"] = (
+        readings[ckpt_k].get("equals_dopri_fwd", True) and same)
+    g = torch.ones_like(flat.x)
+    bwd = no_grad(lambda: cuda_kernel.dopri_bwd(
+        args_g[0], ck_out[-1], flat.E, g, g, cfg_g.n_steps, seg, ctl,
+        kerr=spin is not None))
+    _, t_plain_int = once(no_grad(
+        lambda: cuda_kernel.integrate_adaptive(env, flat, cfg_f)))
+    ms = {"forward (kernel)": t_fwd, "forward (plain)": t_fwd_plain,
+          "forward+gradient (kernels)": timed(lambda: gradient("auto"),
+                                              runs=3),
+          "forward+gradient (plain)": t_grad_plain,
+          f"{fwd_k} call": timed(fwd, runs=5),
+          f"{ckpt_k} call": timed(ckpt, runs=5),
+          f"{bwd_k} call": timed(bwd, runs=5),
+          "plain trip loop, forward": t_plain_int,
+          "plain checkpointed trip loop, forward": timing["fwd"],
+          "plain checkpointed trip loop, backward": timing["bwd"]}
+    dev_ms = {k: device_ms(f, runs=5) for k, f in ((fwd_k, fwd),
+                                                    (ckpt_k, ckpt),
+                                                    (bwd_k, bwd))}
+    for what, v in ms.items():
+        log(f"# {tag}: {what}: {v:.3f} ms, "
+            f"{ADAPTIVE_RAYS / (v * 1e-3):.4e} rays/s [{name_limit}]")
+    log(f"# {tag}: device time (CUDA events, median of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in dev_ms.items())
+        + f" [{name_limit}]")
+    for name, p in ((fwd_k, "plain trip loop, forward"),
+                    (ckpt_k, "plain checkpointed trip loop, forward"),
+                    (bwd_k, "plain checkpointed trip loop, backward")):
+        readings[name].update(ms=ms[f"{name} call"], device_ms=dev_ms[name],
+                              plain_ms=ms[p])
+    readings[f"adaptive{suffix}"] = {
+        "fwd_ms": t_fwd, "fwd_grad_ms": ms["forward+gradient (kernels)"],
+        "fwd_grad_plain_ms": t_grad_plain}
+
+
+def trip_counts(env, cfg, s0):
+    """Per trip of the plain trip loop from ``s0`` (integrate_adaptive's),
+    the ACTIVE rays and those whose sphere guard passes (dopri_fwd's
+    GUARD)."""
+    s, h = s0, torch.full_like(s0.E, dopri_h0(cfg))
+    live, guard = [], []
+    with torch.no_grad():
+        for _ in range(cfg.n_steps):
+            act = s.active
+            k = int(act.sum())
+            if not k:
+                break
+            live.append(k)
+            if env.spheres is not None:
+                y, _, _, _ = dopri_step(env, s.x, s.p, s.E,
+                                        torch.where(act, h, 0.0))
+                guard.append(int((act & guard_pass(env, s.x, y)).sum()))
+            s, h, _ = _dopri_trip(env, cfg, s, h)
+    return live, guard
+
+
+def phase_dopri_bounds(dev, name_limit, readings):
+    """The bound of each Dormand-Prince variant at its main path's inputs
+    (the ADAPTIVE_RAYS fan rows for the event-free variants, the RING^2
+    Einstein rings for the event variants): the ray-trips of the plain trip
+    loop replayed (ACTIVE rays summed), times the operations per trip
+    counted (OpCount) on ``adjoint.dopri_trip`` (its sphere quadratics only
+    where dopri_fwd's guard passes) and per adjoint trip on
+    ``adjoint.dopri_trip_vjp``; bytes: each input read once and each output
+    written once."""
+    frames = {}
+    for suffix, spin in (("", None), ("_kerr", 0.45)):
+        env = fan_env(dev)
+        if spin is not None:
+            env.spin = torch.tensor(spin, device=dev)
+        frames[suffix] = (env, adaptive_cfg(2000), adaptive_cfg(600),
+                          flat_state(initial_state(
+                              env, *camera_fan(ADAPTIVE_RAYS, dev))))
+    for suffix, spin in (("_events", None), ("_kerr_events", 0.45)):
+        scene, cam, cfg = ring_scene(dev, spin)
+        fenv, s0 = flagship_rays(scene, cam, cfg, dev, RING)
+        frames[suffix] = (fenv, cfg.integrator, cfg.integrator,
+                          flat_state(s0))
+    for suffix, (env, cfg_f, cfg_g, s0) in frames.items():
+        n, k = s0.E.numel(), (0 if env.spheres is None
+                              else env.spheres.center.shape[0])
+        live, guard = trip_counts(env, cfg_f, s0)
+        trips_f, trips_g = sum(live), sum(live[:cfg_g.n_steps])
+        guarded = sum(guard)
+        few = rays(s0, torch.arange(64, device=dev))
+        few.status = torch.zeros_like(few.status)
+        scal = cuda_kernel._scalars(env, cfg_f, dev).detach()
+        sph = cuda_kernel._sphere_table(env, dev).detach() if k else None
+        ctl = cuda_kernel.controller(cfg_f)
+        h = torch.full_like(few.E, 0.5)
+        xs, ps = few.x.unbind(-1), few.p.unbind(-1)
+        ev = dict(sph=sph, has_disk=env.disk is not None,
+                  kerr=env.spin is not None)
+        trip_ops = ops_per_ray(lambda: adjoint.dopri_trip(
+            xs, ps, few.E, h, few.lam, few.status, few.hit_obj, scal, ctl,
+            **ev), 64)
+        g6 = tuple(torch.ones_like(few.E) for _ in range(6))
+        vjp_ops = ops_per_ray(lambda: adjoint.dopri_trip_vjp(
+            xs, ps, few.E, h, few.lam, few.status, scal, ctl, g6,
+            torch.ones_like(h), **ev), 64)
+        quad = guard_ops = 0
+        if k:
+            y = few.x + 0.1 * few.p
+            quad = ops_per_ray(lambda: _sphere_events(env, few.x, y), 64)
+            guard_ops = ops_per_ray(lambda: guard_pass(env, few.x, y), 64)
+        ops = {"fwd": trips_f * (trip_ops - quad + guard_ops)
+               + guarded * quad,
+               "ckpt": trips_g * trip_ops,
+               "bwd": trips_g * (trip_ops + vjp_ops)}
+        n_seg = -(-cfg_g.n_steps // cuda_kernel.segment(cfg_g.n_steps))
+        table = 4 * (10 + 4 * k)
+        state_in, state_out = 44 * n, 36 * n
+        ckpts = 36 * n_seg * n
+        nbytes = {"fwd": state_in + state_out + table,
+                  "ckpt": state_in + state_out + ckpts + table,
+                  "bwd": ckpts + 28 * n + 28 * n + 2 * table}
+        for kind in ("fwd", "ckpt", "bwd"):
+            t_ops = ops[kind] / PEAK_FLOPS * 1e3
+            t_bytes = nbytes[kind] / PEAK_BYTES * 1e3
+            name = f"dopri_{kind}{suffix}"
+            readings[name].update(
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, ops=ops[kind], bytes=nbytes[kind])
+            log(f"# phase 26: {name}: {ops[kind]:.4e} operations, "
+                f"{nbytes[kind]:.4e} bytes -> bound {max(t_ops, t_bytes):.4f}"
+                f" ms by {readings[name]['bound_by']} (device "
+                f"{readings[name].get('device_ms', float('nan')):.3f} ms) "
+                f"[{name_limit}]")
+        log(f"# phase 26: frame dopri{suffix or '_fan'}: {n} rays, "
+            f"{trips_f} ray-trips ({trips_f / n:.2f} per ray; the slowest "
+            f"ray {len(live)} of {cfg_f.n_steps} trips), {trips_g} within "
+            f"{cfg_g.n_steps} trips, {guarded} past the sphere guard; per "
+            f"trip {trip_ops} operations (sphere quadratics {quad}, guard "
+            f"{guard_ops}), adjoint {vjp_ops}")
 
 
 # =============================================================================
@@ -2473,9 +3337,25 @@ def main() -> int:
     phase("phase 18 (Kerr integrator)", phase_kerr_integrator, dev,
           name_limit, readings)
     phase("phase 19 (bounds)", phase_bounds, dev, name_limit, readings)
+    phase("phase 20 (dopri_fwd vs plain)", phase_dopri_fwd, dev, readings)
+    phase("phase 21 (dopri_ckpt)", phase_dopri_ckpt, dev, readings)
+    phase("phase 22 (dopri_bwd vs autograd)", phase_dopri_bwd, dev, readings)
+    phase("phase 23 (Einstein ring)", phase_dopri_ring, dev, name_limit,
+          readings)
+    phase("phase 24 (Kerr Einstein ring)", phase_dopri_ring, dev, name_limit,
+          readings, 0.45)
+    phase("phase 25 (adaptive rows)", phase_dopri_adaptive, dev, name_limit,
+          readings)
+    phase("phase 25 (Kerr adaptive rows)", phase_dopri_adaptive, dev,
+          name_limit, readings, 0.45)
+    phase("phase 26 (Dormand-Prince bounds)", phase_dopri_bounds, dev,
+          name_limit, readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
+    for name in KERNELS:
+        missing = [k for k in KERNEL_KEYS if k not in readings[name]]
+        check(not missing, f"{name}: no reading of {missing}")
     if FAILURES:
         log(f"# chip_smoke FAILED {len(FAILURES)} check(s):")
         for msg in FAILURES:
@@ -2492,6 +3372,17 @@ def main() -> int:
             f"({SIZE * SIZE / (step['fwd_bwd_ms'] * 1e-3):.4e} rays/s), "
             f"plain {step['fwd_bwd_plain_ms']:.3f} ms, forward "
             f"{step['fwd_ms']:.3f} ms [{name_limit}]")
+    for key in ("ring_events", "ring_kerr_events"):
+        v = readings.pop(key)
+        log(f"# step [{key[5:]} Einstein ring {RING}x{RING}, Dormand-Prince]:"
+            f" forward {v['fwd_ms']:.3f} ms, forward+backward "
+            f"{v['fwd_bwd_ms']:.3f} ms, plain {v['fwd_bwd_plain_ms']:.3f} ms "
+            f"[{name_limit}]")
+    for key in ("adaptive", "adaptive_kerr"):
+        v = readings.pop(key)
+        log(f"# bench.py adaptive row [{key}, {ADAPTIVE_RAYS} rays]: forward "
+            f"{v['fwd_ms']:.3f} ms, forward+gradient {v['fwd_grad_ms']:.3f} "
+            f"ms, plain {v['fwd_grad_plain_ms']:.3f} ms [{name_limit}]")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **readings[name]}

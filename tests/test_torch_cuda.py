@@ -1,5 +1,6 @@
 """The CUDA kernels of the PyTorch port against their plain PyTorch versions:
-rk4_fwd, rk4_ckpt and rk4_bwd, event-free and with disk and sphere events,
+rk4_fwd, rk4_ckpt and rk4_bwd, and the adaptive Dormand-Prince dopri_fwd,
+dopri_ckpt and dopri_bwd, event-free and with disk and sphere events,
 Schwarzschild and Kerr, and renders and their gradients through them.
 
 Needs a CUDA device and nvcc, and skips without them (decided in a fixture
@@ -102,34 +103,6 @@ def test_kernel_matches_plain_on_cuda(power):
     chord = (tint.final_direction(e, sk)
              - tint.final_direction(e, sp)).norm(dim=-1).double()
     assert float((2 * torch.asin((chord / 2).clamp(max=1))).max()) <= TOL_DIR
-
-
-# The hole each Dormand-Prince refusal is checked on, by test id:
-# Schwarzschild, Kerr, and Kerr with the disk and the spheres.
-DOPRI_HOLES = {"dopri": (False, False), "spin": (True, False),
-               "spin-events": (True, True)}
-
-
-@pytest.mark.parametrize("case", list(DOPRI_HOLES))
-def test_out_of_slice_raises_on_cuda(case):
-    """Dormand-Prince raises on CUDA for each hole of DOPRI_HOLES and
-    launches nothing."""
-    e = env()
-    x0, d0 = fan(64, 0)
-    p0, E0 = null_init(x0, d0, e.mass)
-    s0 = states.init_state(x0, p0, E0)
-    cfg = tint.IntegratorConfig(**FLAGSHIP, backend="cuda", method="dopri")
-    kerr, events = DOPRI_HOLES[case]
-    if kerr:
-        e.spin = torch.tensor(0.45, device=DEV)
-    if events:
-        e = events_env(e)
-    before = counts()
-    with pytest.raises(NotImplementedError):
-        tint.integrate(e, s0, cfg)
-    with pytest.raises(NotImplementedError):
-        cuda_kernel.integrate_cuda(e, s0, cfg)
-    assert launched(before) == {}
 
 
 def counts():
@@ -662,3 +635,239 @@ def test_kerr_events_render_launches_the_kerr_variants():
     for a, b, tol in zip(gk, gp, (5e-2, 5e-2, 1e-2)):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+# =============================================================================
+# Adaptive Dormand-Prince: dopri_fwd, dopri_ckpt, dopri_bwd.
+# =============================================================================
+# The holes the Dormand-Prince kernels are held on, by test id: (Kerr,
+# events) -- Schwarzschild, with the disk and the spheres, Kerr, and Kerr
+# with the disk and the spheres.
+DOPRI_HOLES = {"dopri": (False, False), "events": (False, True),
+               "spin": (True, False), "spin-events": (True, True)}
+DOPRI = dict(n_steps=400, dt=0.05, method="dopri", rtol=1e-5, atol=1e-8,
+             max_step=4.0)
+# The reference's invariants between two implementations of the adaptive
+# integrator (tests/test_pallas.py:187-206): statuses equal on >= 99.8% of
+# the rays, lam within max_step, final directions within 2e-3 rad.  Two
+# float32 controllers part on accept and reject where the error norm sits
+# at 1 (its float32 rounding is ~1e-3 of it), and then sample the same path
+# at other points.
+MIN_AGREE, TOL_ANGLE = 0.998, 2e-3
+
+
+def dopri_env(case):
+    kerr, events = DOPRI_HOLES[case]
+    return kerr_env(0.45, events) if kerr else (
+        events_env(env()) if events else env())
+
+
+def dopri_rays(n=1500, seed=11):
+    """tests/test_pallas.py's rays(): z = 25, offsets in [-8, 8],
+    directions within 0.3 of -z."""
+    rng = np.random.default_rng(seed)
+    x0 = np.stack([rng.uniform(-8, 8, n), rng.uniform(-8, 8, n),
+                   np.full(n, 25.0)], -1)
+    d = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                  np.full(n, -1.0)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEV)  # noqa
+    return f(x0), f(d)
+
+
+def angle(e, a, b):
+    chord = (tint.final_direction(e, a)
+             - tint.final_direction(e, b)).norm(dim=-1).double()
+    return 2 * torch.asin((chord / 2).clamp(max=1))
+
+
+@pytest.mark.parametrize("case", list(DOPRI_HOLES))
+def test_dopri_kernel_matches_plain_on_cuda(case):
+    """dopri_fwd against integrate_adaptive on the card: the reference's
+    invariants (the directions of the rays that end on the sky), and the
+    event points of the rays that end on the disk or a sphere within 1e-2
+    (where the chord of the last step meets the event: two samplings of
+    one path put it apart by the chords' error, 2.3e-3 on an H100); only
+    the variant's counter moves."""
+    e = dopri_env(case)
+    s0 = kerr_state(e, *dopri_rays())
+    cfg = tint.IntegratorConfig(**DOPRI)
+    before = counts()
+    with torch.no_grad():
+        sk = tint.integrate(e, s0, cfg)
+        sp, _ = tint.integrate_adaptive(e, s0, cfg)
+    kerr, events = DOPRI_HOLES[case]
+    assert launched(before) == {cuda_kernel.variant("dopri_fwd", kerr,
+                                                    events): 1}
+    same = (sk.status == sp.status) & (sk.hit_obj == sp.hit_obj)
+    assert float(same.float().mean()) >= MIN_AGREE
+    dlam = (sk.lam - sp.lam).abs()
+    assert float(dlam[same].max()) <= DOPRI["max_step"] + 1e-3
+    sky = same & ((sp.status == states.ESCAPED)
+                  | (sp.status == states.BUDGET))
+    assert int(sky.sum()) >= 500
+    assert float(angle(e, sk, sp)[sky].max()) < TOL_ANGLE
+    if events:
+        for st in (states.DISK, states.OBJECT):
+            hit = same & (sp.status == st)
+            assert int(hit.sum()) >= 20
+            assert float((sk.x - sp.x)[hit].abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("case", list(DOPRI_HOLES))
+def test_dopri_ckpt_matches_fwd_and_the_plain_loop(case):
+    """dopri_ckpt's final state equals dopri_fwd's bit for bit (the same
+    trip code), and its checkpoint rows hold the plain trip loop's statuses
+    (on >= 99.8% of the rays) and, before the first checkpoint, its h;
+    90 trips leave a partial last segment (90 = 5 x 16 + 10)."""
+    e = dopri_env(case)
+    s0 = kerr_state(e, *dopri_rays(seed=2))
+    cfg = tint.IntegratorConfig(**{**DOPRI, "n_steps": 90})
+    kerr, events = DOPRI_HOLES[case]
+    scal = cuda_kernel._scalars(e, cfg, DEV)
+    seg = cuda_kernel.segment(cfg.n_steps)
+    h = torch.full_like(s0.E, tint.dopri_h0(cfg))
+    ctl = cuda_kernel.controller(cfg)
+    kw = dict(sph=cuda_kernel._sphere_table(e, DEV), has_disk=events,
+              obj=s0.hit_obj, kerr=kerr)
+    args = (scal, s0.x, s0.p, s0.E, h, s0.lam, s0.status, cfg.n_steps)
+    before = counts()
+    fwd = cuda_kernel.dopri_fwd(*args, ctl, **kw)
+    *fin, (cx, cp, ch, clam, cst) = cuda_kernel.dopri_ckpt(*args, seg, ctl,
+                                                           **kw)
+    assert launched(before) == {cuda_kernel.variant(k, kerr, events): 1
+                                for k in ("dopri_fwd", "dopri_ckpt")}
+    for a, b in zip(fin, fwd):
+        assert torch.equal(a, b)
+    _, rows, hs = cuda_kernel.integrate_adaptive_ckpt_plain(e, s0, cfg, seg)
+    assert cx.shape[0] == len(rows) == 6
+    assert torch.equal(ch[0], hs[0])
+    for k, row in enumerate(rows):
+        assert float((cst[k] == row.status).float().mean()) >= MIN_AGREE
+        close = (clam[k] - row.lam).abs() <= TOL_X
+        assert float((cx[k] - row.x)[close].abs().max()) <= 1e-2
+
+
+def weak_fan(n=640, seed=3):
+    """The weak-field fan of tests/test_pallas.py's dopri gradient tests
+    (:241-250): b in [6.5, 12] at z = 25, direction -z."""
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(6.5, 12.0, n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    x0 = np.stack([b * np.cos(ang), b * np.sin(ang), np.full(n, 25.0)], -1)
+    d0 = np.tile([0.0, 0.0, -1.0], (n, 1))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEV)  # noqa
+    return f(x0), f(d0), f(rng.normal(size=(n, 3)))
+
+
+def dopri_cotangents(case, s0, cfg, w, kernel):
+    """Cotangents of (x, p, E), the mass, (Kerr) the spin and (events) the
+    sphere table for the reference's loss (tests/test_pallas.py:262-275),
+    weighted event points and weighted final directions, here of every ray
+    not captured (ESCAPED, BUDGET and still ACTIVE)."""
+    kerr, events = DOPRI_HOLES[case]
+    e = dopri_env(case)
+    leaf = lambda t: t.clone().requires_grad_(True)  # noqa: E731
+    ee = dataclasses.replace(e, mass=leaf(e.mass),
+                             spin=leaf(e.spin) if kerr else None)
+    if events:
+        ee.spheres = tint.SphereGeom(center=leaf(e.spheres.center),
+                                     radius=leaf(e.spheres.radius))
+    x, p, E = (leaf(t) for t in (s0.x, s0.p, s0.E))
+    s = dataclasses.replace(s0, x=x, p=p, E=E)
+    out = (cuda_kernel.integrate_cuda(ee, s, cfg) if kernel
+           else cuda_kernel.integrate_plain(ee, s, cfg))
+    ev = ((out.status == states.DISK)
+          | (out.status == states.OBJECT))[..., None]
+    sky = ((out.status != states.CAPTURED) & (out.status != states.ERROR)
+           )[..., None] & ~ev
+    (torch.where(sky, w * tint.final_direction(ee, out), 0.0)
+     + torch.where(ev, w * out.x, 0.0)).sum().backward()
+    grads = [x.grad, p.grad, E.grad, ee.mass.grad]
+    if kerr:
+        grads.append(ee.spin.grad)
+    if events:
+        grads += [ee.spheres.center.grad, ee.spheres.radius.grad]
+    return out, grads
+
+
+@pytest.mark.parametrize("case,n_steps", [
+    ("dopri", 96), ("dopri", 20), ("events", 96), ("spin", 80),
+    ("spin-events", 20)])
+def test_dopri_bwd_matches_autograd_of_the_plain_loop(case, n_steps):
+    """dopri_ckpt and dopri_bwd against autograd of integrate_adaptive_scan
+    on the weak-field fan: per-ray cotangents of the rays whose lam agrees
+    (the same trips) and the scalar and sphere cotangents, to the
+    reference's 5e-2; at 20 trips rays are still ACTIVE at the end."""
+    kerr, events = DOPRI_HOLES[case]
+    e = dopri_env(case)
+    x0, d0, w = weak_fan()
+    s0 = kerr_state(e, x0, d0)
+    cfg = tint.IntegratorConfig(**{**DOPRI, "n_steps": n_steps})
+    before = counts()
+    out_k, gk = dopri_cotangents(case, s0, cfg, w, kernel=True)
+    assert launched(before) == {cuda_kernel.variant(k, kerr, events): 1
+                                for k in ("dopri_ckpt", "dopri_bwd")}
+    out_p, gp = dopri_cotangents(case, s0, cfg, w, kernel=False)
+    if n_steps == 20:
+        assert int((out_p.status == states.ACTIVE).sum()) > 0
+    same = (out_k.lam - out_p.lam).abs() <= TOL_X
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        assert torch.isfinite(a).all()
+        if i < 3:
+            a, b = a[same], b[same]
+        assert float((a - b).abs().max() / b.abs().max()) <= 5e-2
+
+
+def test_dopri_einstein_ring_launches_the_dopri_kernels():
+    """A 32x32 Einstein ring (BASELINE config 2: a moon behind the hole,
+    Dormand-Prince) renders through dopri_fwd's event variant once and
+    agrees with the plain render; its gradient goes through dopri_ckpt and
+    dopri_bwd once each and agrees with the plain path's."""
+    v, u = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    sky = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * u / 128)
+                    * np.sin(np.pi * v / 64), v / 64,
+                    ((u // 8 + v // 8) % 2).astype(np.float32)], -1)
+    moon = np.zeros((1, 8, 16, 3), np.float32)
+    moon[..., 1] = 1.0
+    cfg = P.RenderConfig(width=32, height=32, lam_max=120.0,
+                         integrator=P.IntegratorConfig(
+                             n_steps=2000, dt=0.5, method="dopri",
+                             rtol=1e-5, atol=1e-8, max_step=2.0))
+    plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch"))
+    cam = P.Camera.make(position=(0.0, 0.0, 20.0), fov=(0.9, 0.9),
+                        device=DEV)
+
+    def scene():
+        return P.Scene(
+            bh=P.BlackHole.make(mass=0.5, device=DEV),
+            background=torch.as_tensor(sky, dtype=torch.float32, device=DEV),
+            spheres=P.Spheres.make(center=[[0.0, 0.0, -12.0]], radius=[1.0],
+                                   texture=moon, device=DEV))
+
+    before = counts()
+    with torch.no_grad():
+        img = P.render_image(scene(), cam, cfg)
+    assert launched(before) == {"dopri_fwd_events": 1}
+    diff = (img - P.render_image(scene(), cam, plain)).abs()
+    assert float(diff.mean()) < 2e-3
+    assert float((diff > 0.1).float().mean()) < 0.01
+    assert float(img[16, 22:32, 1].max()) > 0.5
+
+    def grads(c):
+        sc = scene()
+        leaves = (sc.bh.mass, sc.background)
+        for t in leaves:
+            t.requires_grad_(True)
+        P.render_image(sc, cam, c)[..., :3].pow(2).mean().backward()
+        return [t.grad for t in leaves]
+
+    before = counts()
+    gk = grads(cfg)
+    assert launched(before) == {"dopri_ckpt_events": 1,
+                                "dopri_bwd_events": 1}
+    gp = grads(plain)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max() / b.abs().max()) <= 5e-2

@@ -104,10 +104,9 @@ def test_null_init_inside_horizon_is_finite():
     assert torch.isfinite(p).all() and torch.isfinite(E).all()
 
 
-def test_kerr_forms_raise():
-    """The Kerr forms take a spin now (tests/test_torch_kerr.py holds them
-    to the JAX package): xdot with a = 0.45 raises nothing and agrees with
-    JAX's."""
+def test_kerr_xdot_matches_jax():
+    """The Kerr form of xdot (tests/test_torch_kerr.py holds the rest to
+    the JAX package): with a = 0.45 it agrees with JAX's."""
     x, p, E, d = random_states(8)
     x = x * 4.0 + 3.0     # outside the horizon
     ref = jgeo.xdot(jnp.asarray(x), jnp.asarray(p), jnp.asarray(E), MASS,

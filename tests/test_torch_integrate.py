@@ -168,7 +168,7 @@ def _state(n=8):
     return tstates.init_state(x, p, E)
 
 
-# The hole each Dormand-Prince refusal is checked on, by test id:
+# The holes an unknown integrator method is refused on, by test id:
 # Schwarzschild, Kerr, and Kerr with a disk and a sphere.
 DOPRI_HOLES = {"dopri": (False, False), "spin": (True, False),
                "spin-events": (True, True)}
@@ -176,11 +176,13 @@ DOPRI_HOLES = {"dopri": (False, False), "spin": (True, False),
 
 @pytest.mark.parametrize("case", list(DOPRI_HOLES))
 def test_out_of_slice_raises(case):
-    """Dormand-Prince is outside the ported slices and raises, on the CUDA
-    entry and on the plain path, for each hole of DOPRI_HOLES."""
+    """Dormand-Prince and RK4 are the only integrators (JAX
+    ops/integrate.py:510-529): any other method raises ValueError on the
+    CUDA entry and on the plain path, for each hole of DOPRI_HOLES; the
+    Dormand-Prince holes themselves run (tests/test_torch_dopri.py)."""
     _, env = envs()
     s0 = _state()
-    cfg = tint.IntegratorConfig(**FLAGSHIP, method="dopri")
+    cfg = tint.IntegratorConfig(**FLAGSHIP, method="rk45")
     kerr, events = DOPRI_HOLES[case]
     if kerr:
         env.spin = torch.tensor(0.45)
@@ -189,10 +191,13 @@ def test_out_of_slice_raises(case):
                                  r_out=torch.tensor(6.0))
         env.spheres = tint.SphereGeom(center=torch.zeros(1, 3),
                                       radius=torch.ones(1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rk45"):
         cuda_kernel.integrate_cuda(env, s0, cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rk45"):
         tint.integrate(env, s0, dataclasses.replace(cfg, backend="torch"))
+    out = tint.integrate(env, s0, dataclasses.replace(
+        cfg, method="dopri", backend="torch", n_steps=4))
+    assert torch.isfinite(out.x).all()
 
 
 @pytest.mark.parametrize("field,bad", [
