@@ -19,9 +19,11 @@ from typing import Any
 
 import torch
 
+from ..scene.scene import on_device
+
 
 def _f(v, device=None) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=on_device(device))
 
 
 @dataclasses.dataclass

@@ -3,9 +3,9 @@
 Each function takes the JAX package's object -- or the same dataclass tree
 with numpy leaves -- walks ``dataclasses.fields`` and builds this package's
 twin: every array leaf is copied into a float32 numpy array and then goes
-through ``torch.as_tensor(..., device=device)``, and ``None`` stays
-``None``.  numpy reads a JAX array without importing JAX, so this module
-never imports it.
+through ``torch.as_tensor(..., device=device)`` -- the card unless the
+caller passes ``device="cpu"`` -- and ``None`` stays ``None``.  numpy
+reads a JAX array without importing JAX, so this module never imports it.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import torch
 from .camera.pinhole import Camera
 from .ops.integrate import IntegratorConfig
 from .render.renderer import RenderConfig
-from .scene.scene import BlackHole, Disk, Lights, Scene, Spheres
+from .scene.scene import (BlackHole, Disk, Lights, Scene, Spheres,
+                          on_device)
 
 # The reference's integrator backends and their counterparts here.
 _BACKENDS = {"auto": "auto", "pallas": "cuda", "scan": "torch"}
@@ -43,11 +44,13 @@ def _tree(obj, device):
 
 
 def scene_from_reference(obj, device=None) -> Scene:
-    return _tree(obj, device)
+    """The scene on ``device``: the card unless the caller names another."""
+    return _tree(obj, on_device(device))
 
 
 def camera_from_reference(obj, device=None) -> Camera:
-    return _tree(obj, device)
+    """The camera on ``device``: the card unless the caller names another."""
+    return _tree(obj, on_device(device))
 
 
 def render_config_from_reference(obj) -> RenderConfig:

@@ -112,18 +112,22 @@ def load() -> ctypes.CDLL:
         lib.bhgc_rk4_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 11
                                      + [i32, i32, f32, vp])
         lib.bhgc_rk4_fwd.restype = i32
-        # as bhgc_rk4_fwd, then cx, cp, clam, cst before n, n_steps, seg,
-        # power, stream
-        lib.bhgc_rk4_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 15
+        # as bhgc_rk4_fwd, then cx, cp, clam, cst, live before n, n_steps,
+        # seg, power, stream
+        lib.bhgc_rk4_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 16
                                       + [i32, i32, i32, f32, vp])
         lib.bhgc_rk4_ckpt.restype = i32
         # scal, sph, n_sph, has_disk, kerr, cx, cp, clam, cst, E, gx, gp,
-        # bx, bp, bE, partial, gscal, gsph, n, n_steps, seg, power, stream
-        lib.bhgc_rk4_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 13
+        # bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, power,
+        # stream
+        lib.bhgc_rk4_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 14
                                      + [i32, i32, i32, f32, vp])
         lib.bhgc_rk4_bwd.restype = i32
         lib.bhgc_rk4_bwd_blocks.argtypes = [i32]
         lib.bhgc_rk4_bwd_blocks.restype = i32
+        # power, kerr, has_disk, n_sph -> resident blocks per SM
+        lib.bhgc_rk4_bwd_occupancy.argtypes = [f32, i32, i32, i32]
+        lib.bhgc_rk4_bwd_occupancy.restype = i32
         ctl = [f32] * 4   # rtol, atol, min_step, max_step
         # scal, sph, n_sph, has_disk, kerr, x, p, E, h, lam, status,
         # hit_obj, x_out, p_out, lam_out, status_out, hit_obj_out, n,
@@ -131,18 +135,21 @@ def load() -> ctypes.CDLL:
         lib.bhgc_dopri_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 12
                                        + [i32, i32] + ctl + [vp])
         lib.bhgc_dopri_fwd.restype = i32
-        # as bhgc_dopri_fwd, then cx, cp, ch, clam, cst before n, n_steps,
-        # seg, the controller, stream
-        lib.bhgc_dopri_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 17
+        # as bhgc_dopri_fwd, then cx, cp, ch, clam, cst, live before n,
+        # n_steps, seg, the controller, stream
+        lib.bhgc_dopri_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 18
                                         + [i32, i32, i32] + ctl + [vp])
         lib.bhgc_dopri_ckpt.restype = i32
         # scal, sph, n_sph, has_disk, kerr, cx, cp, ch, clam, cst, E, gx,
-        # gp, bx, bp, bE, partial, gscal, gsph, n, n_steps, seg, the
+        # gp, bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, the
         # controller, stream
-        lib.bhgc_dopri_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 14
+        lib.bhgc_dopri_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 15
                                        + [i32, i32, i32] + ctl + [vp])
         lib.bhgc_dopri_bwd.restype = i32
         lib.bhgc_dopri_bwd_blocks.argtypes = [i32]
         lib.bhgc_dopri_bwd_blocks.restype = i32
+        # kerr, has_disk, n_sph -> resident blocks per SM
+        lib.bhgc_dopri_bwd_occupancy.argtypes = [i32, i32, i32]
+        lib.bhgc_dopri_bwd_occupancy.restype = i32
         _lib = lib
     return _lib

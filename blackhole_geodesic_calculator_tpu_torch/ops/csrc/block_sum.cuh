@@ -11,7 +11,7 @@
 
 namespace {
 
-constexpr int kSumThreads = 256;   // the adjoints' block size
+constexpr int kSumThreads = 128;   // the adjoints' block size
 
 // One block's fixed-tree sum of v over its threads; thread 0 returns it.
 __device__ __forceinline__ float block_sum(float* red, float v) {

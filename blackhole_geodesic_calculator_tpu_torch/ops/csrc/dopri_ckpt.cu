@@ -12,7 +12,8 @@
 // ...): the adjoint's recompute must restart the controller from the exact
 // h.  A ray that has frozen keeps writing its frozen state at the later
 // segment starts, so the adjoint (dopri_bwd.cu) can skip those segments by
-// their status.  Trips at or past n_steps are not run.
+// their status.  Trips at or past n_steps are not run.  It also writes
+// each ray's count of ACTIVE rows, capped at 255, as rk4_ckpt.cu does.
 //
 // Bound: like dopri_fwd, the FP32 pipes and warp divergence; the
 // checkpoints add n_seg x 36 bytes of writes per ray.
@@ -41,8 +42,9 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ lam_out, int* __restrict__ st_out,
                       int* __restrict__ obj_out, float* __restrict__ cx,
                       float* __restrict__ cp, float* __restrict__ ch,
-                      float* __restrict__ clam, int* __restrict__ cst, int n,
-                      int n_steps, int seg, Controller ctl) {
+                      float* __restrict__ clam, int* __restrict__ cst,
+                      unsigned char* __restrict__ live, int n, int n_steps,
+                      int seg, Controller ctl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -78,6 +80,14 @@ __global__ void __launch_bounds__(kThreads)
   lam_out[i] = r.lam;
   st_out[i] = r.status;
   obj_out[i] = r.obj;
+  // the live rows, a prefix of the statuses just written, counted after
+  // the steps so that the step loop holds no counter in its registers
+  int n_live = 0;
+  while (n_live < n_seg &&
+         cst[static_cast<long long>(n_live) * n + i] == kActive) {
+    ++n_live;
+  }
+  live[i] = static_cast<unsigned char>(min(n_live, 255));
 }
 
 }  // namespace
@@ -89,9 +99,9 @@ extern "C" int bhgc_dopri_ckpt(const void* scal, const void* sph, int n_sph,
                                const void* obj, void* x_out, void* p_out,
                                void* lam_out, void* st_out, void* obj_out,
                                void* cx, void* cp, void* ch, void* clam,
-                               void* cst, int n, int n_steps, int seg,
-                               float rtol, float atol, float min_step,
-                               float max_step, void* stream) {
+                               void* cst, void* live, int n, int n_steps,
+                               int seg, float rtol, float atol,
+                               float min_step, float max_step, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   const Controller ctl{rtol, atol, min_step, max_step};
   with_kerr(kerr, [&](auto kr) {
@@ -107,8 +117,8 @@ extern "C" int bhgc_dopri_ckpt(const void* scal, const void* sph, int n_sph,
               static_cast<float*>(lam_out), static_cast<int*>(st_out),
               static_cast<int*>(obj_out), static_cast<float*>(cx),
               static_cast<float*>(cp), static_cast<float*>(ch),
-              static_cast<float*>(clam), static_cast<int*>(cst), n, n_steps,
-              seg, ctl);
+              static_cast<float*>(clam), static_cast<int*>(cst),
+              static_cast<unsigned char*>(live), n, n_steps, seg, ctl);
     });
   });
   return static_cast<int>(cudaGetLastError());

@@ -36,38 +36,77 @@ struct Controller {
 // The Dormand-Prince tableau, each coefficient the float nearest to the
 // rational (as the plain path rounds Python's doubles): a_ij, the
 // fifth-order weights b_i and the error weights e_i = b_i - b*_i.
+#define BHGC_DP_A                                                            \
+  {{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f},                                     \
+   {float(1.0 / 5.0), 0.0f, 0.0f, 0.0f, 0.0f, 0.0f},                         \
+   {float(3.0 / 40.0), float(9.0 / 40.0), 0.0f, 0.0f, 0.0f, 0.0f},           \
+   {float(44.0 / 45.0), float(-56.0 / 15.0), float(32.0 / 9.0), 0.0f, 0.0f,  \
+    0.0f},                                                                   \
+   {float(19372.0 / 6561.0), float(-25360.0 / 2187.0),                       \
+    float(64448.0 / 6561.0), float(-212.0 / 729.0), 0.0f, 0.0f},             \
+   {float(9017.0 / 3168.0), float(-355.0 / 33.0), float(46732.0 / 5247.0),   \
+    float(49.0 / 176.0), float(-5103.0 / 18656.0), 0.0f},                    \
+   {float(35.0 / 384.0), 0.0f, float(500.0 / 1113.0), float(125.0 / 192.0), \
+    float(-2187.0 / 6784.0), float(11.0 / 84.0)}}
+#define BHGC_DP_B                                                            \
+  {float(35.0 / 384.0), 0.0f, float(500.0 / 1113.0), float(125.0 / 192.0),   \
+   float(-2187.0 / 6784.0), float(11.0 / 84.0), 0.0f}
+#define BHGC_DP_E                                                            \
+  {float(35.0 / 384.0 - 5179.0 / 57600.0), 0.0f,                             \
+   float(500.0 / 1113.0 - 7571.0 / 16695.0),                                 \
+   float(125.0 / 192.0 - 393.0 / 640.0),                                     \
+   float(-2187.0 / 6784.0 - -92097.0 / 339200.0),                            \
+   float(11.0 / 84.0 - 187.0 / 2100.0), float(0.0 - 1.0 / 40.0)}
+
 __host__ __device__ constexpr float dp_a(int i, int j) {
-  constexpr float a[7][6] = {
-      {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f},
-      {float(1.0 / 5.0), 0.0f, 0.0f, 0.0f, 0.0f, 0.0f},
-      {float(3.0 / 40.0), float(9.0 / 40.0), 0.0f, 0.0f, 0.0f, 0.0f},
-      {float(44.0 / 45.0), float(-56.0 / 15.0), float(32.0 / 9.0), 0.0f,
-       0.0f, 0.0f},
-      {float(19372.0 / 6561.0), float(-25360.0 / 2187.0),
-       float(64448.0 / 6561.0), float(-212.0 / 729.0), 0.0f, 0.0f},
-      {float(9017.0 / 3168.0), float(-355.0 / 33.0), float(46732.0 / 5247.0),
-       float(49.0 / 176.0), float(-5103.0 / 18656.0), 0.0f},
-      {float(35.0 / 384.0), 0.0f, float(500.0 / 1113.0), float(125.0 / 192.0),
-       float(-2187.0 / 6784.0), float(11.0 / 84.0)}};
+  constexpr float a[7][6] = BHGC_DP_A;
   return a[i][j];
 }
 
 __host__ __device__ constexpr float dp_b(int i) {
-  constexpr float b[7] = {float(35.0 / 384.0), 0.0f, float(500.0 / 1113.0),
-                          float(125.0 / 192.0), float(-2187.0 / 6784.0),
-                          float(11.0 / 84.0), 0.0f};
+  constexpr float b[7] = BHGC_DP_B;
   return b[i];
 }
 
 __host__ __device__ constexpr float dp_e(int i) {
-  constexpr float e[7] = {
-      float(35.0 / 384.0 - 5179.0 / 57600.0), 0.0f,
-      float(500.0 / 1113.0 - 7571.0 / 16695.0),
-      float(125.0 / 192.0 - 393.0 / 640.0),
-      float(-2187.0 / 6784.0 - -92097.0 / 339200.0),
-      float(11.0 / 84.0 - 187.0 / 2100.0), float(0.0 - 1.0 / 40.0)};
+  constexpr float e[7] = BHGC_DP_E;
   return e[i];
 }
+
+// The same tableau for loops over the stages that are not unrolled, which
+// index it at run time (a warp reads one entry: the constant cache
+// broadcasts it).
+__constant__ float kDpA[7][6] = BHGC_DP_A;
+__constant__ float kDpB[7] = BHGC_DP_B;
+__constant__ float kDpE[7] = BHGC_DP_E;
+
+// a_ij, b_i, e_i from the constant tables when the stage loop runs (TABLE)
+// or as constants the unrolled code folds.
+template <bool TABLE>
+__device__ __forceinline__ float tab_a(int i, int j) {
+  if constexpr (TABLE) return kDpA[i][j]; else return dp_a(i, j);
+}
+template <bool TABLE>
+__device__ __forceinline__ float tab_b(int i) {
+  if constexpr (TABLE) return kDpB[i]; else return dp_b(i);
+}
+template <bool TABLE>
+__device__ __forceinline__ float tab_e(int i) {
+  if constexpr (TABLE) return kDpE[i]; else return dp_e(i);
+}
+
+// Six 6-vectors of one thread: in shared memory (SMEM, this thread's
+// column of a [36][kThreads] block, so a warp's accesses fall in 32 banks)
+// or in registers, which the unrolled stage code indexes with constants.
+template <bool SMEM, int kThreads>
+struct StageSlots {
+  float* col;
+  float reg[SMEM ? 1 : 36];
+  __device__ __forceinline__ float& operator()(int i, int c) {
+    if constexpr (SMEM) return col[(6 * i + c) * kThreads];
+    else return reg[6 * i + c];
+  }
+};
 
 // Stage point i of the trip from y with step dt: y + sum_j (dt a_ij) k_j,
 // summed in j order as `_dopri_trip` does.
@@ -176,23 +215,64 @@ __device__ __forceinline__ float dabs(float v) {
 
 // Transpose of one dopri_trip of an ACTIVE ray from the taped pre-trip
 // state y = (x, p), step h and affine parameter lam (ops/adjoint.py
-// dopri_trip_vjp, line for line).  g and gh hold the cotangents of the
-// trip's (x', p') and h' on entry and those of (x, p) and h on exit; the
-// cotangents of E, the mass and (KERR) the spin are added to gE, gs[0] and
-// gs[1], and a sphere entry adds the entered sphere's to gsph and sets hit
-// (events_vjp).  A trip whose step is not finite leaves the state and h as
-// they were or makes them NaN: g and gh pass through, nothing is added.
-template <bool KERR, bool DISK, bool SPH>
+// dopri_trip_vjp; the stages' cotangents gathered per stage, below).  g and
+// gh hold the cotangents of the trip's (x', p') and h' on entry and those
+// of (x, p) and h on exit; the cotangents of E, the mass and (KERR) the
+// spin are added to gE, gs[0] and gs[1], and a sphere entry adds the
+// entered sphere's to gsph and sets hit (events_vjp).  A trip whose step is
+// not finite leaves the state and h as they were or makes them NaN: g and
+// gh pass through, nothing is added.
+//
+// The seven stages are a loop, and so are their transposes.  For KERR the
+// loops are not unrolled, so the Kerr right-hand side and its VJP each have
+// one call site (one copy of the Kerr VJP in the code, not seven), and the
+// stage values k_0..k_5 and the stages' input cotangents live in shared
+// memory (`kbuf`, `gbuf`: this thread's columns of two [36][kThreads]
+// blocks).  The Schwarzschild right-hand side is small: its loops are
+// unrolled and those values stay in registers.  Stage i's cotangent is
+// gathered when it is transposed, b_i g_c5 + e_i g_ce + dt sum_{l > i}
+// a_li g_l (g_l the cotangent of stage l's input), and the step's
+// cotangent gains k_i . sum_l a_li g_l.  The stage chain computes what
+// dopri_stages and dopri_combine compute, operation for operation, so the
+// trip's accept and events are the recompute's.
+template <bool KERR, bool DISK, bool SPH, int kThreads>
 __device__ __forceinline__ void dopri_trip_adjoint(
     const Scalars& sc, const Controller& ctl, float E,
     const float* __restrict__ sph, int n_sph, const float y[6], float h,
     float lam, float g[6], float& gh, float& gE, float gs[2], float gsph[4],
-    int& hit) {
+    int& hit, float* kbuf, float* gbuf) {
   // --- forward, as in dopri_trip ---
   const float dt = h;
-  float k[7][6], c5[6], ce[6], y5[6], scale[6], r[6];
-  dopri_stages<KERR>(sc, E, y, dt, k);
-  dopri_combine(k, c5, ce);
+  StageSlots<KERR, kThreads> k{kbuf}, gin{gbuf};
+  float c5[6], ce[6], y5[6], scale[6], r[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    c5[c] = 0.0f;
+    ce[c] = 0.0f;
+  }
+#pragma unroll(KERR ? 1 : 7)
+  for (int i = 0; i < 7; ++i) {
+    float pt[6], ki[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) pt[c] = y[c];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const float a = tab_a<KERR>(i, j);
+      if (j < i && a != 0.0f) {
+        const float s = dt * a;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) pt[c] = pt[c] + s * k(j, c);
+      }
+    }
+    rhs<KERR>(sc, E, pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], ki);
+    const float b = tab_b<KERR>(i), e = tab_e<KERR>(i);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      if (i < 6) k(i, c) = ki[c];
+      if (b != 0.0f) c5[c] = c5[c] + b * ki[c];
+      if (e != 0.0f) ce[c] = ce[c] + e * ki[c];
+    }
+  }
   float err2 = 0.0f;
   bool finite = true;
 #pragma unroll
@@ -280,36 +360,52 @@ __device__ __forceinline__ void dopri_trip_adjoint(
   }
 
   // --- y5 = y + dt c5 ---
-  float g_k[7][6];
+  float g_c5[6];
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
     g_y[c] += g_y5[c];
     g_dt += g_y5[c] * c5[c];
-    const float g_c5 = dt * g_y5[c];
-#pragma unroll
-    for (int i = 0; i < 7; ++i) g_k[i][c] = dp_b(i) * g_c5 + dp_e(i) * g_ce[c];
+    g_c5[c] = dt * g_y5[c];
   }
 
-  // --- the stages, last first: k_i = rhs(Y_i), Y_i = y + sum_j dt a_ij k_j
+  // --- the stages, last first: k_i = rhs(Y_i), Y_i = y + sum_j dt a_ij k_j;
+  //     gin(l - 1) holds the cotangent of Y_l, l = 1..6 ---
   float gm = 0.0f, gsp = 0.0f, gEs = 0.0f;
-#pragma unroll
+#pragma unroll(KERR ? 1 : 7)
   for (int i = 6; i >= 0; --i) {
-    float pt[6], g_pt[6];
-    stage_point(y, dt, i, k, pt);
-    rhs_vjp<KERR>(sc, E, pt, g_k[i], g_pt, gEs, gm, gsp);
+    float sum[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // sum_l a_li g_l
 #pragma unroll
-    for (int c = 0; c < 6; ++c) g_y[c] += g_pt[c];
+    for (int l = 1; l < 7; ++l) {
+      const float a = l > i ? tab_a<KERR>(l, i < 6 ? i : 0) : 0.0f;
+      if (a != 0.0f) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c) sum[c] = sum[c] + a * gin(l - 1, c);
+      }
+    }
+    const float b = tab_b<KERR>(i), e = tab_e<KERR>(i);
+    float g_k[6], pt[6], g_pt[6];
+    float dot = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      g_k[c] = b * g_c5[c] + e * g_ce[c] + dt * sum[c];
+      if (i < 6) dot += k(i, c) * sum[c];
+      pt[c] = y[c];
+    }
+    g_dt += dot;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      if (j < i && dp_a(i, j) != 0.0f) {
-        float dot = g_pt[0] * k[j][0];
+      const float a = tab_a<KERR>(i, j);
+      if (j < i && a != 0.0f) {
+        const float s = dt * a;
 #pragma unroll
-        for (int c = 1; c < 6; ++c) dot += g_pt[c] * k[j][c];
-        g_dt += dp_a(i, j) * dot;
-        const float s = dt * dp_a(i, j);
-#pragma unroll
-        for (int c = 0; c < 6; ++c) g_k[j][c] += s * g_pt[c];
+        for (int c = 0; c < 6; ++c) pt[c] = pt[c] + s * k(j, c);
       }
+    }
+    rhs_vjp<KERR>(sc, E, pt, g_k, g_pt, gEs, gm, gsp);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      g_y[c] += g_pt[c];
+      if (i > 0) gin(i - 1, c) = g_pt[c];
     }
   }
   g_h += g_dt;   // dt = h for a live ray

@@ -11,7 +11,9 @@
 // A ray that has frozen keeps writing its frozen state at the later
 // segment starts, as the TPU kernel fills them, so the adjoint (rk4_bwd.cu)
 // can skip those segments by their status.  Steps at or past n_steps
-// (the tail of a partial last segment) are not run.
+// (the tail of a partial last segment) are not run.  It also writes each
+// ray's count of ACTIVE rows, capped at 255 to fit a byte: the key of the
+// adjoint's cost order (cuda_kernel.ray_order), counted from those rows.
 //
 // Bound: like rk4_fwd, the FP32 pipes and warp divergence; the checkpoints
 // add n_seg x 32 bytes of writes per ray (235 MB at the 1024^2 flagship,
@@ -25,9 +27,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+// four blocks an SM, so at most 64 registers a thread: left to itself the
+// compiler gives the Kerr variants 76-80, three blocks, and they ran 4-6%
+// slower (PERF.md, PR 6)
+constexpr int kMinBlocks = 4;
 
 template <int PMODE, bool KERR, int EV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     rk4_ckpt_kernel(const float* __restrict__ scal,
                     const float* __restrict__ sph, int n_sph,
                     const float* __restrict__ x_in,
@@ -40,8 +46,8 @@ __global__ void __launch_bounds__(kThreads)
                     int* __restrict__ st_out, int* __restrict__ obj_out,
                     float* __restrict__ cx,
                     float* __restrict__ cp, float* __restrict__ clam,
-                    int* __restrict__ cst, int n, int n_steps, int seg,
-                    float power) {
+                    int* __restrict__ cst, unsigned char* __restrict__ live,
+                    int n, int n_steps, int seg, float power) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -75,6 +81,14 @@ __global__ void __launch_bounds__(kThreads)
   lam_out[i] = r.lam;
   st_out[i] = r.status;
   obj_out[i] = r.obj;
+  // the live rows, a prefix of the statuses just written, counted after
+  // the steps so that the step loop holds no counter in its registers
+  int n_live = 0;
+  while (n_live < n_seg &&
+         cst[static_cast<long long>(n_live) * n + i] == kActive) {
+    ++n_live;
+  }
+  live[i] = static_cast<unsigned char>(min(n_live, 255));
 }
 
 }  // namespace
@@ -85,9 +99,9 @@ extern "C" int bhgc_rk4_ckpt(const void* scal, const void* sph, int n_sph,
                              const void* E, const void* lam, const void* st,
                              const void* obj, void* x_out, void* p_out,
                              void* lam_out, void* st_out, void* obj_out,
-                             void* cx, void* cp, void* clam, void* cst, int n,
-                             int n_steps, int seg, float power,
-                             void* stream) {
+                             void* cx, void* cp, void* clam, void* cst,
+                             void* live, int n, int n_steps, int seg,
+                             float power, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   with_power_mode(power, [&](auto mode) {
     with_kerr(kerr, [&](auto kr) {
@@ -104,7 +118,8 @@ extern "C" int bhgc_rk4_ckpt(const void* scal, const void* sph, int n_sph,
                 static_cast<float*>(lam_out), static_cast<int*>(st_out),
                 static_cast<int*>(obj_out), static_cast<float*>(cx),
                 static_cast<float*>(cp), static_cast<float*>(clam),
-                static_cast<int*>(cst), n, n_steps, seg, power);
+                static_cast<int*>(cst), static_cast<unsigned char*>(live), n,
+                n_steps, seg, power);
       });
     });
   });

@@ -471,8 +471,9 @@ __device__ __forceinline__ void rhs_schw_vjp(float mass, float E,
 }
 
 // VJP of rhs_kerr at (a, b) for the output cotangent g (ops/adjoint.py
-// rhs_kerr_vjp, line for line): writes the cotangent of (a, b) to gab and
-// adds those of E, the mass and the spin to gE, gm, gsp.  dw_i is taken as
+// rhs_kerr_vjp, line for line, but for 1/r, formed once and multiplied
+// where that divides by r): writes the cotangent of (a, b) to gab and adds
+// those of E, the mass and the spin to gE, gm, gsp.  dw_i is taken as
 // C dr_i + e_i; no gradient passes below the r^2 and r S floors.
 __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
                                              const float y[6],
@@ -489,6 +490,7 @@ __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
   const float r2raw = 0.5f * (bq + S);
   const float r2 = fmaxf(r2raw, kR2Floor);
   const float r = sqrtf(r2);
+  const float inv_r = 1.0f / r;
   const float rS = r * S;
   const float inv_rS = 1.0f / fmaxf(rS, kR2Floor);
   const float az = s2 * a2;
@@ -498,7 +500,7 @@ __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
   const float inv_A = 1.0f / (r2 + s2);
   const float n0 = r * a0 + spin * a1;
   const float n1 = r * a1 - spin * a0;
-  const float l0 = n0 * inv_A, l1 = n1 * inv_A, l2 = a2 / r;
+  const float l0 = n0 * inv_A, l1 = n1 * inv_A, l2 = a2 * inv_r;
   const float D = r2 * r2 + az * a2;
   const float inv_D = 1.0f / D;
   const float inv_D2 = inv_D * inv_D;
@@ -515,7 +517,7 @@ __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
                   (b0 * n0 + b1 * n1) * twoR_A2 - b2 * a2 * inv_r2;
   const float dw0 = C * dr0 + (b0 * r - b1 * spin) * inv_A;
   const float dw1 = C * dr1 + (b0 * spin + b1 * r) * inv_A;
-  const float dw2 = C * dr2 + b2 / r;
+  const float dw2 = C * dr2 + b2 * inv_r;
   const float w2 = w * w, qw = q * w;
 
   // --- reverse ---
@@ -538,7 +540,7 @@ __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
   float g_spin = (gdw1 * b0 - gdw0 * b1) * inv_A;
   gb0 = gb0 + (gdw0 * r + gdw1 * spin) * inv_A;
   gb1 = gb1 + (gdw1 * r - gdw0 * spin) * inv_A;
-  gb2 = gb2 + gdw2 / r;
+  gb2 = gb2 + gdw2 * inv_r;
   // C = (b0 a0 + b1 a1) inv_A - (b0 n0 + b1 n1) twoR_A2 - b2 a2 inv_r2
   gb0 = gb0 + g_C * (a0 * inv_A - n0 * twoR_A2);
   gb1 = gb1 + g_C * (a1 * inv_A - n1 * twoR_A2);
@@ -590,8 +592,8 @@ __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
   gn0 = gn0 + gl0 * inv_A;
   gn1 = gn1 + gl1 * inv_A;
   g_invA = g_invA + gl0 * n0 + gl1 * n1;
-  ga2 = ga2 + gl2 / r;
-  g_r = g_r - gl2 * l2 / r;
+  ga2 = ga2 + gl2 * inv_r;
+  g_r = g_r - gl2 * l2 * inv_r;
   // n0 = r a0 + a a1,  n1 = r a1 - a a0
   g_r = g_r + gn0 * a0 + gn1 * a1;
   ga0 = ga0 + gn0 * r - gn1 * spin;
@@ -621,7 +623,7 @@ __device__ __forceinline__ void rhs_kerr_vjp(float mass, float spin, float E,
   g_r = g_r + g_rS * S;
   float g_S = g_rS * r;
   // r = sqrt(r2)
-  g_r2 = g_r2 + 0.5f * g_r / r;
+  g_r2 = g_r2 + 0.5f * g_r * inv_r;
   // r2 = max((bq + S) / 2, floor): no gradient below the floor
   if (!(r2raw > kR2Floor)) g_r2 = 0.0f;
   float g_bq = 0.5f * g_r2;
@@ -792,80 +794,93 @@ __device__ __forceinline__ void events_vjp(const Scalars& sc,
 // sphere entry adds the entered sphere's to gsph and sets hit (events_vjp).
 // A step whose endpoint is not finite froze the ray (y' = y): g passes
 // through and nothing is added.
-template <int PMODE, bool KERR, bool DISK, bool SPH>
+//
+// Stage i of the step (i = 0..3) evaluates the right-hand side at
+// y + a_i h k_{i-1}, a = (0, 1/2, 1/2, 1), and the step adds h/6 w_i k_i,
+// w = (1, 2, 2, 1).  Both the stage chain and its transpose are loops that
+// are not unrolled, so the right-hand side and its VJP each have one call
+// site: the code holds one copy of the (Kerr) VJP instead of four, and the
+// stage values k_0, k_1 live in shared memory, `kbuf` (this thread's column
+// of a [2][6][kThreads] block; column stride kThreads), not in registers.
+// The stage chain computes what rk4_step computes, operation for operation.
+template <int PMODE, bool KERR, bool DISK, bool SPH, int kThreads>
 __device__ __forceinline__ void rk4_step_adjoint(
     const Scalars& sc, float power, float E, const float* __restrict__ sph,
     int n_sph, const float y[6], float g[6], float& gE, float gs[5],
-    float gsph[4], int& hit) {
+    float gsph[4], int& hit, float* kbuf) {
   const float h = step_size<PMODE, KERR>(sc, power, y[0], y[1], y[2]);
-
-  // forward stage chain, as in rk4_step
-  float ka[6], kb[6], kc[6], kd[6], pt[6];
-  rhs<KERR>(sc, E, y[0], y[1], y[2], y[3], y[4], y[5], ka);
   const float c = 0.5f * h;
-  for (int i = 0; i < 6; ++i) pt[i] = y[i] + c * ka[i];
-  rhs<KERR>(sc, E, pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], kb);
-  for (int i = 0; i < 6; ++i) pt[i] = y[i] + c * kb[i];
-  rhs<KERR>(sc, E, pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], kc);
-  for (int i = 0; i < 6; ++i) pt[i] = y[i] + h * kc[i];
-  rhs<KERR>(sc, E, pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], kd);
+
+  // forward stage chain, as in rk4_step: k0, k1 to kbuf, k2 and k3 kept
+  float k1[6], k2[6];   // k_{i-1} and k_{i-2} after stage i
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {
+    float pt[6], k[6];
+    const float a = i == 3 ? h : c;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) pt[q] = i == 0 ? y[q] : y[q] + a * k1[q];
+    rhs<KERR>(sc, E, pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], k);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      if (i < 2) kbuf[(6 * i + q) * kThreads] = k[q];
+      k2[q] = k1[q];
+      k1[q] = k[q];
+    }
+  }
+  // now k1 = k_3, k2 = k_2
   const float s6 = h * (1.0f / 6.0f);
   bool finite = true;
-  float yn[6];
-  for (int i = 0; i < 6; ++i) {
-    const float ks = ka[i] + 2.0f * (kb[i] + kc[i]) + kd[i];
-    yn[i] = y[i] + s6 * ks;
-    finite = finite && isfinite(yn[i]);
+  float ks[6], yn[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    ks[q] = kbuf[q * kThreads] + 2.0f * (kbuf[(6 + q) * kThreads] + k2[q]) +
+            k1[q];
+    yn[q] = y[q] + s6 * ks[q];
+    finite = finite && isfinite(yn[q]);
   }
   if (!finite) return;
 
   // transpose of the freeze and of the event points: gy to the RK4
   // endpoint, go to the pre-step state (momentum: the endpoint's)
   float gy[6], go[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < 6; ++i) gy[i] = g[i];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) gy[q] = g[q];
   if (DISK || SPH) {
     events_vjp<DISK, SPH>(sc, sph, n_sph, y, yn, g, go, gy, gsph, hit);
   }
 
-  // transpose of the RK4 skeleton
+  // transpose of the RK4 skeleton, stage 3 first: stage i's input
+  // cotangent is h/6 w_i gy plus a_{i+1} h times stage i+1's output
   float gh = 0.0f;
-  for (int i = 0; i < 6; ++i)
-    gh += gy[i] * (ka[i] + 2.0f * (kb[i] + kc[i]) + kd[i]);
+#pragma unroll
+  for (int q = 0; q < 6; ++q) gh += gy[q] * ks[q];
   gh *= 1.0f / 6.0f;
   float gm = 0.0f, gEs = 0.0f, gsp = 0.0f;
-  float gin[6], gd[6], gc[6], gb[6], ga[6];
-  // stage d (input y + h kc)
-  for (int i = 0; i < 6; ++i) {
-    pt[i] = y[i] + h * kc[i];
-    gin[i] = s6 * gy[i];
+  float gk[6], gsum[6];
+#pragma unroll 1
+  for (int i = 3; i >= 0; --i) {
+    float km[6], pt[6], gin[6];   // k_{i-1}, stage input, its cotangent
+    const float a = i == 3 ? h : c;
+    const float w = (i == 0 || i == 3) ? s6 : 2.0f * s6;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      km[q] = i == 3 ? k2[q] : (i > 0 ? kbuf[(6 * (i - 1) + q) * kThreads]
+                                      : 0.0f);
+      pt[q] = i == 0 ? y[q] : y[q] + a * km[q];
+      gin[q] = w * gy[q];
+      if (i < 3) gin[q] = gin[q] + (i == 2 ? h : c) * gk[q];
+    }
+    rhs_vjp<KERR>(sc, E, pt, gin, gk, gEs, gm, gsp);
+    float acc = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      gsum[q] = i == 3 ? gk[q] : gsum[q] + gk[q];
+      acc += gk[q] * km[q];
+    }
+    if (i > 0) gh += i == 3 ? acc : 0.5f * acc;
   }
-  rhs_vjp<KERR>(sc, E, pt, gin, gd, gEs, gm, gsp);
-  float acc = 0.0f;
-  for (int i = 0; i < 6; ++i) acc += gd[i] * kc[i];
-  gh += acc;
-  // stage c (input y + h/2 kb)
-  for (int i = 0; i < 6; ++i) {
-    pt[i] = y[i] + c * kb[i];
-    gin[i] = 2.0f * s6 * gy[i] + h * gd[i];
-  }
-  rhs_vjp<KERR>(sc, E, pt, gin, gc, gEs, gm, gsp);
-  acc = 0.0f;
-  for (int i = 0; i < 6; ++i) acc += gc[i] * kb[i];
-  gh += 0.5f * acc;
-  // stage b (input y + h/2 ka)
-  for (int i = 0; i < 6; ++i) {
-    pt[i] = y[i] + c * ka[i];
-    gin[i] = 2.0f * s6 * gy[i] + 0.5f * h * gc[i];
-  }
-  rhs_vjp<KERR>(sc, E, pt, gin, gb, gEs, gm, gsp);
-  acc = 0.0f;
-  for (int i = 0; i < 6; ++i) acc += gb[i] * ka[i];
-  gh += 0.5f * acc;
-  // stage a (input y)
-  for (int i = 0; i < 6; ++i) gin[i] = s6 * gy[i] + 0.5f * h * gb[i];
-  rhs_vjp<KERR>(sc, E, y, gin, ga, gEs, gm, gsp);
-  for (int i = 0; i < 6; ++i)
-    g[i] = (gy[i] + (gd[i] + gc[i] + gb[i] + ga[i])) + go[i];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) g[q] = (gy[q] + gsum[q]) + go[q];
   gE += gEs;
   gs[0] += gm;
   if (KERR) gs[4] += gsp;

@@ -60,20 +60,24 @@ Source note
   the bound.
 * **What the design does about it.** One thread per ray with the whole
   state, the per-ray step h and the RK4 or Dormand-Prince stages in
-  registers (the Dormand-Prince adjoint keeps its 84 stage values and its
-  tape in local memory).
-  The TPU kernels' tile-wide "any ray ACTIVE" skips become per-thread
-  exits as soon as the thread's own ray leaves ACTIVE, which is exact
-  because a frozen ray is an identity under a step or a trip.  The
-  adjoints recompute one segment at a time onto a per-thread tape in
-  local memory and sweep it backwards; they never differentiate a frozen
-  step, so they need none of the TPU wrapper's far-away ERROR padding
-  rays.  Their scalar cotangents and the (K, 4) sphere cotangent are
-  summed per block in a fixed tree and then across blocks in a fixed
-  order, so they are the same bit for bit from run to run.  The TPU-only
-  machinery is not carried over: the 128-lane row layout, the padding and
-  the VMEM tile sizing.  The cost-ordered tiling changes no output and is
-  left to a measurement.
+  registers.  The TPU kernels' tile-wide "any ray ACTIVE" skips become
+  per-thread exits as soon as the thread's own ray leaves ACTIVE, which is
+  exact because a frozen ray is an identity under a step or a trip.  The
+  adjoints recompute one segment at a time onto a per-thread tape in local
+  memory and sweep it backwards; they never differentiate a frozen step,
+  so they need none of the TPU wrapper's far-away ERROR padding rays.
+  Their Kerr stages are loops with one call site of the right-hand side's
+  VJP and the stage values in shared memory, in 128-thread blocks of at
+  most 128 registers a thread (16 warps an SM).  Their threads take the
+  rays in ``tile_order`` (``ray_order``: by default most live checkpoint
+  segments first, a count the checkpointing kernels write, as the TPU
+  wrapper's cost-ordered tiles, pallas_kernel.py:1568-1589), which changes
+  no per-ray output.  Their scalar cotangents and the (K, 4) sphere
+  cotangent are summed per block in a fixed tree and then across blocks in
+  a fixed order, so they are the same bit for bit from run to run.  The
+  TPU-only machinery is not carried over: the 128-lane row layout, the
+  padding and the VMEM tile sizing.  The forward kernels take the rays in
+  input order.
 
 ``integrate_plain`` is the plain PyTorch version of ``integrate_cuda``
 (ops/integrate.py's loops, the checkpointed ones under autograd), and
@@ -103,7 +107,7 @@ from .integrate import (
     integrate_fixed_fast,
     needs_grad,
 )
-from .states import RayState
+from .states import ACTIVE, RayState
 
 MAX_SEG = 64   # the adjoints' tape length (csrc/rk4_bwd.cu, dopri_bwd.cu)
 N_GRAD = 5     # scalar cotangents per block row (csrc/rk4_bwd.cu kNGrad)
@@ -178,6 +182,28 @@ def integrate_adaptive_ckpt_plain(
         if bool(s.active.any()):   # else the trip is the identity
             s, h, _ = _dopri_trip(env, cfg, s, h)
     return s, rows, hs
+
+
+def live_segments(cst: torch.Tensor) -> torch.Tensor:
+    """Plain version of the (n,) uint8 count that rk4_ckpt and dopri_ckpt
+    write beside the checkpoints: each ray's ACTIVE rows of ``cst`` (n_seg,
+    n) -- the segments the adjoint will recompute and sweep, which form a
+    prefix -- capped at 255 to fit a byte."""
+    return (cst == ACTIVE).sum(0).clamp(max=255).to(torch.uint8)
+
+
+def ray_order(live: torch.Tensor, tile_order: str) -> torch.Tensor:
+    """The (n,) int64 order in which an adjoint's threads take the rays:
+    thread t takes ray order[t].  ``tile_order="cost"`` (the JAX package's
+    switch, IntegratorConfig.tile_order) sorts the rays by ``live``, their
+    count of live segments (live_segments), most first; the sort is
+    stable, so rays of one count keep their input order and the order is
+    the same from run to run.  ``"none"`` is the input order."""
+    if tile_order == "none":
+        return torch.arange(live.numel(), device=live.device)
+    if tile_order != "cost":
+        raise ValueError(f"unknown tile_order {tile_order!r}")
+    return torch.sort(live, descending=True, stable=True).indices
 
 
 def _scalars(env: GeodesicEnv, cfg: IntegratorConfig,
@@ -291,8 +317,9 @@ def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float,
              *, sph=None, has_disk=False, obj=None, kerr=False):
     """Launch rk4_ckpt on flat tensors; returns the final (x, p, lam,
     status, hit_obj) and the checkpoints (cx, cp, clam, cst), each of
-    leading dimension n_seg = ceil(n_steps / seg).  ``sph``, ``has_disk``,
-    ``obj`` and ``kerr`` as for rk4_fwd."""
+    leading dimension n_seg = ceil(n_steps / seg), with each ray's live
+    segments (live_segments).  ``sph``, ``has_disk``, ``obj`` and ``kerr``
+    as for rk4_fwd."""
     sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
     if obj is None:
         obj = torch.full_like(st, -1)
@@ -305,6 +332,7 @@ def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float,
     cp = p.new_empty((n_seg, n, 3))
     clam = lam.new_empty((n_seg, n))
     cst = st.new_empty((n_seg, n))
+    live = torch.empty(n, dtype=torch.uint8, device=x.device)
     if n:
         with torch.cuda.device(x.device):
             rc = _build.load().bhgc_rk4_ckpt(
@@ -313,27 +341,28 @@ def rk4_ckpt(scal, x, p, E, lam, st, n_steps: int, seg: int, power: float,
                 lam.data_ptr(), st.data_ptr(), obj.data_ptr(),
                 x_out.data_ptr(), p_out.data_ptr(), lam_out.data_ptr(),
                 st_out.data_ptr(), obj_out.data_ptr(), cx.data_ptr(),
-                cp.data_ptr(),
-                clam.data_ptr(), cst.data_ptr(), n, n_steps, seg, power,
-                _stream(x.device))
+                cp.data_ptr(), clam.data_ptr(), cst.data_ptr(),
+                live.data_ptr(), n, n_steps, seg, power, _stream(x.device))
         _raise_on(rc, "rk4_ckpt")
         LAUNCHES[variant("rk4_ckpt", kerr, _events(sph, has_disk))] += 1
-    return x_out, p_out, lam_out, st_out, obj_out, (cx, cp, clam, cst)
+    return x_out, p_out, lam_out, st_out, obj_out, (cx, cp, clam, cst, live)
 
 
 def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float,
-            *, sph=None, has_disk=False, kerr=False):
+            *, sph=None, has_disk=False, kerr=False, tile_order="cost"):
     """Launch rk4_bwd: the cotangents (x, p, E) of the initial state, the
     (NSCAL,) scalar cotangent (the spin's at entry 9 for Kerr) and the
     (K, 4) sphere cotangent, from the checkpoints of rk4_ckpt and the
     cotangents ``gx``, ``gp`` of the final (x, p).  ``sph``, ``has_disk``
-    and ``kerr`` as for rk4_ckpt."""
+    and ``kerr`` as for rk4_ckpt; ``tile_order`` the order in which the
+    threads take the rays (ray_order), which changes no per-ray cotangent
+    and only the order of the scalar and sphere sums."""
     if not 1 <= seg <= MAX_SEG:
         raise ValueError(f"seg={seg} outside the adjoint's tape "
                          f"(1..{MAX_SEG} steps)")
     sph = _no_spheres(E) if sph is None else sph.detach().contiguous()
     n_sph = sph.shape[0]
-    cx, cp, clam, cst = ckpts
+    cx, cp, clam, cst, live = ckpts
     n = E.numel()
     bx, bp = torch.empty_like(gx), torch.empty_like(gp)
     bE = torch.empty_like(E)
@@ -343,14 +372,15 @@ def rk4_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int, power: float,
         lib = _build.load()
         partial = E.new_empty((lib.bhgc_rk4_bwd_blocks(n),
                                N_GRAD + 4 * n_sph))
+        order = ray_order(live, tile_order)
         with torch.cuda.device(E.device):
             rc = lib.bhgc_rk4_bwd(
                 scal.data_ptr(), sph.data_ptr(), n_sph, int(has_disk),
                 int(kerr), cx.data_ptr(), cp.data_ptr(), clam.data_ptr(),
                 cst.data_ptr(), E.data_ptr(), gx.data_ptr(), gp.data_ptr(),
                 bx.data_ptr(), bp.data_ptr(), bE.data_ptr(),
-                partial.data_ptr(), gscal.data_ptr(), gsph.data_ptr(), n,
-                n_steps, seg, power, _stream(E.device))
+                partial.data_ptr(), order.data_ptr(), gscal.data_ptr(),
+                gsph.data_ptr(), n, n_steps, seg, power, _stream(E.device))
         _raise_on(rc, "rk4_bwd")
         LAUNCHES[variant("rk4_bwd", kerr, _events(sph, has_disk))] += 1
     return bx, bp, bE, gscal, gsph
@@ -368,13 +398,14 @@ class RK4Adjoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, p, E, scal, sph, lam, st, obj, has_disk, kerr,
-                n_steps, seg, power):
+                n_steps, seg, power, tile_order):
         x1, p1, lam1, st1, obj1, ckpts = rk4_ckpt(
             scal, x, p, E, lam, st, n_steps, seg, power, sph=sph,
             has_disk=has_disk, obj=obj, kerr=kerr)
         ctx.save_for_backward(scal, sph, E, *ckpts)
         ctx.schedule = (n_steps, seg, power)
-        ctx.variant = dict(has_disk=has_disk, kerr=kerr)
+        ctx.variant = dict(has_disk=has_disk, kerr=kerr,
+                           tile_order=tile_order)
         ctx.mark_non_differentiable(lam1, st1, obj1)
         return x1, p1, lam1, st1, obj1
 
@@ -387,8 +418,7 @@ class RK4Adjoint(torch.autograd.Function):
         bx, bp, bE, gscal, gsph = rk4_bwd(scal, ckpts, E, gx, gp,
                                           *ctx.schedule, sph=sph,
                                           **ctx.variant)
-        return (bx, bp, bE, gscal, gsph, None, None, None, None, None, None,
-                None, None)
+        return (bx, bp, bE, gscal, gsph) + (None,) * 9
 
 
 def controller(cfg: IntegratorConfig) -> Controller:
@@ -432,7 +462,8 @@ def dopri_ckpt(scal, x, p, E, h, lam, st, n_steps: int, seg: int,
     """Launch dopri_ckpt on flat tensors; returns the final (x, p, lam,
     status, hit_obj) and the checkpoints (cx, cp, ch, clam, cst) before
     trips 0, seg, 2 seg, ..., each of leading dimension ceil(n_steps /
-    seg).  Arguments as for dopri_fwd."""
+    seg), with each ray's live segments (live_segments).  Arguments as for
+    dopri_fwd."""
     sph = _no_spheres(x) if sph is None else sph.detach().contiguous()
     if obj is None:
         obj = torch.full_like(st, -1)
@@ -444,6 +475,7 @@ def dopri_ckpt(scal, x, p, E, h, lam, st, n_steps: int, seg: int,
     cx, cp = x.new_empty((n_seg, n, 3)), p.new_empty((n_seg, n, 3))
     ch, clam = h.new_empty((n_seg, n)), lam.new_empty((n_seg, n))
     cst = st.new_empty((n_seg, n))
+    live = torch.empty(n, dtype=torch.uint8, device=x.device)
     if n:
         with torch.cuda.device(x.device):
             rc = _build.load().bhgc_dopri_ckpt(
@@ -453,25 +485,28 @@ def dopri_ckpt(scal, x, p, E, h, lam, st, n_steps: int, seg: int,
                 x_out.data_ptr(), p_out.data_ptr(), lam_out.data_ptr(),
                 st_out.data_ptr(), obj_out.data_ptr(), cx.data_ptr(),
                 cp.data_ptr(), ch.data_ptr(), clam.data_ptr(), cst.data_ptr(),
-                n, n_steps, seg, *ctl, _stream(x.device))
+                live.data_ptr(), n, n_steps, seg, *ctl, _stream(x.device))
         _raise_on(rc, "dopri_ckpt")
         LAUNCHES[variant("dopri_ckpt", kerr, _events(sph, has_disk))] += 1
-    return x_out, p_out, lam_out, st_out, obj_out, (cx, cp, ch, clam, cst)
+    ckpts = (cx, cp, ch, clam, cst, live)
+    return x_out, p_out, lam_out, st_out, obj_out, ckpts
 
 
 def dopri_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int,
-              ctl: Controller, *, sph=None, has_disk=False, kerr=False):
+              ctl: Controller, *, sph=None, has_disk=False, kerr=False,
+              tile_order="cost"):
     """Launch dopri_bwd: the cotangents (x, p, E) of the initial state, the
     (NSCAL,) scalar cotangent (the mass's and, for Kerr, the spin's at
     entry 9) and the (K, 4) sphere cotangent, from the checkpoints of
     dopri_ckpt and the cotangents ``gx``, ``gp`` of the final (x, p).  The
-    initial h is a constant: its cotangent is dropped."""
+    initial h is a constant: its cotangent is dropped.  ``tile_order`` as
+    for rk4_bwd."""
     if not 1 <= seg <= MAX_SEG:
         raise ValueError(f"seg={seg} outside the adjoint's tape "
                          f"(1..{MAX_SEG} trips)")
     sph = _no_spheres(E) if sph is None else sph.detach().contiguous()
     n_sph = sph.shape[0]
-    cx, cp, ch, clam, cst = ckpts
+    cx, cp, ch, clam, cst, live = ckpts
     n = E.numel()
     bx, bp = torch.empty_like(gx), torch.empty_like(gp)
     bE = torch.empty_like(E)
@@ -481,14 +516,15 @@ def dopri_bwd(scal, ckpts, E, gx, gp, n_steps: int, seg: int,
         lib = _build.load()
         partial = E.new_empty((lib.bhgc_dopri_bwd_blocks(n),
                                N_GRAD_DOPRI + 4 * n_sph))
+        order = ray_order(live, tile_order)
         with torch.cuda.device(E.device):
             rc = lib.bhgc_dopri_bwd(
                 scal.data_ptr(), sph.data_ptr(), n_sph, int(has_disk),
                 int(kerr), cx.data_ptr(), cp.data_ptr(), ch.data_ptr(),
                 clam.data_ptr(), cst.data_ptr(), E.data_ptr(), gx.data_ptr(),
                 gp.data_ptr(), bx.data_ptr(), bp.data_ptr(), bE.data_ptr(),
-                partial.data_ptr(), gscal.data_ptr(), gsph.data_ptr(), n,
-                n_steps, seg, *ctl, _stream(E.device))
+                partial.data_ptr(), order.data_ptr(), gscal.data_ptr(),
+                gsph.data_ptr(), n, n_steps, seg, *ctl, _stream(E.device))
         _raise_on(rc, "dopri_bwd")
         LAUNCHES[variant("dopri_bwd", kerr, _events(sph, has_disk))] += 1
     return bx, bp, bE, gscal, gsph
@@ -503,13 +539,14 @@ class DopriAdjoint(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, p, E, scal, sph, h, lam, st, obj, has_disk, kerr,
-                n_steps, seg, ctl):
+                n_steps, seg, ctl, tile_order):
         x1, p1, lam1, st1, obj1, ckpts = dopri_ckpt(
             scal, x, p, E, h, lam, st, n_steps, seg, ctl, sph=sph,
             has_disk=has_disk, obj=obj, kerr=kerr)
         ctx.save_for_backward(scal, sph, E, *ckpts)
         ctx.schedule = (n_steps, seg, ctl)
-        ctx.variant = dict(has_disk=has_disk, kerr=kerr)
+        ctx.variant = dict(has_disk=has_disk, kerr=kerr,
+                           tile_order=tile_order)
         ctx.mark_non_differentiable(lam1, st1, obj1)
         return x1, p1, lam1, st1, obj1
 
@@ -522,7 +559,7 @@ class DopriAdjoint(torch.autograd.Function):
         bx, bp, bE, gscal, gsph = dopri_bwd(scal, ckpts, E, gx, gp,
                                             *ctx.schedule, sph=sph,
                                             **ctx.variant)
-        return (bx, bp, bE, gscal, gsph) + (None,) * 9
+        return (bx, bp, bE, gscal, gsph) + (None,) * 10
 
 
 def integrate_cuda(env: GeodesicEnv, s0: RayState,
@@ -558,7 +595,7 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
         if needs_grad(env, s0):
             x1, p1, lam1, st1, obj1 = DopriAdjoint.apply(
                 x, p, E, scal, sph, h, lam, st, obj, has_disk, kerr, n_steps,
-                segment(n_steps), ctl)
+                segment(n_steps), ctl, cfg.tile_order)
         else:
             x1, p1, lam1, st1, obj1 = dopri_fwd(
                 scal, x, p, E, h, lam, st, n_steps, ctl, sph=sph,
@@ -566,7 +603,7 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
     elif needs_grad(env, s0):
         x1, p1, lam1, st1, obj1 = RK4Adjoint.apply(
             x, p, E, scal, sph, lam, st, obj, has_disk, kerr, n_steps,
-            segment(n_steps), power)
+            segment(n_steps), power, cfg.tile_order)
     else:
         x1, p1, lam1, st1, obj1 = rk4_fwd(
             scal, x, p, E, lam, st, n_steps, power, sph=sph,

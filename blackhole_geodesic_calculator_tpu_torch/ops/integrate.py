@@ -103,8 +103,10 @@ class IntegratorConfig:
     dt_boost: float = 8.0
     dt_boost_r_ref: float = 0.0  # 0 -> 6 M (twice the photon sphere)
     dt_power: float = 1.0
-    # Tile ordering of the TPU kernel; the CUDA kernel runs one thread per
-    # ray and takes no ordering, and the outputs never depend on it.
+    # Ray ordering: the TPU kernel's tiles, and on CUDA the order in which
+    # the adjoint kernels' threads take the rays ('cost': most checkpoint
+    # segments first; cuda_kernel.ray_order).  Per-ray outputs never depend
+    # on it; the adjoints' scalar sums are taken in its order.
     tile_order: str = "cost"     # 'cost' | 'none'
     # Dormand-Prince controls: the error norm's tolerances and the clip of
     # the per-ray step; the first step is min(dt, max_step).

@@ -1,6 +1,7 @@
 """Scene description -- pure data (PyTorch port of scene/scene.py).
 
-Every physical quantity is a float32 tensor on the scene's device: the
+Every physical quantity is a float32 tensor on the scene's device (the
+card unless a constructor is given ``device="cpu"``): the
 black hole (Schwarzschild, or Kerr with a spin), the sky, a z = 0 accretion
 disk, textured spheres and point lights.  A spun hole renders through the
 Kerr variants of the integrator kernels (pallas_kernel.py:1377-1379,
@@ -15,8 +16,15 @@ from typing import Any
 import torch
 
 
+def on_device(device) -> torch.device:
+    """The device a constructor puts its tensors on: the card unless the
+    caller names another (``device="cpu"``).  With no CUDA device, building
+    on the card raises; nothing falls back to the CPU."""
+    return torch.device("cuda" if device is None else device)
+
+
 def _f(v, device=None) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=on_device(device))
 
 
 @dataclasses.dataclass
@@ -75,6 +83,7 @@ class Spheres:
     @classmethod
     def make(cls, center, radius, texture, emission=None, albedo=None,
              device=None):
+        device = on_device(device)
         center = _f(center, device)
         k = center.shape[0]
         if emission is None:

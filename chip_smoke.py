@@ -20,11 +20,17 @@ line) if anything is off:
      1M rays against the plain integrator's;
   4. holds rk4_ckpt against rk4_fwd (final states) and each of its
      checkpoint rows against the plain step loop at the same step, on the
-     fan, the ragged batch and the flagship rays;
+     fan, the ragged batch and the flagship rays, and its count of each
+     ray's live segments against live_segments of its statuses (so do
+     phases 9, 14 and 21 for the event, Kerr and dopri_ckpt variants);
   5. holds rk4_bwd against autograd of the plain step loop on the card:
      per-ray cotangents of x, p and E and the mass cotangent, on the fan
      (also cut to 40 steps, so rays are ACTIVE at the end) and on the
-     ragged batch at all four step-size powers;
+     ragged batch at all four step-size powers; and in both ray orders
+     (``tile_order`` "cost" and "none", order_check): per-ray cotangents
+     equal bit for bit, the mass, spin and sphere sums within
+     TOL_GRAD_MASS, two runs the same bits (so do phases 10, 15, 18 for
+     rk4_bwd and 22-25 for dopri_bwd, to TOL_DOPRI_GRAD_SCALAR);
   6. takes the flagship 1024x1024 gradient of mean(img^2) with respect to
      the mass, the camera position and the sky through ``render_image``,
      checks that rk4_ckpt and rk4_bwd were launched once each and rk4_fwd
@@ -89,7 +95,12 @@ line) if anything is off:
      the plain loop, and times it and each kernel;
  19. computes each kernel's bound at the main path's inputs: the ray-steps
      of its frame, the operations per ray-step counted on the plain
-     statement of its variant, and the bytes it must move;
+     statement of its variant, and the bytes it must move; and for each
+     rk4_bwd variant on its frame (adjoint_table) the registers, stack and
+     spills ptxas reports, the resident blocks per SM, the SASS size, the
+     share of busy lanes and the device and call times in input and in
+     cost order; and rk4_bwd's device time at seg 32 and 64 (the sky and
+     the Kerr events frames at 400 and 2000 steps);
  20. holds dopri_fwd (adaptive Dormand-Prince, K4) against the plain trip
      loop on 65,536-ray fans (camera and events, Schwarzschild and a =
      0.45) at bench.py's adaptive configuration: the reference's
@@ -112,10 +123,11 @@ line) if anything is off:
  25. runs bench.py's adaptive rows (bench_adaptive) at 262,144 rays,
      Schwarzschild and Kerr: the forward through dopri_fwd and the mass
      (and spin) gradient through dopri_ckpt and dopri_bwd, held to the
-     plain path; times;
+     plain path; times, the gradient in both ray orders;
  26. computes the Dormand-Prince kernels' bounds as phase 19 does, from the
      ray-trips of the plain trip loop replayed and the operations per trip
-     counted on ``adjoint.dopri_trip`` and ``dopri_trip_vjp``.
+     counted on ``adjoint.dopri_trip`` and ``dopri_trip_vjp``, and prints
+     dopri_bwd's table as phase 19 does rk4_bwd's.
 
 Every check of a phase is recorded; after the last phase the run fails if
 any check failed.  The last line of standard output is
@@ -127,7 +139,9 @@ nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -809,9 +823,19 @@ def no_grad(fn):
 
 
 def ckpt_rows(ck, k, s0):
-    cx, cp, clam, cst = ck
+    cx, cp, clam, cst, _ = ck
     return dataclasses.replace(s0, x=cx[k], p=cp[k], lam=clam[k],
                                status=cst[k])
+
+
+def live_equal(ck, what):
+    """rk4_ckpt's or dopri_ckpt's count of each ray's live segments (the
+    last entry of ``ck``) against its plain version on the kernel's own
+    checkpoint statuses; the log's word for it."""
+    same = torch.equal(ck[-1], cuda_kernel.live_segments(ck[-2]))
+    check(same, f"{what}: the live-segment counts differ from "
+          "live_segments of the checkpoint statuses")
+    return "live counts equal" if same else "live counts DIFFER"
 
 
 def event_kw(env, s0):
@@ -877,7 +901,8 @@ def phase_ckpt(env, icfg, scene, cam, dev, readings):
         log(f"# phase 4: [{what}] rk4_ckpt final state "
             + ("equals rk4_fwd's bit for bit" if same
                else "differs from rk4_fwd's (held to its tolerances)")
-            + f"; {len(rows)} checkpoint rows of seg {seg} agree")
+            + f"; {len(rows)} checkpoint rows of seg {seg} agree; "
+            + live_equal(ck, what))
     readings["rk4_ckpt"].update(max_abs_err=err, equals_rk4_fwd=bitwise)
 
 
@@ -918,6 +943,51 @@ def compare_grads(out_k, gk, out_p, gp, what):
     return max(errs + [dm])
 
 
+def order_check(tag, name, launch, tol, readings):
+    """The adjoint ``name`` in cost order, again, and in input order
+    (``launch(tile_order)`` returns its outputs): the per-ray cotangents of
+    x, p and E equal bit for bit, the mass and spin cotangents (relative)
+    and the sphere cotangent (to its largest entry), summed in another
+    order, within ``tol``, and the two runs in cost order the same bits."""
+    with torch.no_grad():
+        cost, again, plain = launch("cost"), launch("cost"), launch("none")
+    per_ray = all(torch.equal(a, b) for a, b in zip(cost[:3], plain[:3]))
+    same = all(torch.equal(a, b) for a, b in zip(cost, again))
+    apart = [abs(float(cost[3][q]) / float(plain[3][q]) - 1.0) for q in (0, 9)
+             if float(plain[3][q]) != 0.0]
+    if plain[4].numel():
+        apart.append(rel_err(cost[4], plain[4]))
+    spread = max(apart, default=0.0)
+    log(f"# {tag}: {name} in cost and in input order: per-ray cotangents "
+        + ("equal bit for bit" if per_ray else "DIFFER")
+        + f"; mass, spin and sphere cotangents apart by {spread:.3e} (limit "
+        f"{tol:g}); two runs in cost order "
+        + ("equal bit for bit" if same else "DIFFER"))
+    check(per_ray, f"{tag}: {name}'s per-ray cotangents depend on the order")
+    check(same, f"{tag}: {name} in cost order is not deterministic")
+    check(spread <= tol, f"{tag}: {name}'s scalar or sphere cotangents part "
+          f"by {spread:.3e} between the ray orders (limit {tol:g})")
+    r = readings[name]
+    r["order_spread"] = max(r.get("order_spread", 0.0), spread)
+
+
+def rk4_order_check(tag, env, cfg, s0, w, readings):
+    """order_check of rk4_bwd on rk4_ckpt's checkpoints of the flat state
+    ``s0``, with the cotangent ``w`` for the final x and p; held to
+    TOL_GRAD_MASS."""
+    with torch.no_grad():
+        _, _, ck = run_ckpt(env, cfg, s0)
+        scal = cuda_kernel._scalars(env, cfg, s0.x.device)
+    kw = event_kw(env, s0)
+    del kw["obj"]
+    seg = cuda_kernel.segment(cfg.n_steps)
+    name = cuda_kernel.variant("rk4_bwd", env.spin is not None,
+                               env.disk is not None or env.spheres is not None)
+    order_check(tag, name, lambda o: cuda_kernel.rk4_bwd(
+        scal, ck, s0.E, w, w, cfg.n_steps, seg, float(cfg.dt_power),
+        tile_order=o, **kw), TOL_GRAD_MASS, readings)
+
+
 def phase_bwd(env, icfg, dev, readings):
     """rk4_bwd against autograd of the plain loop on the card."""
     rng = np.random.default_rng(2)
@@ -938,6 +1008,7 @@ def phase_bwd(env, icfg, dev, readings):
         active = int((out_k.status == states.ACTIVE).sum())
         err = max(err, compare_grads(out_k, gk, out_p, gp,
                                      f"{what}, {active} ACTIVE at the end"))
+        rk4_order_check(f"phase 5 [{what}]", env, c, s0, wx, readings)
     readings["rk4_bwd"]["max_abs_err"] = err
     log("# phase 5: rk4_bwd agrees with autograd of the plain loop")
 
@@ -1538,7 +1609,8 @@ def ckpt_against_fwd(cases, tag):
         log(f"# {tag}: [{what}] rk4_ckpt "
             + ("equals rk4_fwd bit for bit" if same else "DIFFERS")
             + f"; {len(rows)} checkpoint rows of seg {seg} agree "
-            f"({int((~keep).sum())} rays left to the forward phase)")
+            f"({int((~keep).sum())} rays left to the forward phase); "
+            + live_equal(ck, what))
     return err, bitwise
 
 
@@ -1605,6 +1677,7 @@ def phase_events_bwd(env, icfg, dev, readings):
             check(float(gp[4].abs().max()) > 0,
                   f"{what}: no sphere cotangent")
             err = max(err, *errs, dm, dsph)
+        rk4_order_check(f"phase 10 [{what}]", eenv, c, s0, w, readings)
     # two runs of rk4_bwd give the same bits, the sphere cotangent included
     s0 = flat_state(initial_state(eenv, xf, df))
     g = torch.as_tensor(rng.normal(size=(2, FAN, 3)), dtype=torch.float32,
@@ -2147,6 +2220,7 @@ def phase_kerr_bwd(icfg, dev, readings):
                   f"and spheres {lim:g})")
             check(float(gp[4].abs()) > 0, f"{what}: no spin cotangent")
             err[events] = max(err[events], *errs, dm, ds, dsph)
+        rk4_order_check(f"phase 15 [{what}]", env, c, s0, w, readings)
     # two runs of rk4_bwd's Kerr variant give the same bits
     env = with_events(kerr_env(0.45, dev))
     s0 = flat_state(initial_state(env, *events_fan(FAN, dev)))
@@ -2305,6 +2379,7 @@ def phase_kerr_integrator(dev, name_limit, readings):
           f"{what}: per-ray cotangents away from b_c outside {TOL_GRAD:g}")
     r = readings["rk4_bwd_kerr"]
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), *errs, dm)
+    rk4_order_check(f"phase 18 [{what}]", env, cfg, s0, wx, readings)
 
     # times: bench.py's row, and each kernel on the fan's rays against its
     # plain version
@@ -2523,7 +2598,7 @@ def phase_dopri_ckpt(dev, readings):
             near = near_b_c(e, s0)
             worst_st, worst_dx, worst_dh, fewest = 1.0, 0.0, 0.0, 1.0
             for k, (row, h) in enumerate(zip(rows, hs)):
-                cx, cp, ch, clam, cst = (t[k] for t in ck)
+                cx, cp, ch, clam, cst = (t[k] for t in ck[:5])
                 worst_st = min(worst_st,
                                float((cst == row.status).float().mean()))
                 keep = ((clam - row.lam).abs() <= TOL_X) & ~near
@@ -2541,7 +2616,8 @@ def phase_dopri_ckpt(dev, readings):
                   f"({DOPRI_AGREE}, {DOPRI_EVENT_X:g}, {DOPRI_APART})")
             errs[name] = max(errs.get(name, 0.0), worst_dx)
         log(f"# phase 21: [{what}] dopri_ckpt "
-            + ("equals dopri_fwd bit for bit" if same else "DIFFERS") + msg)
+            + ("equals dopri_fwd bit for bit" if same else "DIFFERS") + msg
+            + "; " + live_equal(ck, what))
     for name, same in bitwise.items():
         readings[name].update(equals_dopri_fwd=same,
                               max_abs_err=errs.get(name, 0.0))
@@ -2585,6 +2661,20 @@ def observable_loss(env, s, w):
            )[..., None] & ~ev
     return (torch.where(sky, w * final_direction(env, s), 0.0)
             + torch.where(ev, w * s.x, 0.0)).sum()
+
+
+def dopri_order_check(tag, env, cfg, s0, w, readings):
+    """order_check of dopri_bwd on dopri_ckpt's checkpoints of the flat
+    state ``s0``, with the cotangent ``w`` for the final x and p; held to
+    TOL_DOPRI_GRAD_SCALAR."""
+    args, ctl, kw = dopri_args(env, cfg, s0)
+    seg = cuda_kernel.segment(cfg.n_steps)
+    with torch.no_grad():
+        ck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)[-1]
+    del kw["obj"]
+    order_check(tag, dopri_name("bwd", env), lambda o: cuda_kernel.dopri_bwd(
+        args[0], ck, s0.E, w, w, cfg.n_steps, seg, ctl, tile_order=o, **kw),
+        TOL_DOPRI_GRAD_SCALAR, readings)
 
 
 def phase_dopri_bwd(dev, readings):
@@ -2639,6 +2729,8 @@ def phase_dopri_bwd(dev, readings):
               f"scalars {TOL_DOPRI_GRAD_SCALAR:g})")
         name = dopri_name("bwd", e)
         err[name] = max(err.get(name, 0.0), *med[:2], *scalars)
+        dopri_order_check(f"phase 22 [{what}]", e, cfg, flat_state(s0), w,
+                          readings)
     for name, v in err.items():
         readings[name]["max_abs_err"] = v
     # two runs of dopri_bwd give the same bits
@@ -2874,6 +2966,7 @@ def phase_dopri_ring(dev, name_limit, readings, spin=None):
         log(f"# determinism: two runs of {bwd_k} on the {tag} rays give "
             + ("bitwise-equal" if same else "DIFFERENT") + " outputs")
         check(same, f"{bwd_k} is not deterministic")
+    dopri_order_check(tag, fenv, icfg, flat, g, readings)
     _, t_plain_int = once(no_grad(
         lambda: cuda_kernel.integrate_adaptive(fenv, s0, icfg)))
     ms = {"forward render (kernel)": t_fwd,
@@ -2933,12 +3026,12 @@ def phase_dopri_adaptive(dev, name_limit, readings, spin=None):
             return P.launch(env, x0, d0, dataclasses.replace(
                 cfg_f, backend=backend))
 
-    def gradient(backend, timing=None):
+    def gradient(backend, timing=None, order="cost"):
         leaf = lambda v: v.detach().clone().requires_grad_(True)  # noqa
         e = dataclasses.replace(env, mass=leaf(env.mass),
                                 spin=None if spin is None else leaf(env.spin))
         s, t_f = once(lambda: P.launch(e, x0, d0, dataclasses.replace(
-            cfg_g, backend=backend)))
+            cfg_g, backend=backend, tile_order=order)))
         _, t_b = once(((s.x ** 2).sum() * 1e-6).backward)
         if timing is not None:
             timing.update(fwd=t_f, bwd=t_b)
@@ -2998,11 +3091,14 @@ def phase_dopri_adaptive(dev, name_limit, readings, spin=None):
     bwd = no_grad(lambda: cuda_kernel.dopri_bwd(
         args_g[0], ck_out[-1], flat.E, g, g, cfg_g.n_steps, seg, ctl,
         kerr=spin is not None))
+    dopri_order_check(tag, env, cfg_g, flat, g, readings)
     _, t_plain_int = once(no_grad(
         lambda: cuda_kernel.integrate_adaptive(env, flat, cfg_f)))
     ms = {"forward (kernel)": t_fwd, "forward (plain)": t_fwd_plain,
           "forward+gradient (kernels)": timed(lambda: gradient("auto"),
                                               runs=3),
+          "forward+gradient (kernels, input order)": timed(
+              lambda: gradient("auto", order="none"), runs=3),
           "forward+gradient (plain)": t_grad_plain,
           f"{fwd_k} call": timed(fwd, runs=5),
           f"{ckpt_k} call": timed(ckpt, runs=5),
@@ -3029,25 +3125,28 @@ def phase_dopri_adaptive(dev, name_limit, readings, spin=None):
         "fwd_grad_plain_ms": t_grad_plain}
 
 
-def trip_counts(env, cfg, s0):
+def trip_counts(env, cfg, s0, n_grad):
     """Per trip of the plain trip loop from ``s0`` (integrate_adaptive's),
     the ACTIVE rays and those whose sphere guard passes (dopri_fwd's
-    GUARD)."""
+    GUARD); and each ray's trips among the first ``n_grad``."""
     s, h = s0, torch.full_like(s0.E, dopri_h0(cfg))
     live, guard = [], []
+    per_ray = torch.zeros_like(s0.E, dtype=torch.int32)
     with torch.no_grad():
-        for _ in range(cfg.n_steps):
+        for trip in range(cfg.n_steps):
             act = s.active
             k = int(act.sum())
             if not k:
                 break
             live.append(k)
+            if trip < n_grad:
+                per_ray += act.int()
             if env.spheres is not None:
                 y, _, _, _ = dopri_step(env, s.x, s.p, s.E,
                                         torch.where(act, h, 0.0))
                 guard.append(int((act & guard_pass(env, s.x, y)).sum()))
             s, h, _ = _dopri_trip(env, cfg, s, h)
-    return live, guard
+    return live, guard, per_ray
 
 
 def phase_dopri_bounds(dev, name_limit, readings):
@@ -3075,7 +3174,7 @@ def phase_dopri_bounds(dev, name_limit, readings):
     for suffix, (env, cfg_f, cfg_g, s0) in frames.items():
         n, k = s0.E.numel(), (0 if env.spheres is None
                               else env.spheres.center.shape[0])
-        live, guard = trip_counts(env, cfg_f, s0)
+        live, guard, per_ray = trip_counts(env, cfg_f, s0, cfg_g.n_steps)
         trips_f, trips_g = sum(live), sum(live[:cfg_g.n_steps])
         guarded = sum(guard)
         few = rays(s0, torch.arange(64, device=dev))
@@ -3129,6 +3228,27 @@ def phase_dopri_bounds(dev, name_limit, readings):
             f"{cfg_g.n_steps} trips, {guarded} past the sphere guard; per "
             f"trip {trip_ops} operations (sphere quadratics {quad}, guard "
             f"{guard_ops}), adjoint {vjp_ops}")
+        # dopri_bwd on this frame's checkpoints, in each ray order
+        args, ctl_g, kw = dopri_args(env, cfg_g, s0)
+        seg = cuda_kernel.segment(cfg_g.n_steps)
+        ckpt = lambda kw=dict(kw): cuda_kernel.dopri_ckpt(  # noqa: E731
+            *args, seg, ctl_g, **kw)
+        with torch.no_grad():
+            ck = ckpt()[-1]
+        del kw["obj"]
+        g = torch.ones_like(s0.x)
+        lib = _build.load()
+        adjoint_table(
+            "phase 26", f"dopri_bwd{suffix}",
+            rf"dopri_bwd_kernelILb{int(kw['kerr'])}"
+            rf"ELi{2 * kw['has_disk'] + (k > 0)}E", ckpt,
+            lambda order: cuda_kernel.dopri_bwd(
+                args[0], ck, s0.E, g, g, cfg_g.n_steps, seg, ctl_g,
+                tile_order=order, **kw),
+            ck[-1], per_ray, seg,
+            lib.bhgc_dopri_bwd_occupancy(int(kw["kerr"]),
+                                         int(kw["has_disk"]), k),
+            1024 // lib.bhgc_dopri_bwd_blocks(1024), readings, name_limit)
 
 
 # =============================================================================
@@ -3172,6 +3292,116 @@ def ops_per_ray(fn, n):
     return c.ops
 
 
+# =============================================================================
+# The adjoints (rk4_bwd, dopri_bwd) on their frames: registers, occupancy,
+# code size, busy lanes and time in each ray order.
+# =============================================================================
+# the step-size mode of each power (PMODE in csrc/rk4_step.cuh); 3 for
+# any other power
+PMODES = {1.0: 0, 1.5: 1, 2.0: 2}
+
+
+@functools.cache
+def ptxas_info():
+    """{kernel's mangled name: [registers, stack frame bytes, spill stores,
+    spill loads]} from the -Xptxas=-v lines of the build's log."""
+    text = (_build.library_path().parent / "build.log").read_text()
+    info, name, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = props = m.group(1)
+            info[name] = [0, 0, 0, 0]
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and props == name:
+            info[name][1:] = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            info[name][0] = int(m.group(1))
+    return info
+
+
+@functools.cache
+def sass_sizes():
+    """{kernel's mangled name: SASS instructions} of the built library, from
+    the toolkit's cuobjdump; None where the toolkit has none."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                         capture_output=True, text=True).stdout
+    sizes, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            sizes[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            sizes[name] += 1
+    return sizes
+
+
+def lane_efficiency(counts, seg, perm):
+    """The share of an adjoint's lanes that do work: the ray-steps (or
+    ray-trips) ``counts`` summed, over 32 times the sum over warps and
+    segments of the warp's largest taped count, thread t taking ray
+    perm[t].  A ray's taped count in segment s is its steps in it,
+    clamp(count - s seg, 0, seg)."""
+    c = counts[perm.long()]
+    c = torch.cat([c, c.new_zeros(-c.numel() % 32)]).view(-1, 32)
+    busy = 0
+    for s in range(-(-int(c.max()) // seg)):
+        busy += int((c - s * seg).clamp(0, seg).amax(1).sum())
+    return float(counts.sum()) / (32 * busy) if busy else 1.0
+
+
+def adjoint_table(tag, name, pattern, ckpt, launch, live, counts, seg,
+                  blocks, threads, readings, name_limit):
+    """One row of the adjoints' table for the variant ``name`` (its
+    mangled name matches ``pattern``) on its main path's frame: ptxas's
+    registers, stack and spills, the resident blocks per SM, the SASS
+    size, the share of busy lanes and the device and call times
+    (``launch(order)``) in input order and in cost order, with the ray
+    order's own device time (``live``: the checkpointing kernel's count)
+    and the checkpointing kernel's (``ckpt``) at this segment length."""
+    regs = [v for k, v in ptxas_info().items() if re.search(pattern, k)]
+    sass = sass_sizes()
+    n_sass = ("no cuobjdump" if sass is None else
+              sum(v for k, v in sass.items() if re.search(pattern, k)))
+    lanes, ms, call = {}, {}, {}
+    for order in ("none", "cost"):
+        lanes[order] = lane_efficiency(
+            counts, seg, cuda_kernel.ray_order(live, order))
+        ms[order] = device_ms(no_grad(lambda: launch(order)))
+        call[order] = timed(no_grad(lambda: launch(order)), runs=5)
+    ms_order = device_ms(lambda: cuda_kernel.ray_order(live, "cost"))
+    ms_ckpt = device_ms(no_grad(ckpt))
+    r, st, sp_st, sp_ld = regs[0] if regs else ("?",) * 4
+    log(f"# {tag}: {name}: {r} registers, {st} B stack frame, spills "
+        f"{sp_st}/{sp_ld} B; {blocks} blocks of {threads} threads "
+        f"({blocks * threads // 32} warps) per SM; SASS {n_sass} "
+        f"instructions; seg {seg}; lanes busy {lanes['none']:.4f} in input "
+        f"order, {lanes['cost']:.4f} in cost order; device {ms['none']:.3f} "
+        f"ms in input order, {ms['cost']:.3f} ms in cost order, of which "
+        f"the order {ms_order:.3f} ms; call {call['none']:.3f} / "
+        f"{call['cost']:.3f} ms; the checkpointing kernel {ms_ckpt:.3f} ms "
+        f"device [{name_limit}]")
+    readings[name].update(
+        registers=r, stack_bytes=st, spill_bytes=[sp_st, sp_ld],
+        blocks_per_sm=blocks, threads=threads, sass_instructions=n_sass,
+        lanes_input_order=lanes["none"], lanes_cost_order=lanes["cost"],
+        device_ms_input_order=ms["none"], device_ms_cost_order=ms["cost"],
+        call_ms_input_order=call["none"], call_ms_cost_order=call["cost"],
+        order_ms=ms_order, ckpt_device_ms=ms_ckpt)
+
+
 def guard_pass(env, x, y):
     """Per ray, whether rk4_fwd's sphere guard lets the K sphere quadratics
     of the segment x -> y run (rk4_step.cuh segment_events; the band's
@@ -3186,10 +3416,11 @@ def guard_pass(env, x, y):
 
 
 def ray_steps(env, cfg, s0):
-    """(ray-steps, ray-steps whose sphere guard passes) of the step loop from
-    ``s0``: the ACTIVE rays summed over the steps, as the plain loop
-    replays them."""
+    """(ray-steps, ray-steps whose sphere guard passes, each ray's steps) of
+    the step loop from ``s0``: the ACTIVE rays summed over the steps, as
+    the plain loop replays them."""
     steps = guard = 0
+    per_ray = torch.zeros_like(s0.E, dtype=torch.int32)
     s = s0
     with torch.no_grad():
         for _ in range(cfg.n_steps):
@@ -3198,11 +3429,12 @@ def ray_steps(env, cfg, s0):
             if not k:
                 break
             steps += k
+            per_ray += act.int()
             if env.spheres is not None:
                 y, _ = rk4_step(env, s.x, s.p, s.E, _dt_eff(env, cfg, s))
                 guard += int((act & guard_pass(env, s.x, y)).sum())
             s = _fixed_step(env, cfg, s)
-    return steps, guard
+    return steps, guard, per_ray
 
 
 def phase_bounds(dev, name_limit, readings):
@@ -3227,8 +3459,9 @@ def phase_bounds(dev, name_limit, readings):
 
     # the variant's name suffix -> (environment, config, flat initial
     # state) of the main path that runs it
-    frames = {"": frame(sky, P.Camera.make(position=(0.0, 0.0, 25.0),
-                                           fov=(0.8, 0.8), device=dev)),
+    sky_cam = P.Camera.make(position=(0.0, 0.0, 25.0), fov=(0.8, 0.8),
+                            device=dev)
+    frames = {"": frame(sky, sky_cam),
               "_events": frame(events_scene(dev), events_cam(dev)),
               "_kerr": (kenv, kcfg, initial_state(kenv, x0, d0)),
               "_kerr_events": frame(events_scene(dev, spin=0.45),
@@ -3237,7 +3470,7 @@ def phase_bounds(dev, name_limit, readings):
         n_seg = -(-icfg.n_steps // cuda_kernel.segment(icfg.n_steps))
         n, k = s0.E.numel(), (0 if fenv.spheres is None
                               else fenv.spheres.center.shape[0])
-        steps, guard = ray_steps(fenv, icfg, s0)
+        steps, guard, per_ray = ray_steps(fenv, icfg, s0)
         few = rays(s0, torch.arange(64, device=dev))
         few.status = torch.zeros_like(few.status)
         step_ops = ops_per_ray(lambda: _fixed_step(fenv, icfg, few), 64)
@@ -3279,6 +3512,62 @@ def phase_bounds(dev, name_limit, readings):
             f"ray-steps ({steps / n:.2f} per ray), {guard} past the sphere "
             f"guard; per ray-step {step_ops} operations (sphere quadratics "
             f"{quad}, guard {guard_ops}), adjoint {adj_ops}")
+        # rk4_bwd on this frame's checkpoints, in each ray order
+        seg = cuda_kernel.segment(icfg.n_steps)
+        kw = dict(sph=sph, has_disk=fenv.disk is not None,
+                  kerr=fenv.spin is not None)
+        pw = float(icfg.dt_power)
+        ckpt = lambda: cuda_kernel.rk4_ckpt(  # noqa: E731
+            scal, s0.x, s0.p, s0.E, s0.lam, s0.status, icfg.n_steps, seg, pw,
+            obj=s0.hit_obj, **kw)
+        with torch.no_grad():
+            ck = ckpt()[-1]
+        g = torch.ones_like(s0.x)
+        lib = _build.load()
+        adjoint_table(
+            "phase 19", f"rk4_bwd{suffix}",
+            rf"rk4_bwd_kernelILi{PMODES.get(pw, 3)}ELb{int(kw['kerr'])}"
+            rf"ELi{2 * kw['has_disk'] + (k > 0)}E", ckpt,
+            lambda order: cuda_kernel.rk4_bwd(
+                scal, ck, s0.E, g, g, icfg.n_steps, seg, pw,
+                tile_order=order, **kw),
+            ck[-1], per_ray, seg,
+            lib.bhgc_rk4_bwd_occupancy(pw, int(kw["kerr"]),
+                                       int(kw["has_disk"]), k),
+            1024 // lib.bhgc_rk4_bwd_blocks(1024), readings, name_limit)
+    # rk4_bwd at the longer segments, where its tape is longest: the sky
+    # and the Kerr events frames at 400 and 2000 steps of a proportionally
+    # shorter dt (seg 32 and 64)
+    for suffix, (scene, cam) in (
+            ("", (sky, sky_cam)),
+            ("_kerr_events", (events_scene(dev, spin=0.45), events_cam(dev)))):
+        for n_steps in (400, 2000):
+            icfg = dataclasses.replace(cfg.integrator, n_steps=n_steps,
+                                       dt=cfg.integrator.dt * 100 / n_steps)
+            fenv, s0 = flagship_rays(
+                scene, cam, dataclasses.replace(cfg, integrator=icfg), dev)
+            s0 = flat_state(s0)
+            k = 0 if fenv.spheres is None else fenv.spheres.center.shape[0]
+            kw = dict(sph=cuda_kernel._sphere_table(fenv, dev) if k else None,
+                      has_disk=fenv.disk is not None,
+                      kerr=fenv.spin is not None)
+            scal = cuda_kernel._scalars(fenv, icfg, dev).detach()
+            pw, seg = float(icfg.dt_power), cuda_kernel.segment(n_steps)
+            ckpt = no_grad(lambda: cuda_kernel.rk4_ckpt(
+                scal, s0.x, s0.p, s0.E, s0.lam, s0.status, n_steps, seg, pw,
+                obj=s0.hit_obj, **kw))
+            ck, g = ckpt()[-1], torch.ones_like(s0.x)
+            ms = {o: device_ms(no_grad(lambda: cuda_kernel.rk4_bwd(
+                scal, ck, s0.E, g, g, n_steps, seg, pw, tile_order=o, **kw)))
+                for o in ("none", "cost")}
+            blocks = lib.bhgc_rk4_bwd_occupancy(pw, int(kw["kerr"]),
+                                                int(kw["has_disk"]), k)
+            log(f"# phase 19: rk4_bwd{suffix} at {n_steps} steps (dt "
+                f"{icfg.dt:g}, seg {seg}): {blocks} blocks per SM; rk4_ckpt "
+                f"device {device_ms(ckpt):.3f} ms; "
+                f"rk4_bwd device {ms['none']:.3f} ms in input order, "
+                f"{ms['cost']:.3f} ms in cost order [{name_limit}]")
+            del ck
 
 
 def main() -> int:

@@ -139,11 +139,12 @@ def test_ckpt_matches_fwd_and_the_plain_loop(power):
     args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
     before = counts()
     fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, power)
-    *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps,
-                                                      seg, power)
+    *fin, (cx, cp, clam, cst, live) = cuda_kernel.rk4_ckpt(
+        *args, cfg.n_steps, seg, power)
     assert launched(before) == {"rk4_fwd": 1, "rk4_ckpt": 1}
     for a, b in zip(fin, fwd):
         assert torch.equal(a, b)
+    assert torch.equal(live, cuda_kernel.live_segments(cst))
     _, rows = cuda_kernel.integrate_ckpt_plain(e, s0, cfg, seg)
     assert cx.shape[0] == len(rows) == 4
     for k, row in enumerate(rows):
@@ -315,11 +316,12 @@ def test_event_ckpt_matches_fwd_and_the_plain_loop():
     kw = dict(sph=sph, has_disk=True, obj=s0.hit_obj)
     before = counts()
     fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5, **kw)
-    *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg,
-                                                      1.5, **kw)
+    *fin, (cx, cp, clam, cst, live) = cuda_kernel.rk4_ckpt(
+        *args, cfg.n_steps, seg, 1.5, **kw)
     assert launched(before) == {"rk4_fwd_events": 1, "rk4_ckpt_events": 1}
     for a, b in zip(fin, fwd):
         assert torch.equal(a, b)
+    assert torch.equal(live, cuda_kernel.live_segments(cst))
     assert int((fin[3] == states.OBJECT).sum()) >= 20
     _, rows = cuda_kernel.integrate_ckpt_plain(e, s0, cfg, seg)
     for k, row in enumerate(rows):
@@ -539,10 +541,11 @@ def test_kerr_ckpt_matches_fwd_and_the_plain_loop(spin):
               obj=s0.hit_obj, kerr=True)
     args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
     fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5, **kw)
-    *fin, (cx, cp, clam, cst) = cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg,
-                                                      1.5, **kw)
+    *fin, (cx, cp, clam, cst, live) = cuda_kernel.rk4_ckpt(
+        *args, cfg.n_steps, seg, 1.5, **kw)
     for a, b in zip(fin, fwd):
         assert torch.equal(a, b)
+    assert torch.equal(live, cuda_kernel.live_segments(cst))
     _, rows = cuda_kernel.integrate_ckpt_plain(e, s0, cfg, seg)
     for k, row in enumerate(rows):
         assert torch.equal(cst[k], row.status)
@@ -733,12 +736,13 @@ def test_dopri_ckpt_matches_fwd_and_the_plain_loop(case):
     args = (scal, s0.x, s0.p, s0.E, h, s0.lam, s0.status, cfg.n_steps)
     before = counts()
     fwd = cuda_kernel.dopri_fwd(*args, ctl, **kw)
-    *fin, (cx, cp, ch, clam, cst) = cuda_kernel.dopri_ckpt(*args, seg, ctl,
-                                                           **kw)
+    *fin, (cx, cp, ch, clam, cst, live) = cuda_kernel.dopri_ckpt(
+        *args, seg, ctl, **kw)
     assert launched(before) == {cuda_kernel.variant(k, kerr, events): 1
                                 for k in ("dopri_fwd", "dopri_ckpt")}
     for a, b in zip(fin, fwd):
         assert torch.equal(a, b)
+    assert torch.equal(live, cuda_kernel.live_segments(cst))
     _, rows, hs = cuda_kernel.integrate_adaptive_ckpt_plain(e, s0, cfg, seg)
     assert cx.shape[0] == len(rows) == 6
     assert torch.equal(ch[0], hs[0])
@@ -871,3 +875,57 @@ def test_dopri_einstein_ring_launches_the_dopri_kernels():
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max() / b.abs().max()) <= 5e-2
+
+
+# =============================================================================
+# The adjoints' ray order (cuda_kernel.ray_order, IntegratorConfig.tile_order).
+# =============================================================================
+@pytest.mark.parametrize("kernel,spin", [("rk4", None), ("rk4", 0.45),
+                                         ("dopri", None), ("dopri", 0.45)])
+def test_adjoint_orders_agree(kernel, spin):
+    """rk4_bwd and dopri_bwd with the disk and the spheres, Schwarzschild
+    and Kerr, in cost order and in input order: the per-ray cotangents are
+    the same bit for bit (a thread's arithmetic does not depend on its
+    neighbours), the scalar and sphere cotangents, summed in another order,
+    agree within 1e-3 of the largest (chip_smoke.py's limit against the
+    plain path), and two runs in one order give the same bits."""
+    e = events_env(env()) if spin is None else kerr_env(spin, True)
+    x0, d0 = (event_rays() if kernel == "rk4" else dopri_rays())
+    s0 = kerr_state(e, x0, d0)
+    n = s0.E.numel()
+    scal_cfg = tint.IntegratorConfig(**(FLAGSHIP if kernel == "rk4"
+                                        else {**DOPRI, "n_steps": 96}))
+    scal = cuda_kernel._scalars(e, scal_cfg, DEV)
+    sph = cuda_kernel._sphere_table(e, DEV)
+    kw = dict(sph=sph, has_disk=True, kerr=spin is not None)
+    seg = cuda_kernel.segment(scal_cfg.n_steps)
+    rng = np.random.default_rng(5)
+    gx, gp = (torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                              device=DEV) for _ in range(2))
+    with torch.no_grad():
+        if kernel == "rk4":
+            ck = cuda_kernel.rk4_ckpt(scal, s0.x, s0.p, s0.E, s0.lam,
+                                      s0.status, scal_cfg.n_steps, seg, 1.5,
+                                      obj=s0.hit_obj, **kw)[-1]
+            bwd = lambda o: cuda_kernel.rk4_bwd(  # noqa: E731
+                scal, ck, s0.E, gx, gp, scal_cfg.n_steps, seg, 1.5,
+                tile_order=o, **kw)
+        else:
+            h = torch.full_like(s0.E, tint.dopri_h0(scal_cfg))
+            ctl = cuda_kernel.controller(scal_cfg)
+            ck = cuda_kernel.dopri_ckpt(scal, s0.x, s0.p, s0.E, h, s0.lam,
+                                        s0.status, scal_cfg.n_steps, seg,
+                                        ctl, obj=s0.hit_obj, **kw)[-1]
+            bwd = lambda o: cuda_kernel.dopri_bwd(  # noqa: E731
+                scal, ck, s0.E, gx, gp, scal_cfg.n_steps, seg, ctl,
+                tile_order=o, **kw)
+        cost, again, plain_order = bwd("cost"), bwd("cost"), bwd("none")
+    order = cuda_kernel.ray_order(ck[-1], "cost")
+    assert not torch.equal(order, torch.arange(n, device=DEV))
+    for a, b, c in zip(cost, again, plain_order):
+        assert torch.equal(a, b)
+    for a, c in zip(cost[:3], plain_order[:3]):
+        assert torch.equal(a, c)
+    for a, c in zip(cost[3:], plain_order[3:]):
+        assert float(c.abs().max()) > 0
+        assert float((a - c).abs().max() / c.abs().max()) <= 1e-3

@@ -673,8 +673,8 @@ def test_einstein_ring_render_matches_jax():
     elements off by > 0.1); the ring is green and the shadow black."""
     scene, cam, cfg = ring_scene(32)
     ref = np.asarray(jrender(scene, cam, cfg))
-    img = render_image(convert.scene_from_reference(scene),
-                       convert.camera_from_reference(cam),
+    img = render_image(convert.scene_from_reference(scene, device="cpu"),
+                       convert.camera_from_reference(cam, device="cpu"),
                        convert.render_config_from_reference(cfg))
     img = img.numpy()
     assert img.shape == (32, 32, 4) and np.isfinite(img).all()

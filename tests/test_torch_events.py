@@ -542,7 +542,7 @@ def shading_scene(beaming=None, lights=True):
                 lights=JLights.make(position=[[-12.0, 0.0, 0.3],
                                               [-4.0, 8.0, 1.0]],
                                     intensity=6.0) if lights else None)
-    return js, convert.scene_from_reference(js)
+    return js, convert.scene_from_reference(js, device="cpu")
 
 
 def disk_hits(n=3000, seed=10):
@@ -726,8 +726,8 @@ def test_golden(name):
     """The port's render of tests/golden/<name>.npz through the plain
     event path, held to the golden rule."""
     scene, cam = golden_scene(name)
-    img = render_image(convert.scene_from_reference(scene),
-                       convert.camera_from_reference(cam),
+    img = render_image(convert.scene_from_reference(scene, device="cpu"),
+                       convert.camera_from_reference(cam, device="cpu"),
                        convert.render_config_from_reference(GOLDEN_CFG))
     assert img.shape == (64, 64, 4) and torch.isfinite(img).all()
     with np.load(f"tests/golden/{name}.npz") as z:
@@ -790,8 +790,8 @@ def test_events_scene_matches_jax():
     at 32x32 against JAX render_image with backend='scan'."""
     scene, cfg = events_scene(), events_cfg(32)
     ref = np.asarray(jrender(scene, EVENTS_CAM, cfg))
-    img = render_image(convert.scene_from_reference(scene),
-                       convert.camera_from_reference(EVENTS_CAM),
+    img = render_image(convert.scene_from_reference(scene, device="cpu"),
+                       convert.camera_from_reference(EVENTS_CAM, device="cpu"),
                        convert.render_config_from_reference(cfg)).numpy()
     assert np.isfinite(img).all()
     golden_rule(img, ref, "events 32x32")
@@ -818,8 +818,8 @@ def events_grads():
     jg = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
         jnp.float32(0.5), EVENTS_CAM.position, scene0.background,
         scene0.disk.texture, scene0.spheres.center[0])
-    scene = convert.scene_from_reference(scene0)
-    cam = convert.camera_from_reference(EVENTS_CAM)
+    scene = convert.scene_from_reference(scene0, device="cpu")
+    cam = convert.camera_from_reference(EVENTS_CAM, device="cpu")
     c0 = scene.spheres.center[0].clone().requires_grad_(True)
     scene.spheres.center = torch.cat([c0[None], scene.spheres.center[1:]])
     leaves = (scene.bh.mass, cam.position, scene.background,
@@ -856,13 +856,15 @@ def test_convert_carries_a_full_events_scene():
         lights=JLights.make(position=[[0.0, 0.0, 12.0], [9.0, -4.0, 3.0]],
                             intensity=8.0))
     cfg = events_cfg(32)
-    tscene = convert.scene_from_reference(scene)
+    tscene = convert.scene_from_reference(scene, device="cpu")
     assert float(tscene.disk.beaming) == 3.0
     assert tscene.lights.position.shape == (2, 3)
     np.testing.assert_array_equal(tscene.spheres.albedo.numpy(),
                                   np.asarray(scene.spheres.albedo))
     ref = np.asarray(jrender(scene, EVENTS_CAM, cfg))
-    img = render_image(tscene, convert.camera_from_reference(EVENTS_CAM),
+    img = render_image(tscene,
+                       convert.camera_from_reference(EVENTS_CAM,
+                                                     device="cpu"),
                        convert.render_config_from_reference(cfg)).numpy()
     golden_rule(img, ref, "events with beaming and lights")
 

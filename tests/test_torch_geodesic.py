@@ -124,7 +124,8 @@ def test_generate_rays_matches_jax(width, height, euler):
     jys, jxs = jcam.pixel_grid(width, height, 2, width - 1, 1, height)
     np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
     np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
-    o, d = tcam.generate_rays(tcam.Camera.make(pos, euler, fov), width,
+    o, d = tcam.generate_rays(tcam.Camera.make(pos, euler, fov,
+                                               device="cpu"), width,
                               height, ys, xs)
     oj, dj = jcam.generate_rays(jcam.Camera.make(pos, euler, fov), width,
                                 height, jys, jxs)
@@ -141,8 +142,8 @@ def test_generate_rays_matches_jax(width, height, euler):
 def test_generate_rays_jitter_raises():
     ys, xs = tcam.pixel_grid(4, 4)
     with pytest.raises(NotImplementedError):
-        tcam.generate_rays(tcam.Camera.make((0, 0, 20)), 4, 4, ys, xs,
-                           key=1)
+        tcam.generate_rays(tcam.Camera.make((0, 0, 20), device="cpu"), 4, 4,
+                           ys, xs, key=1)
 
 
 def test_sample_equirect_matches_jax():

@@ -378,9 +378,9 @@ def port_loss(mass, cam_z, tex=None, cfg=GRAD_CFG):
     """test_grad.py's loss_fn through the port; returns (loss, leaves)."""
     scene = convert.scene_from_reference(
         JScene(bh=JBlackHole.make(mass=mass),
-               background=smooth_sky() if tex is None else tex))
+               background=smooth_sky() if tex is None else tex), device="cpu")
     cam = convert.camera_from_reference(
-        JCamera.make(position=(0.0, 0.0, cam_z), fov=(0.5, 0.5)))
+        JCamera.make(position=(0.0, 0.0, cam_z), fov=(0.5, 0.5)), device="cpu")
     for t in (scene.bh.mass, cam.position, scene.background):
         t.requires_grad_(True)
     img = render_image(scene, cam, convert.render_config_from_reference(cfg))
@@ -452,8 +452,8 @@ def render_grads(size, mass=0.5, position=(0.0, 0.0, 25.0),
         jnp.float32(mass), jnp.asarray(position, jnp.float32),
         jnp.asarray(sky))
     scene = convert.scene_from_reference(
-        JScene(bh=JBlackHole.make(mass=mass), background=sky))
-    cam = convert.camera_from_reference(cam0)
+        JScene(bh=JBlackHole.make(mass=mass), background=sky), device="cpu")
+    cam = convert.camera_from_reference(cam0, device="cpu")
     leaves = (scene.bh.mass, cam.position, scene.background)
     for t in leaves:
         t.requires_grad_(True)

@@ -486,9 +486,10 @@ def test_golden_kerr_a09():
                         integrator=JIntegratorConfig(n_steps=400, dt=0.08,
                                                      backend="scan"),
                         lam_max=120.0)
-    tscene = convert.scene_from_reference(scene)
+    tscene = convert.scene_from_reference(scene, device="cpu")
     assert float(tscene.bh.spin) == np.float32(0.45)
-    img = render_image(tscene, convert.camera_from_reference(cam),
+    img = render_image(tscene,
+                       convert.camera_from_reference(cam, device="cpu"),
                        convert.render_config_from_reference(cfg))
     assert img.shape == (64, 64, 4) and torch.isfinite(img).all()
     with np.load("tests/golden/kerr_a09.npz") as z:
@@ -566,8 +567,9 @@ def kerr_events_grads():
     pixels)."""
     scene0 = kerr_events_scene()
     cfg = convert.render_config_from_reference(KERR_EVENTS_CFG)
-    calm = calm_pixels(convert.scene_from_reference(scene0),
-                       convert.camera_from_reference(KERR_EVENTS_CAM), cfg)
+    calm = calm_pixels(convert.scene_from_reference(scene0, device="cpu"),
+                       convert.camera_from_reference(KERR_EVENTS_CAM,
+                                                     device="cpu"), cfg)
 
     def jloss(m, a, pos, sky):
         scene = dataclasses.replace(
@@ -582,8 +584,8 @@ def kerr_events_grads():
                                        has_aux=True)(
         jnp.float32(0.5), jnp.float32(0.45), KERR_EVENTS_CAM.position,
         scene0.background)
-    scene = convert.scene_from_reference(scene0)
-    cam = convert.camera_from_reference(KERR_EVENTS_CAM)
+    scene = convert.scene_from_reference(scene0, device="cpu")
+    cam = convert.camera_from_reference(KERR_EVENTS_CAM, device="cpu")
     leaves = (scene.bh.mass, scene.bh.spin, cam.position, scene.background)
     for t in leaves:
         t.requires_grad_(True)
@@ -627,9 +629,10 @@ def test_scene_env_capture_radius_matches_jax(spin):
     scene = kerr_events_scene(spin)
     cfg = dataclasses.replace(KERR_EVENTS_CFG, capture_factor=1.1)
     jenv = jscene_env(scene, cfg, KERR_EVENTS_CAM)
-    tenv = scene_env(convert.scene_from_reference(scene),
+    tenv = scene_env(convert.scene_from_reference(scene, device="cpu"),
                      convert.render_config_from_reference(cfg),
-                     convert.camera_from_reference(KERR_EVENTS_CAM))
+                     convert.camera_from_reference(KERR_EVENTS_CAM,
+                                                   device="cpu"))
     np.testing.assert_allclose(float(tenv.r_capture), float(jenv.r_capture),
                                rtol=1e-6)
     np.testing.assert_allclose(float(tenv.r_escape), float(jenv.r_escape),
@@ -643,14 +646,17 @@ def test_scene_env_capture_radius_matches_jax(spin):
 def test_convert_carries_a_spun_scene():
     """A spun JAX scene comes across with its spin as a float32 tensor that
     can take a gradient through the render."""
-    tscene = convert.scene_from_reference(kerr_events_scene(-0.3))
+    tscene = convert.scene_from_reference(kerr_events_scene(-0.3),
+                                          device="cpu")
     assert tscene.bh.spin.dtype == torch.float32
     assert float(tscene.bh.spin) == np.float32(-0.3)
     tscene.bh.spin.requires_grad_(True)
     cfg = dataclasses.replace(
         KERR_EVENTS_CFG, width=4, height=4, integrator=dataclasses.replace(
             KERR_EVENTS_CFG.integrator, n_steps=30))
-    img = render_image(tscene, convert.camera_from_reference(KERR_EVENTS_CAM),
+    img = render_image(tscene,
+                       convert.camera_from_reference(KERR_EVENTS_CAM,
+                                                     device="cpu"),
                        convert.render_config_from_reference(cfg))
     img[..., :3].pow(2).mean().backward()
     assert tscene.bh.spin.grad is not None

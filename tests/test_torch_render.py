@@ -48,8 +48,8 @@ def golden_rule(img, ref, what):
 
 
 def port(scene, cam, cfg):
-    return (convert.scene_from_reference(scene),
-            convert.camera_from_reference(cam),
+    return (convert.scene_from_reference(scene, device="cpu"),
+            convert.camera_from_reference(cam, device="cpu"),
             convert.render_config_from_reference(cfg))
 
 
@@ -105,14 +105,14 @@ def test_convert_carries_trees_as_float32():
     scene = JScene(bh=JBlackHole.make(mass=0.5),
                    background=sky().astype(np.float64))
     scene.bh.loc = np.zeros(3)                     # a float64 numpy leaf
-    tscene = convert.scene_from_reference(scene)
+    tscene = convert.scene_from_reference(scene, device="cpu")
     assert tscene.disk is None and tscene.spheres is None
     assert tscene.bh.spin is None
     for t in (tscene.background, tscene.bh.mass, tscene.bh.loc):
         assert isinstance(t, torch.Tensor) and t.dtype == torch.float32
     disk = JDisk.make(r_in=2.0, r_out=6.0, texture=np.ones((4, 8, 3)))
     tdisk = convert.scene_from_reference(
-        dataclasses.replace(scene, disk=disk)).disk
+        dataclasses.replace(scene, disk=disk), device="cpu").disk
     assert tdisk.beaming is None and tdisk.texture.shape == (4, 8, 3)
     cfg = convert.render_config_from_reference(JRenderConfig(
         integrator=JIntegratorConfig(backend="pallas", dt_power=1.5)))
@@ -130,7 +130,7 @@ def test_out_of_slice_renders_raise():
     spun = dataclasses.replace(scene, bh=JBlackHole.make(mass=0.5,
                                                          spin=0.45))
     with pytest.raises(NotImplementedError):
-        render_image(convert.scene_from_reference(spun), tcam,
+        render_image(convert.scene_from_reference(spun, device="cpu"), tcam,
                      dataclasses.replace(tcfg, samples=2))
 
 
@@ -146,9 +146,10 @@ def test_import_leaves_jax_out():
         "from blackhole_geodesic_calculator_tpu_torch.ops import cuda_kernel\n"
         "for spin in (None, 0.45):\n"
         "    for method in ('rk4', 'dopri'):\n"
-        "        s = P.Scene(bh=P.BlackHole.make(spin=spin),\n"
+        "        s = P.Scene(bh=P.BlackHole.make(spin=spin, device='cpu'),\n"
         "                    background=torch.rand(8, 16, 3))\n"
-        "        P.render_image(s, P.Camera.make((0, 0, 20)), P.RenderConfig(\n"
+        "        P.render_image(s, P.Camera.make((0, 0, 20), device='cpu'),\n"
+        "                       P.RenderConfig(\n"
         "            width=4, height=4, integrator=P.IntegratorConfig(\n"
         "                n_steps=8, method=method)))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
