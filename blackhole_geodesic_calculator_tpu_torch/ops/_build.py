@@ -7,11 +7,16 @@ them into one shared library with a plain C interface, under
 sources, the headers they include and the flags, so an edited source
 rebuilds and an unchanged one is reused.  The library is loaded with
 ``ctypes``.  Nothing here runs at import time, and a failed build raises:
-there is no fallback to the plain PyTorch path.
+there is no fallback to the plain PyTorch path.  ``built_with`` routes the
+launches of a block through a witness build of the same sources with
+preprocessor definitions (rk4_step.cuh's BHGC_SPHERE_GUARD=0,
+BHGC_IEEE_RECIPROCALS=1), which chip_smoke.py holds the shipped kernels
+against.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,9 +52,14 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(defines: tuple[str, ...] = ()) -> Path:
+    """Where the library for the current sources and flags, with the
+    preprocessor definitions ``defines`` ("NAME=VALUE"), lives."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -66,12 +76,14 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
                                            (p.communicate() for p in procs))]
 
 
-def build() -> Path:
-    """Compile the sources unless a library for them exists; return its path.
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile the sources (with ``defines``) unless a library for them
+    exists; return its path.
 
     The compilers' output, including ``-Xptxas=-v``'s registers and spills
     per kernel, is kept beside the library as ``build.log``."""
-    out = library_path()
+    out = library_path(defines)
+    flags = _flags(defines)
     if out.exists():
         return out
     nvcc = _nvcc()
@@ -79,7 +91,7 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(dir=out.parent))
     try:
         objs = [tmp / (src.stem + ".o") for src in _sources()]
-        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        runs = _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
                          for src, obj in zip(_sources(), objs)])
         if all(rc == 0 for _, rc, _ in runs):
             runs += _run_all([[nvcc, "-shared", "-o", str(tmp / LIB_NAME),
@@ -104,52 +116,75 @@ def load() -> ctypes.CDLL:
     no hashing or file-system work after it."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # scal, sph, n_sph, has_disk, kerr, x, p, E, lam, status, hit_obj,
-        # x_out, p_out, lam_out, status_out, hit_obj_out, n, n_steps, power,
-        # stream
-        lib.bhgc_rk4_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 11
-                                     + [i32, i32, f32, vp])
-        lib.bhgc_rk4_fwd.restype = i32
-        # as bhgc_rk4_fwd, then cx, cp, clam, cst, live before n, n_steps,
-        # seg, power, stream
-        lib.bhgc_rk4_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 16
-                                      + [i32, i32, i32, f32, vp])
-        lib.bhgc_rk4_ckpt.restype = i32
-        # scal, sph, n_sph, has_disk, kerr, cx, cp, clam, cst, E, gx, gp,
-        # bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, power,
-        # stream
-        lib.bhgc_rk4_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 14
-                                     + [i32, i32, i32, f32, vp])
-        lib.bhgc_rk4_bwd.restype = i32
-        lib.bhgc_rk4_bwd_blocks.argtypes = [i32]
-        lib.bhgc_rk4_bwd_blocks.restype = i32
-        # power, kerr, has_disk, n_sph -> resident blocks per SM
-        lib.bhgc_rk4_bwd_occupancy.argtypes = [f32, i32, i32, i32]
-        lib.bhgc_rk4_bwd_occupancy.restype = i32
-        ctl = [f32] * 4   # rtol, atol, min_step, max_step
-        # scal, sph, n_sph, has_disk, kerr, x, p, E, h, lam, status,
-        # hit_obj, x_out, p_out, lam_out, status_out, hit_obj_out, n,
-        # n_steps, the controller, stream
-        lib.bhgc_dopri_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 12
-                                       + [i32, i32] + ctl + [vp])
-        lib.bhgc_dopri_fwd.restype = i32
-        # as bhgc_dopri_fwd, then cx, cp, ch, clam, cst, live before n,
-        # n_steps, seg, the controller, stream
-        lib.bhgc_dopri_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 18
-                                        + [i32, i32, i32] + ctl + [vp])
-        lib.bhgc_dopri_ckpt.restype = i32
-        # scal, sph, n_sph, has_disk, kerr, cx, cp, ch, clam, cst, E, gx,
-        # gp, bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, the
-        # controller, stream
-        lib.bhgc_dopri_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 15
-                                       + [i32, i32, i32] + ctl + [vp])
-        lib.bhgc_dopri_bwd.restype = i32
-        lib.bhgc_dopri_bwd_blocks.argtypes = [i32]
-        lib.bhgc_dopri_bwd_blocks.restype = i32
-        # kerr, has_disk, n_sph -> resident blocks per SM
-        lib.bhgc_dopri_bwd_occupancy.argtypes = [i32, i32, i32]
-        lib.bhgc_dopri_bwd_occupancy.restype = i32
-        _lib = lib
+        _lib = _declare(ctypes.CDLL(str(build())))
     return _lib
+
+
+@contextlib.contextmanager
+def built_with(*defines: str):
+    """Within the block, every launch goes through the library built with
+    the preprocessor definitions ``defines`` ("NAME=VALUE"): a witness
+    build, which chip_smoke.py holds the shipped library against."""
+    global _lib
+    shipped = load()
+    _lib = _declare(ctypes.CDLL(str(build(tuple(defines)))))
+    try:
+        yield _lib
+    finally:
+        _lib = shipped
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the library's entry points."""
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # scal, sph, n_sph, has_disk, kerr, x, p, E, lam, status, hit_obj,
+    # x_out, p_out, lam_out, status_out, hit_obj_out, n, n_steps, power,
+    # stream
+    lib.bhgc_rk4_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 11
+                                 + [i32, i32, f32, vp])
+    lib.bhgc_rk4_fwd.restype = i32
+    # as bhgc_rk4_fwd, then cx, cp, clam, cst, live before n, n_steps,
+    # seg, power, stream
+    lib.bhgc_rk4_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 16
+                                  + [i32, i32, i32, f32, vp])
+    lib.bhgc_rk4_ckpt.restype = i32
+    # power, kerr, has_disk, n_sph -> resident blocks per SM
+    for kind in ("fwd", "ckpt"):
+        occupancy = getattr(lib, f"bhgc_rk4_{kind}_occupancy")
+        occupancy.argtypes = [f32, i32, i32, i32]
+        occupancy.restype = i32
+    # scal, sph, n_sph, has_disk, kerr, cx, cp, clam, cst, E, gx, gp,
+    # bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, power,
+    # stream
+    lib.bhgc_rk4_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 14
+                                 + [i32, i32, i32, f32, vp])
+    lib.bhgc_rk4_bwd.restype = i32
+    lib.bhgc_rk4_bwd_blocks.argtypes = [i32]
+    lib.bhgc_rk4_bwd_blocks.restype = i32
+    # power, kerr, has_disk, n_sph -> resident blocks per SM
+    lib.bhgc_rk4_bwd_occupancy.argtypes = [f32, i32, i32, i32]
+    lib.bhgc_rk4_bwd_occupancy.restype = i32
+    ctl = [f32] * 4   # rtol, atol, min_step, max_step
+    # scal, sph, n_sph, has_disk, kerr, x, p, E, h, lam, status,
+    # hit_obj, x_out, p_out, lam_out, status_out, hit_obj_out, n,
+    # n_steps, the controller, stream
+    lib.bhgc_dopri_fwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 12
+                                   + [i32, i32] + ctl + [vp])
+    lib.bhgc_dopri_fwd.restype = i32
+    # as bhgc_dopri_fwd, then cx, cp, ch, clam, cst, live before n,
+    # n_steps, seg, the controller, stream
+    lib.bhgc_dopri_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 18
+                                    + [i32, i32, i32] + ctl + [vp])
+    lib.bhgc_dopri_ckpt.restype = i32
+    # scal, sph, n_sph, has_disk, kerr, cx, cp, ch, clam, cst, E, gx,
+    # gp, bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, the
+    # controller, stream
+    lib.bhgc_dopri_bwd.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 15
+                                   + [i32, i32, i32] + ctl + [vp])
+    lib.bhgc_dopri_bwd.restype = i32
+    lib.bhgc_dopri_bwd_blocks.argtypes = [i32]
+    lib.bhgc_dopri_bwd_blocks.restype = i32
+    # kerr, has_disk, n_sph -> resident blocks per SM
+    lib.bhgc_dopri_bwd_occupancy.argtypes = [i32, i32, i32]
+    lib.bhgc_dopri_bwd_occupancy.restype = i32
+    return lib

@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<KERR>)
 
   if (t < n) {
     const int i = static_cast<int>(order[t]);
-    const Scalars sc = load_scalars(scal);
+    const Scalars sc = load_scalars(scal, sph, n_sph);
     const long long j = 3LL * i;
     const float E = E_in[i];
     float g[6] = {gx_in[j], gx_in[j + 1], gx_in[j + 2],

@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  const Scalars sc = load_scalars(scal);
+  const Scalars sc = load_scalars(scal, sph, n_sph);
   const long long j = 3LL * i;
   Ray r;
   r.x0 = x_in[j]; r.x1 = x_in[j + 1]; r.x2 = x_in[j + 2];

@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   if (t < n) {
     const int i = static_cast<int>(order[t]);
-    const Scalars sc = load_scalars(scal);
+    const Scalars sc = load_scalars(scal, sph, n_sph);
     const long long j = 3LL * i;
     const float E = E_in[i];
     float g[6] = {gx_in[j], gx_in[j + 1], gx_in[j + 2],
@@ -109,6 +109,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       r.lam = clam[k];
       r.status = kActive;
       r.obj = -1;
+      r.rad = radius<KERR>(sc, r.x0, r.x1, r.x2);
       // recompute the segment onto the tape (enabled = s seg + t < n_steps)
       const int len = min(seg, n_steps - s * seg);
       int taped = 0;

@@ -14,7 +14,9 @@
 // off, `_rhs_schw_soa` and the Euclidean radius; on, the analytic Kerr
 // right-hand side `_rhs_kerr_soa` (:84-142) and the floored Kerr-Schild
 // radius `_ks_radius_soa` (:145-153) for the step size and the endpoint,
-// with the sphere guard's band widened by |a| (:249-265).
+// with the sphere guard's band widened by |a| (:249-265).  A step computes
+// the radius once, at its endpoint, and the next step's size reuses it
+// (Ray::rad).
 // The sphere table is K rows of [cx, cy, cz, radius] in the hole's frame,
 // K a runtime argument; every thread reads it (`__ldg`, the rows are the
 // same for the whole warp).  The adjoint is `_step_adjoint`
@@ -29,6 +31,18 @@
 #include <limits>
 #include <type_traits>
 
+// Witness builds (_build.built_with; chip_smoke.py holds the shipped
+// kernels against them): BHGC_SPHERE_GUARD=0 drops the sphere guard, so
+// its outputs show what the guard may not change; BHGC_IEEE_RECIPROCALS=1
+// gives rsqrt_ftz and rcp_ftz their IEEE forms, so its outputs show what
+// the special-function unit's approximations move.
+#ifndef BHGC_SPHERE_GUARD
+#define BHGC_SPHERE_GUARD 1
+#endif
+#ifndef BHGC_IEEE_RECIPROCALS
+#define BHGC_IEEE_RECIPROCALS 0
+#endif
+
 namespace {
 
 constexpr int kActive = 0;
@@ -41,15 +55,27 @@ constexpr int kError = 7;
 
 constexpr int kNScal = 10;
 constexpr float kR2Floor = 1e-12f;
+constexpr float kMinNormal = std::numeric_limits<float>::min();
+
+constexpr float kInf = std::numeric_limits<float>::infinity();
 
 // Scalar vector layout (NSCAL = 10), the TPU kernel's:
 // [mass, dt, dt_boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out, a]
+// inv_r_ref = 1 / r_ref, formed once for the step size (div_rn);
+// [sph_lo, sph_hi] the radii the K spheres' surfaces span, formed once for
+// the sphere guard (segment_events).
 struct Scalars {
   float mass, dt, boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out,
-      spin;
+      spin, inv_r_ref, sph_lo, sph_hi;
 };
 
-__device__ __forceinline__ Scalars load_scalars(const float* scal) {
+// The scalars, and the span of the sphere table sph (K = n_sph rows of
+// [cx, cy, cz, radius]): [min_k |c_k| - r_k, max_k |c_k| + r_k], widened
+// by a relative 1e-6, far above its rounding, so that no sphere a segment
+// can enter lies outside it.
+__device__ __forceinline__ Scalars load_scalars(const float* scal,
+                                                const float* sph,
+                                                int n_sph) {
   Scalars sc;
   sc.mass = __ldg(scal + 0);
   sc.dt = __ldg(scal + 1);
@@ -61,14 +87,55 @@ __device__ __forceinline__ Scalars load_scalars(const float* scal) {
   sc.r_in = __ldg(scal + 7);
   sc.r_out = __ldg(scal + 8);
   sc.spin = __ldg(scal + 9);
+  sc.inv_r_ref = 1.0f / sc.r_ref;
+  float lo = kInf, hi = -kInf;
+  for (int k = 0; k < n_sph; ++k) {
+    const float cx = __ldg(sph + 4 * k), cy = __ldg(sph + 4 * k + 1);
+    const float cz = __ldg(sph + 4 * k + 2), rad = __ldg(sph + 4 * k + 3);
+    const float ck = sqrtf(cx * cx + cy * cy + cz * cz);
+    lo = fminf(lo, ck - rad);
+    hi = fmaxf(hi, ck + rad);
+  }
+  sc.sph_lo = lo - 1e-6f * fabsf(lo);
+  sc.sph_hi = hi + 1e-6f * fabsf(hi);
   return sc;
 }
 
-// One ray's state in registers.
+// One ray's state in registers.  rad is the radius (radius<KERR>) of
+// (x0, x1, x2) while the ray is ACTIVE: classify_merge leaves the
+// endpoint's there, so the next step's size reuses it.
 struct Ray {
-  float x0, x1, x2, p0, p1, p2, lam;
+  float x0, x1, x2, p0, p1, p2, lam, rad;
   int status, obj;
 };
+
+// 1/sqrt(x) and 1/x from the special-function unit with subnormals flushed
+// (rsqrt.approx.ftz, rcp.approx.ftz): for a normal x the values of rsqrtf
+// and __fdividef(1, x), without the instructions that rescale a subnormal
+// x.  Their callers pass floored, normal arguments (rhs_kerr takes a zero
+// or subnormal S^2 apart; the sphere guard floors |y - x|^2).  They
+// depart from the port's rule of no fast math: PERF.md gives what they
+// move in the Kerr forward, measured against a BHGC_IEEE_RECIPROCALS
+// build, whose IEEE forms (1 / sqrtf, 1 / x) they replace.
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+#if defined(__CUDA_ARCH__) && !BHGC_IEEE_RECIPROCALS
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+
+__device__ __forceinline__ float rcp_ftz(float x) {
+#if defined(__CUDA_ARCH__) && !BHGC_IEEE_RECIPROCALS
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / x;
+#endif
+}
 
 // Schwarzschild Kerr-Schild Hamiltonian right-hand side (geodesic.py
 // schwarzschild_rhs / pallas_kernel.py _rhs_schw_soa), state (a, b) = (x, p).
@@ -76,7 +143,7 @@ __device__ __forceinline__ void rhs_schw(float mass, float E, float a0,
                                          float a1, float a2, float b0,
                                          float b1, float b2, float k[6]) {
   const float r2 = fmaxf(a0 * a0 + a1 * a1 + a2 * a2, kR2Floor);
-  const float inv_r = rsqrtf(r2);
+  const float inv_r = rsqrt_ftz(r2);
   const float inv_r2 = inv_r * inv_r;
   const float n0 = a0 * inv_r, n1 = a1 * inv_r, n2 = a2 * inv_r;
   const float u = (2.0f * mass) * inv_r;
@@ -95,30 +162,42 @@ __device__ __forceinline__ void rhs_schw(float mass, float E, float a0,
 }
 
 // Kerr-Schild Kerr Hamiltonian right-hand side (pallas_kernel.py
-// _rhs_kerr_soa, line for line; ops/geodesic.py kerr_rhs_soa), spin a.
-// sqrtf and the divisions stay IEEE-rounded (no --use_fast_math).
+// _rhs_kerr_soa; ops/geodesic.py kerr_rhs_soa), spin a.  As there, but for
+// its divisions and square roots: S and 1/S come from one reciprocal
+// square root, r and 1/r from another, and 1/A, 1/D from the
+// special-function unit's reciprocal (rsqrt_ftz, rcp_ftz) -- four MUFU
+// operations, without the refinement, range check and slow path that an
+// IEEE square root or division carries.  A ray meets the floors as there:
+// r^2 >= 1e-12 and 1 / (r S) <= 1e12 (S^2 = 0 or subnormal, 1/S = inf,
+// only at the ring singularity).
 __device__ __forceinline__ void rhs_kerr(float mass, float spin, float E,
                                          float a0, float a1, float a2,
                                          float b0, float b1, float b2,
                                          float k[6]) {
+  const float s2 = spin * spin;
   const float rho2 = a0 * a0 + a1 * a1 + a2 * a2;
-  const float bq = rho2 - spin * spin;
-  const float S = sqrtf(bq * bq + 4.0f * spin * spin * a2 * a2);
+  const float bq = rho2 - s2;
+  const float S2 = bq * bq + 4.0f * s2 * a2 * a2;
+  const float inv_S = rsqrt_ftz(S2);
+  const float S = S2 >= kMinNormal ? S2 * inv_S : 0.0f;
   const float r2 = fmaxf(0.5f * (bq + S), kR2Floor);
-  const float r = sqrtf(r2);
-  const float inv_rS = 1.0f / fmaxf(r * S, kR2Floor);
-  const float az = spin * spin * a2;
+  const float inv_r = rsqrt_ftz(r2);
+  const float r = r2 * inv_r;
+  const float inv_rS = fminf(inv_r * inv_S, 1.0f / kR2Floor);
+  const float az = s2 * a2;
   const float dr0 = r2 * a0 * inv_rS;
   const float dr1 = r2 * a1 * inv_rS;
   const float dr2 = (r2 * a2 + az) * inv_rS;
 
-  const float A = r2 + spin * spin;
-  const float inv_A = 1.0f / A;
-  const float l0 = (r * a0 + spin * a1) * inv_A;
-  const float l1 = (r * a1 - spin * a0) * inv_A;
-  const float l2 = a2 / r;
+  const float A = r2 + s2;
+  const float inv_A = rcp_ftz(A);
+  const float n0 = r * a0 + spin * a1;
+  const float n1 = r * a1 - spin * a0;
+  const float l0 = n0 * inv_A;
+  const float l1 = n1 * inv_A;
+  const float l2 = a2 * inv_r;
   const float D = r2 * r2 + az * a2;
-  const float inv_D = 1.0f / D;
+  const float inv_D = rcp_ftz(D);
   const float H = mass * r * r2 * inv_D;
 
   const float w = E + l0 * b0 + l1 * b1 + l2 * b2;
@@ -133,9 +212,7 @@ __device__ __forceinline__ void rhs_kerr(float mass, float spin, float E,
 
   // dw_i = b_j dl_j/dx_i (quotient rule; dA/dx_i = 2 r dr_i)
   const float twoR_A2 = 2.0f * r * inv_A * inv_A;
-  const float n0 = r * a0 + spin * a1;
-  const float n1 = r * a1 - spin * a0;
-  const float inv_r2 = 1.0f / r2;
+  const float inv_r2 = inv_r * inv_r;
   const float dw0 = b0 * ((dr0 * a0 + r) * inv_A - n0 * twoR_A2 * dr0) +
                     b1 * ((dr0 * a1 - spin) * inv_A - n1 * twoR_A2 * dr0) +
                     b2 * (-a2 * dr0 * inv_r2);
@@ -144,7 +221,7 @@ __device__ __forceinline__ void rhs_kerr(float mass, float spin, float E,
                     b2 * (-a2 * dr1 * inv_r2);
   const float dw2 = b0 * (dr2 * a0 * inv_A - n0 * twoR_A2 * dr2) +
                     b1 * (dr2 * a1 * inv_A - n1 * twoR_A2 * dr2) +
-                    b2 * (1.0f / r - a2 * dr2 * inv_r2);
+                    b2 * (inv_r - a2 * dr2 * inv_r2);
 
   const float w2 = w * w;
   const float qw = q * w;
@@ -168,14 +245,25 @@ __device__ __forceinline__ void rhs(const Scalars& sc, float E, float a0,
   }
 }
 
-// Kerr-Schild radius with r^2 floored at 1e-12 (_ks_radius_soa).
+// |x|^2 as fma(x2, x2, fma(x1, x1, x0 x0)), every operation written out
+// with its rounding (__fmul_rn, __fmaf_rn, ...): no inlining context can
+// contract it otherwise, so the radius classify_merge leaves in Ray::rad
+// equals the one computed afresh from the same point (rk4_bwd's recompute
+// from a checkpoint, its sweep from the tape) bit for bit.
+__device__ __forceinline__ float norm2_rn(float x0, float x1, float x2) {
+  return __fmaf_rn(x2, x2, __fmaf_rn(x1, x1, __fmul_rn(x0, x0)));
+}
+
+// Kerr-Schild radius with r^2 floored at 1e-12 (_ks_radius_soa), rounded
+// as written (norm2_rn).
 __device__ __forceinline__ float ks_radius(float spin, float x0, float x1,
                                            float x2) {
-  const float rho2 = x0 * x0 + x1 * x1 + x2 * x2;
-  const float bq = rho2 - spin * spin;
-  const float r2 =
-      0.5f * (bq + sqrtf(bq * bq + 4.0f * spin * spin * x2 * x2));
-  return sqrtf(fmaxf(r2, kR2Floor));
+  const float s2 = __fmul_rn(spin, spin);
+  const float bq = __fsub_rn(norm2_rn(x0, x1, x2), s2);
+  const float S2 =
+      __fmaf_rn(bq, bq, __fmul_rn(__fmul_rn(4.0f, s2), __fmul_rn(x2, x2)));
+  const float r2 = __fmul_rn(0.5f, __fadd_rn(bq, __fsqrt_rn(S2)));
+  return __fsqrt_rn(fmaxf(r2, kR2Floor));
 }
 
 // The step-size and endpoint radius: Euclidean, or Kerr-Schild for KERR.
@@ -183,25 +271,41 @@ template <bool KERR>
 __device__ __forceinline__ float radius(const Scalars& sc, float x0,
                                         float x1, float x2) {
   return KERR ? ks_radius(sc.spin, x0, x1, x2)
-              : sqrtf(x0 * x0 + x1 * x1 + x2 * x2);
+              : __fsqrt_rn(norm2_rn(x0, x1, x2));
 }
 
-// Per-ray step size dt * clip((r / r_ref)^power, 1, boost) (_dt_soa).
-// PMODE: 0 -> power 1, 1 -> power 1.5 (sqrt form), 2 -> power 2,
-// 3 -> general power.
-template <int PMODE, bool KERR>
-__device__ __forceinline__ float step_size(const Scalars& sc, float power,
-                                           float x0, float x1, float x2) {
-  const float ra = radius<KERR>(sc, x0, x1, x2);
-  float ratio = ra / sc.r_ref;
+// a / b correctly rounded, from inv_b = 1 / b correctly rounded: q =
+// a inv_b and one correction by the exact residual a - b q (Markstein),
+// the IEEE division's fast path without its reciprocal, range check and
+// slow path; exact for a, b, a / b in the normal range, as r / r_ref is.
+__device__ __forceinline__ float div_rn(float a, float b, float inv_b) {
+  const float q = __fmul_rn(a, inv_b);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), inv_b, q);
+}
+
+// (r / r_ref)^power of the step-size schedule, before its clip to
+// [1, boost], from ratio = r / r_ref.  PMODE: 0 -> power 1, 1 -> power
+// 1.5 (sqrt form), 2 -> power 2, 3 -> general power.
+template <int PMODE>
+__device__ __forceinline__ float schedule(float ratio, float power) {
   if (PMODE == 1) {
-    ratio = ratio * sqrtf(fmaxf(ratio, 0.0f));
+    return ratio * sqrtf(fmaxf(ratio, 0.0f));
   } else if (PMODE == 2) {
-    ratio = ratio * ratio;
+    return ratio * ratio;
   } else if (PMODE == 3) {
-    ratio = powf(fmaxf(ratio, 1e-20f), power);
+    return powf(fmaxf(ratio, 1e-20f), power);
   }
-  return sc.dt * fminf(fmaxf(ratio, 1.0f), sc.boost);
+  return ratio;
+}
+
+// Per-ray step size dt * clip((r / r_ref)^power, 1, boost) (_dt_soa) at
+// radius ra.
+template <int PMODE>
+__device__ __forceinline__ float step_size(const Scalars& sc, float power,
+                                           float ra) {
+  const float rp =
+      schedule<PMODE>(div_rn(ra, sc.r_ref, sc.inv_r_ref), power);
+  return sc.dt * fminf(fmaxf(rp, 1.0f), sc.boost);
 }
 
 // Calls f(std::integral_constant<int, PMODE>()) with the step-size mode of
@@ -256,8 +360,6 @@ struct SegEvents {
   float t_sph;        // its fraction of the segment (kInf for none)
 };
 
-constexpr float kInf = std::numeric_limits<float>::infinity();
-
 // x + (y - x) t rounded after each operation, as the plain path computes
 // it: the compiler may not fuse it into an FMA differently from kernel to
 // kernel, so the kernels' event points agree bit for bit.
@@ -283,14 +385,15 @@ __device__ __forceinline__ SegEvents segment_events(
   ev.t_disk = kInf;
   ev.d0 = 0.0f;
   ev.d1 = 0.0f;
-  if (DISK) {
-    const bool crossed = (y2 < 0.0f && x2 >= 0.0f) || (y2 > 0.0f && x2 <= 0.0f);
+  // the crossing point and its radius only where the segment crosses
+  // z = 0, which few steps of a warp do (nothing else reads them)
+  if (DISK && ((y2 < 0.0f && x2 >= 0.0f) || (y2 > 0.0f && x2 <= 0.0f))) {
     const float denom = y2 - x2;
     const float t = -x2 / (fabsf(denom) > 0.0f ? denom : 1.0f);
     ev.d0 = lerp_rn(x0, y0, t);
     ev.d1 = lerp_rn(x1, y1, t);
     const float rr = sqrtf(ev.d0 * ev.d0 + ev.d1 * ev.d1);
-    ev.disk = crossed && rr >= sc.r_in && rr <= sc.r_out;
+    ev.disk = rr >= sc.r_in && rr <= sc.r_out;
     if (ev.disk) ev.t_disk = t;
   }
   ev.sid = -1;
@@ -298,15 +401,25 @@ __device__ __forceinline__ SegEvents segment_events(
   if (SPH) {
     const float dx0 = y0 - x0, dx1 = y1 - x1, dx2 = y2 - x2;
     const float aa = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-    if (GUARD) {
-      const float L = sqrtf(aa);
-      const float rb_hi = KERR ? rb + fabsf(sc.spin) : rb;
+    if (GUARD && BHGC_SPHERE_GUARD) {
+      // |c_k| in [rb - L - r_k, rb_hi + L + r_k], compared in squares (no
+      // square root a sphere), with L from the special-function unit;
+      // L and the squares carry a relative slack of 1e-6, far above their
+      // rounding, so the test keeps every sphere the exact one keeps
+      const float L = aa * rsqrt_ftz(fmaxf(aa, kMinNormal)) * 1.000001f;
+      const float lo = rb - L;
+      const float hi = (KERR ? rb + fabsf(sc.spin) : rb) + L;
+      // first the span of all the spheres: most steps end here
+      if (lo > sc.sph_hi || hi < sc.sph_lo) return ev;
       bool possible = false;
       for (int k = 0; k < n_sph; ++k) {
         const float cx = __ldg(sph + 4 * k), cy = __ldg(sph + 4 * k + 1);
         const float cz = __ldg(sph + 4 * k + 2), rad = __ldg(sph + 4 * k + 3);
-        const float ck = sqrtf(cx * cx + cy * cy + cz * cz);
-        possible = possible || (rb - L <= ck + rad && rb_hi + L >= ck - rad);
+        const float c2 = cx * cx + cy * cy + cz * cz;
+        const float lo_k = lo - rad, hi_k = hi + rad;
+        possible = possible ||
+                   ((lo_k <= 0.0f || c2 * 1.000001f >= lo_k * lo_k) &&
+                    c2 * 0.999999f <= hi_k * hi_k);
       }
       if (!possible) return ev;
     }
@@ -319,13 +432,15 @@ __device__ __forceinline__ SegEvents segment_events(
       const float bb = 2.0f * (o0 * dx0 + o1 * dx1 + o2 * dx2);
       const float cc = o0 * o0 + o1 * o1 + o2 * o2 - rad * rad;
       const float disc = bb * bb - 4.0f * aa * cc;
-      // the guarded sqrt of integrate._sphere_events
-      const float sq = sqrtf(disc > 0.0f ? disc : 1.0f);
-      const float t = (-bb - sq) / denom_a;
-      // a later sphere must come strictly earlier: ties go to the lowest k
-      if (disc > 0.0f && t >= 0.0f && t <= 1.0f && t < ev.t_sph) {
-        ev.t_sph = t;
-        ev.sid = k;
+      // the root and its division only where the segment's line meets the
+      // sphere (integrate._sphere_events guards the sqrt instead); a later
+      // sphere must come strictly earlier: ties go to the lowest k
+      if (disc > 0.0f) {
+        const float t = (-bb - sqrtf(disc)) / denom_a;
+        if (t >= 0.0f && t <= 1.0f && t < ev.t_sph) {
+          ev.t_sph = t;
+          ev.sid = k;
+        }
       }
     }
   }
@@ -347,6 +462,7 @@ __device__ __forceinline__ void classify_merge(const Scalars& sc,
   // sphere entry overrides it, and a disk crossing no later on the segment
   // overrides that.
   const float rb = radius<KERR>(sc, y0, y1, y2);
+  r.rad = rb;   // the next step's radius, if the ray stays ACTIVE
   // not fused with h = dt * clip(...): kernels that fuse differently would
   // part in the last bit of lam
   const float lam1 = __fadd_rn(r.lam, dt);
@@ -385,13 +501,15 @@ __device__ __forceinline__ void classify_merge(const Scalars& sc,
 }
 
 // One RK4 step of an ACTIVE ray with endpoint classification, the segment
-// events and the freeze merge (classify_merge).
+// events and the freeze merge (classify_merge).  The step size reads the
+// radius r.rad, which the caller sets before the first step and
+// classify_merge after each.
 template <int PMODE, bool KERR, bool DISK, bool SPH, bool GUARD>
 __device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
                                          float E,
                                          const float* __restrict__ sph,
                                          int n_sph, Ray& r) {
-  const float h = step_size<PMODE, KERR>(sc, power, r.x0, r.x1, r.x2);
+  const float h = step_size<PMODE>(sc, power, r.rad);
 
   float ka[6], kb[6], kc[6], kd[6];
   rhs<KERR>(sc, E, r.x0, r.x1, r.x2, r.p0, r.p1, r.p2, ka);
@@ -667,25 +785,18 @@ __device__ __forceinline__ void step_size_vjp(const Scalars& sc, float power,
                                               float x0, float x1, float x2,
                                               float gh, float gx[6],
                                               float gs[5]) {
-  float ra, kr2 = 0.0f, kS = 0.0f;
+  float kr2 = 0.0f, kS = 0.0f;
   if (KERR) {
     const float rho2 = x0 * x0 + x1 * x1 + x2 * x2;
     const float bq = rho2 - sc.spin * sc.spin;
     kS = sqrtf(bq * bq + 4.0f * sc.spin * sc.spin * x2 * x2);
     kr2 = 0.5f * (bq + kS);
-    ra = sqrtf(fmaxf(kr2, kR2Floor));
-  } else {
-    ra = sqrtf(x0 * x0 + x1 * x1 + x2 * x2);
   }
-  const float ratio = ra / sc.r_ref;
-  float rp = ratio;
-  if (PMODE == 1) {
-    rp = ratio * sqrtf(fmaxf(ratio, 0.0f));
-  } else if (PMODE == 2) {
-    rp = ratio * ratio;
-  } else if (PMODE == 3) {
-    rp = powf(fmaxf(ratio, 1e-20f), power);
-  }
+  // the radius and schedule of step_size, so the clip's sides agree with
+  // the forward's
+  const float ra = radius<KERR>(sc, x0, x1, x2);
+  const float ratio = div_rn(ra, sc.r_ref, sc.inv_r_ref);
+  const float rp = schedule<PMODE>(ratio, power);
   const float lo = fmaxf(rp, 1.0f);
   const float c = fminf(lo, sc.boost);
   const float g_c = gh * sc.dt;
@@ -808,7 +919,8 @@ __device__ __forceinline__ void rk4_step_adjoint(
     const Scalars& sc, float power, float E, const float* __restrict__ sph,
     int n_sph, const float y[6], float g[6], float& gE, float gs[5],
     float gsph[4], int& hit, float* kbuf) {
-  const float h = step_size<PMODE, KERR>(sc, power, y[0], y[1], y[2]);
+  const float h =
+      step_size<PMODE>(sc, power, radius<KERR>(sc, y[0], y[1], y[2]));
   const float c = 0.5f * h;
 
   // forward stage chain, as in rk4_step: k0, k1 to kbuf, k2 and k3 kept

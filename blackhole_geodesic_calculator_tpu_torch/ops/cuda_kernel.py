@@ -42,9 +42,10 @@ Source note
 * **What bounds them on an H100.** Scalar float32 arithmetic: 276
   operations per ray-step forward in Schwarzschild (4 RHS evaluations with
   one ``rsqrtf`` each, the step-size schedule and the endpoint test) and
-  about 750 in Kerr (a Kerr RHS is about 160, with two square roots and
-  six divisions, and the Kerr-Schild radius adds two square roots), about
-  3.5 times that per taped step backward; a Dormand-Prince trip has seven
+  about 750 in Kerr (a Kerr RHS is about 160, with two reciprocal square
+  roots and two reciprocals on the special-function unit, and the
+  Kerr-Schild radius adds two IEEE square roots), about 3.5 times that per
+  taped step backward; a Dormand-Prince trip has seven
   RHS evaluations, the error norm and the controller's power.  Against
   that, 40 bytes of ray state read once and 36 written once per ray
   (Dormand-Prince: 44 read, the per-ray h), plus 32 bytes (36) per ray and
@@ -77,7 +78,12 @@ Source note
   a fixed order, so they are the same bit for bit from run to run.  The
   TPU-only machinery is not carried over: the 128-lane row layout, the
   padding and the VMEM tile sizing.  The forward kernels take the rays in
-  input order.
+  input order under every ``tile_order``: sorting 32-ray tiles by their
+  largest |x cross p|^2, as the TPU wrapper sorts its 128-ray rows, fills
+  the blocks' warps but its key and sort cost more than that saves on an
+  H100 (PERF.md).  A step computes the radius once: the endpoint's,
+  which the next step's size reuses (``Ray::rad``), written with explicit
+  roundings so a recompute from a checkpoint meets the same bits.
 
 ``integrate_plain`` is the plain PyTorch version of ``integrate_cuda``
 (ops/integrate.py's loops, the checkpointed ones under autograd), and

@@ -10,7 +10,8 @@ line) if anything is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
   1. builds the kernels from the checkout's sources (build/kernels/), one
-     nvcc per source, all at once;
+     nvcc per source, all at once, and with them the two witness builds
+     of the same sources (NO_GUARD, IEEE);
   2. holds rk4_fwd against its plain PyTorch version on the card (a
      65,536-ray impact-parameter fan and a ragged batch with inside-horizon
      rays) and renders the 64x64 sky golden through it;
@@ -53,7 +54,9 @@ line) if anything is off:
      einstein_ring and disk_and_moons through it;
   9. holds rk4_ckpt's event variant against rk4_fwd's (bit for bit) and its
      checkpoint rows against the plain loop, those batches and the 1024^2
-     events rays;
+     events rays; and both kernels' outputs, checkpoints and live counts
+     against the NO_GUARD build's (bit for bit: the sphere guard may skip
+     only quadratics that find no entry);
  10. holds rk4_bwd's event variant against autograd of the plain loop, the
      (K, 4) sphere cotangent included, and checks that two runs give the
      same bits;
@@ -77,7 +80,8 @@ line) if anything is off:
      |a| of slack misses entries); renders the 64x64 golden kerr_a09
      through them;
  14. holds the Kerr variants of rk4_ckpt against rk4_fwd's (bit for bit)
-     and their checkpoint rows against the plain loop;
+     and their checkpoint rows against the plain loop, and the event
+     variants against the NO_GUARD build as phase 9 does;
  15. holds the Kerr variants of rk4_bwd against autograd of the plain Kerr
      loop, the spin cotangent included (the fan also cut to 40 steps, so
      rays are ACTIVE at the end), and checks that two runs give the same
@@ -95,12 +99,18 @@ line) if anything is off:
      the plain loop, and times it and each kernel;
  19. computes each kernel's bound at the main path's inputs: the ray-steps
      of its frame, the operations per ray-step counted on the plain
-     statement of its variant, and the bytes it must move; and for each
+     statement of its variant, and the bytes it must move; for each
+     rk4_fwd and rk4_ckpt variant on its frame (forward_rows) the
+     registers, stack and spills ptxas reports, the resident blocks per
+     SM, the SASS size and its census of special-function and slow-path
+     instructions, the busy lanes and warps and the device time, and on
+     the Kerr frames what the special-function unit's reciprocals move in
+     rk4_fwd's outputs against the IEEE build (ieee_deviation); for each
      rk4_bwd variant on its frame (adjoint_table) the registers, stack and
-     spills ptxas reports, the resident blocks per SM, the SASS size, the
-     share of busy lanes and the device and call times in input and in
-     cost order; and rk4_bwd's device time at seg 32 and 64 (the sky and
-     the Kerr events frames at 400 and 2000 steps);
+     spills, the resident blocks per SM, the SASS size, the share of busy
+     lanes and the device and call times in input and in cost order; and
+     rk4_bwd's device time at seg 32 and 64 (the sky and the Kerr events
+     frames at 400 and 2000 steps);
  20. holds dopri_fwd (adaptive Dormand-Prince, K4) against the plain trip
      loop on 65,536-ray fans (camera and events, Schwarzschild and a =
      0.45) at bench.py's adaptive configuration: the reference's
@@ -138,6 +148,8 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -325,6 +337,13 @@ RING = 512                  # the Einstein ring (BASELINE config 2) is RING^2
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
+# The witness builds of the same sources (rk4_step.cuh, _build.built_with):
+# without the sphere guard, whose outputs rk4_fwd's and rk4_ckpt's must
+# equal bit for bit (phases 9 and 14); and with IEEE forms of the
+# special-function unit's reciprocals, against which phase 19 reads what
+# they move in the Kerr forward.
+NO_GUARD = ("BHGC_SPHERE_GUARD=0",)
+IEEE = ("BHGC_IEEE_RECIPROCALS=1",)
 
 FAILURES: list[str] = []
 # The readings each kernel's entry in the kernels line must carry.
@@ -690,7 +709,9 @@ def step_profile(step, wall, what, name_limit, runs=5):
 # =============================================================================
 def phase_build():
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    # the shipped library and the witness builds, all at once
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        lib_path, *_ = pool.map(_build.build, [(), NO_GUARD, IEEE])
     _build.load()
     log(f"# phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
         f"-> {lib_path.relative_to(ROOT)}")
@@ -1572,13 +1593,28 @@ def ckpt_against_fwd(cases, tag):
     """For each (label, env, config, flat initial state): rk4_ckpt's final
     state equals rk4_fwd's bit for bit, and its checkpoint rows agree with
     the plain loop's states at the same steps (edge rays and rays a step
-    apart left to the forward phase).  Returns (error, all bitwise)."""
+    apart left to the forward phase); with spheres, both kernels' outputs,
+    checkpoints and live counts equal the NO_GUARD build's bit for bit.
+    Returns (error, all bitwise)."""
     err, bitwise = 0.0, True
     for what, e, c, s0 in cases:
         with torch.no_grad():
             fwd, fin, ck = run_ckpt(e, c, s0)
             same = all(torch.equal(a, b) for a, b in zip(fwd, fin))
             bitwise &= same
+            guard = ""
+            if e.spheres is not None:
+                with _build.built_with(*NO_GUARD):
+                    witness = run_ckpt(e, c, s0)
+                unguarded = all(
+                    torch.equal(a, b) for a, b in zip(
+                        (*fwd, *fin, *ck),
+                        (*witness[0], *witness[1], *witness[2])))
+                check(unguarded, f"{what}: rk4_fwd or rk4_ckpt differs from "
+                      "its build without the sphere guard")
+                guard = ("; both equal the build without the sphere guard"
+                         if unguarded else "; DIFFER without the guard")
+                del witness
             if not same:
                 ray_diff = torch.zeros_like(fin[2], dtype=torch.bool)
                 for a, b in zip(fwd, fin):
@@ -1610,7 +1646,7 @@ def ckpt_against_fwd(cases, tag):
             + ("equals rk4_fwd bit for bit" if same else "DIFFERS")
             + f"; {len(rows)} checkpoint rows of seg {seg} agree "
             f"({int((~keep).sum())} rays left to the forward phase); "
-            + live_equal(ck, what))
+            + live_equal(ck, what) + guard)
     return err, bitwise
 
 
@@ -3329,23 +3365,51 @@ def ptxas_info():
 
 
 @functools.cache
-def sass_sizes():
-    """{kernel's mangled name: SASS instructions} of the built library, from
-    the toolkit's cuobjdump; None where the toolkit has none."""
+def sass_opcodes():
+    """{kernel's mangled name: Counter of its SASS opcodes} of the built
+    library, from the toolkit's cuobjdump; None where the toolkit has
+    none."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
     out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
                          capture_output=True, text=True).stdout
-    sizes, name = {}, None
+    ops, name = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = m.group(1)
-            sizes[name] = 0
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            sizes[name] += 1
-    return sizes
+            ops[name] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if name and m:
+            ops[name][m.group(1)] += 1
+    return ops
+
+
+# The SASS census, by opcode prefix: the special-function unit's
+# reciprocals and (reciprocal) square roots, the IEEE division's range
+# check, and the calls (the IEEE division's, reciprocal's and square
+# root's slow paths are subroutines).
+CENSUS = ("MUFU.RCP", "MUFU.RSQ", "MUFU.SQRT", "FCHK", "CALL")
+
+
+def sass_census(pattern):
+    """{census entry: count} summed over the kernels whose mangled name
+    matches ``pattern``, and their SASS size; (None, message) without
+    cuobjdump."""
+    ops = sass_opcodes()
+    if ops is None:
+        return None, "no cuobjdump"
+    census, size = dict.fromkeys(CENSUS, 0), 0
+    for k, v in ops.items():
+        if re.search(pattern, k):
+            size += sum(v.values())
+            for prefix in CENSUS:
+                census[prefix] += sum(c for op, c in v.items()
+                                      if op.startswith(prefix))
+    return census, size
 
 
 def lane_efficiency(counts, seg, perm):
@@ -3372,9 +3436,7 @@ def adjoint_table(tag, name, pattern, ckpt, launch, live, counts, seg,
     order's own device time (``live``: the checkpointing kernel's count)
     and the checkpointing kernel's (``ckpt``) at this segment length."""
     regs = [v for k, v in ptxas_info().items() if re.search(pattern, k)]
-    sass = sass_sizes()
-    n_sass = ("no cuobjdump" if sass is None else
-              sum(v for k, v in sass.items() if re.search(pattern, k)))
+    n_sass = sass_census(pattern)[1]
     lanes, ms, call = {}, {}, {}
     for order in ("none", "cost"):
         lanes[order] = lane_efficiency(
@@ -3402,10 +3464,123 @@ def adjoint_table(tag, name, pattern, ckpt, launch, live, counts, seg,
         order_ms=ms_order, ckpt_device_ms=ms_ckpt)
 
 
+# =============================================================================
+# The forward kernels (rk4_fwd, rk4_ckpt) on their frames: registers,
+# occupancy, code and its census, busy lanes and warps, and time.
+# =============================================================================
+def busy_shares(counts):
+    """(lanes, warps) busy over a forward kernel's whole run, thread t
+    taking ray t in 256-thread blocks: the ray-steps ``counts`` summed over
+    32 x the sum over warps of the warp's largest count, and that sum over
+    8 x the sum over blocks of the block's largest."""
+    c = torch.cat([counts, counts.new_zeros(-counts.numel() % 256)])
+    warp = c.view(-1, 8, 32).amax(2)
+    w, b = int(warp.sum()), int(warp.amax(1).sum())
+    return (float(counts.sum()) / (32 * w) if w else 1.0,
+            w / (8 * b) if b else 1.0)
+
+
+def ieee_deviation(tag, name, fenv, icfg, s0, launch, readings):
+    """What the special-function unit's reciprocals (rk4_step.cuh
+    rsqrt_ftz, rcp_ftz) move in rk4_fwd's outputs: ``launch()``'s (x, p,
+    lam, status, hit_obj) against the same launch through the IEEE build,
+    and each against the plain loop from the flat ``s0``: the rays whose
+    status or hit id differ, those a whole step apart (|dlam| of half a
+    step or more: one path took a step more to the same end), over the
+    others away from b_c (near_b_c, where two correct float32 paths part)
+    the largest |dx|, |dp| / max(1, |p|) and |dlam|, and near b_c the
+    largest |dlam|."""
+    with torch.no_grad():
+        fast = launch()
+        with _build.built_with(*IEEE):
+            ieee = launch()
+        sp = cuda_kernel.integrate_plain(fenv, s0, icfg)
+    plain = (sp.x, sp.p, sp.lam, sp.status, sp.hit_obj)
+    near = near_b_c(fenv, s0)
+
+    def apart(a, b):
+        same = (a[3] == b[3]) & (a[4] == b[4])
+        dlam = (a[2] - b[2]).abs()
+        step = same & (dlam >= 0.5 * icfg.dt)
+        keep = same & ~step & ~near
+        pscale = b[1].norm(dim=-1, keepdim=True).clamp(min=1.0)
+        return dict(
+            status_or_hit=int((~same).sum()), step_apart=int(step.sum()),
+            dx=masked_max((a[0] - b[0]).abs().amax(-1), keep),
+            dp=masked_max(((a[1] - b[1]).abs() / pscale).amax(-1), keep),
+            dlam=masked_max(dlam, keep),
+            dlam_near_b_c=masked_max(dlam, same & ~step & near))
+
+    differ = int(((fast[0] != ieee[0]).any(-1) | (fast[1] != ieee[1]).any(-1)
+                  | (fast[2] != ieee[2]) | (fast[3] != ieee[3])
+                  | (fast[4] != ieee[4])).sum())
+    dev = {"fast_vs_ieee": apart(fast, ieee),
+           "fast_vs_plain": apart(fast, plain),
+           "ieee_vs_plain": apart(ieee, plain)}
+    log(f"# {tag}: {name} against its IEEE-reciprocal build: {differ} of "
+        f"{fast[2].numel()} rays differ in some bit ({int(near.sum())} "
+        f"near b_c)")
+    for key, d in dev.items():
+        log(f"# {tag}: {name} {key}: {d['status_or_hit']} statuses or hit "
+            f"ids differ, {d['step_apart']} rays a step apart; elsewhere "
+            f"away from b_c max |dx| {d['dx']:.3e}, max "
+            f"|dp|/max(1,|p|) {d['dp']:.3e}, max |dlam| {d['dlam']:.3e}; "
+            f"near b_c max |dlam| {d['dlam_near_b_c']:.3e}")
+    readings[name]["ieee_reciprocals"] = dict(dev, rays_differ=differ)
+
+
+def forward_rows(tag, suffix, fenv, icfg, s0, per_ray, readings,
+                 name_limit):
+    """The rows of the forward kernels' table for the variants rk4_fwd and
+    rk4_ckpt + ``suffix`` on their main path's frame (``fenv``, ``icfg``,
+    the flat ``s0``; ``per_ray``: each ray's steps): ptxas's registers,
+    stack and spills, the resident blocks per SM, the SASS size and
+    census, the busy lanes and warps, and the device time; for a Kerr
+    frame, rk4_fwd against its IEEE-reciprocal build (ieee_deviation)."""
+    k = 0 if fenv.spheres is None else fenv.spheres.center.shape[0]
+    kw = dict(sph=cuda_kernel._sphere_table(fenv, s0.x.device) if k else None,
+              has_disk=fenv.disk is not None, kerr=fenv.spin is not None)
+    scal = cuda_kernel._scalars(fenv, icfg, s0.x.device).detach()
+    pw, n_steps = float(icfg.dt_power), icfg.n_steps
+    seg = cuda_kernel.segment(n_steps)
+    args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
+    launches = {
+        "fwd": lambda: cuda_kernel.rk4_fwd(*args, n_steps, pw,
+                                           obj=s0.hit_obj, **kw),
+        "ckpt": lambda: cuda_kernel.rk4_ckpt(*args, n_steps, seg, pw,
+                                             obj=s0.hit_obj, **kw)}
+    lib = _build.load()
+    lanes, warps = busy_shares(per_ray)
+    for kind, launch in launches.items():
+        name = f"rk4_{kind}{suffix}"
+        pattern = (rf"rk4_{kind}_kernelILi{PMODES.get(pw, 3)}ELb"
+                   rf"{int(kw['kerr'])}ELi{2 * kw['has_disk'] + (k > 0)}E")
+        regs = [v for key, v in ptxas_info().items()
+                if re.search(pattern, key)]
+        census, n_sass = sass_census(pattern)
+        blocks = getattr(lib, f"bhgc_rk4_{kind}_occupancy")(
+            pw, int(kw["kerr"]), int(kw["has_disk"]), k)
+        ms = device_ms(no_grad(launch))
+        r, st, sp_st, sp_ld = regs[0] if regs else ("?",) * 4
+        log(f"# {tag}: {name}: {r} registers, {st} B stack frame, spills "
+            f"{sp_st}/{sp_ld} B; {blocks} blocks of 256 threads per SM; "
+            f"SASS {n_sass} instructions, census {census}; lanes "
+            f"{lanes:.4f}, warps {warps:.4f}, device {ms:.3f} ms "
+            f"[{name_limit}]")
+        readings[name].update(
+            registers=r, stack_bytes=st, spill_bytes=[sp_st, sp_ld],
+            blocks_per_sm=blocks, threads=256, sass_instructions=n_sass,
+            sass_census=census, busy_lanes=lanes, busy_warps=warps,
+            device_ms_input_order=ms)
+    if kw["kerr"]:
+        ieee_deviation(tag, f"rk4_fwd{suffix}", fenv, icfg, s0,
+                       lambda: launches["fwd"]()[:5], readings)
+
+
 def guard_pass(env, x, y):
-    """Per ray, whether rk4_fwd's sphere guard lets the K sphere quadratics
-    of the segment x -> y run (rk4_step.cuh segment_events; the band's
-    upper end gains |a| for a Kerr hole)."""
+    """Per ray, whether the sphere guard of rk4_fwd and rk4_ckpt lets the K
+    sphere quadratics of the segment x -> y run (rk4_step.cuh
+    segment_events; the band's upper end gains |a| for a Kerr hole)."""
     rb = env.radius(y)
     L = (y - x).norm(dim=-1)
     hi = rb + (env.spin.abs() if env.spin is not None else 0.0)
@@ -3443,8 +3618,8 @@ def phase_bounds(dev, name_limit, readings):
     and its bytes over the memory rate (PEAK_FLOPS, PEAK_BYTES).  The
     ray-steps are the frame's own (ray_steps); the operations per ray-step
     are counted (OpCount) on the plain statement of each variant: the step
-    (``_fixed_step``) for rk4_fwd and rk4_ckpt, rk4_fwd's sphere quadratics
-    only where its guard passes, and the step with its adjoint
+    (``_fixed_step``) for rk4_fwd and rk4_ckpt, their sphere quadratics
+    only where their guard passes, and the step with its adjoint
     (``adjoint.step_adjoint``) for each taped step of rk4_bwd.  Bytes:
     each input read once and each output written once."""
     cfg = flagship_cfg()
@@ -3486,8 +3661,8 @@ def phase_bounds(dev, name_limit, readings):
             few.x.unbind(-1), few.p.unbind(-1), few.E, few.status, scal, g6,
             icfg.dt_power, sph=sph, has_disk=fenv.disk is not None,
             kerr=fenv.spin is not None), 64)
-        ops = {"fwd": steps * (step_ops - quad + guard_ops) + guard * quad,
-               "ckpt": steps * step_ops,
+        fwd_ops = steps * (step_ops - quad + guard_ops) + guard * quad
+        ops = {"fwd": fwd_ops, "ckpt": fwd_ops,
                "bwd": steps * (step_ops + adj_ops)}
         table = 4 * (10 + 4 * k)
         state_in, state_out = 40 * n, 36 * n
@@ -3512,6 +3687,8 @@ def phase_bounds(dev, name_limit, readings):
             f"ray-steps ({steps / n:.2f} per ray), {guard} past the sphere "
             f"guard; per ray-step {step_ops} operations (sphere quadratics "
             f"{quad}, guard {guard_ops}), adjoint {adj_ops}")
+        forward_rows("phase 19", suffix, fenv, icfg, s0, per_ray, readings,
+                     name_limit)
         # rk4_bwd on this frame's checkpoints, in each ray order
         seg = cuda_kernel.segment(icfg.n_steps)
         kw = dict(sph=sph, has_disk=fenv.disk is not None,

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import blackhole_geodesic_calculator_tpu_torch as P  # noqa: E402
-from blackhole_geodesic_calculator_tpu_torch.ops import cuda_kernel  # noqa: E402
+from blackhole_geodesic_calculator_tpu_torch.ops import _build, cuda_kernel  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import integrate as tint  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import states  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius  # noqa: E402
@@ -929,3 +929,35 @@ def test_adjoint_orders_agree(kernel, spin):
     for a, c in zip(cost[3:], plain_order[3:]):
         assert float(c.abs().max()) > 0
         assert float((a - c).abs().max() / c.abs().max()) <= 1e-3
+
+
+# =============================================================================
+# The sphere guard against a build without it (rk4_step.cuh
+# BHGC_SPHERE_GUARD=0, _build.built_with).
+# =============================================================================
+@pytest.mark.parametrize("spin", [None, 0.45, -0.3])
+def test_sphere_guard_changes_no_bit(spin):
+    """rk4_fwd's and rk4_ckpt's outputs, checkpoints and live counts on the
+    event rays equal those of the build without the sphere guard bit for
+    bit: the guard skips only sphere quadratics that find no entry."""
+    e = events_env(env()) if spin is None else kerr_env(spin, True)
+    s0 = kerr_state(e, *event_rays())
+    cfg = tint.IntegratorConfig(**{**FLAGSHIP, "n_steps": 60})
+    seg = cuda_kernel.segment(cfg.n_steps)
+    kw = dict(sph=cuda_kernel._sphere_table(e, DEV), has_disk=True,
+              obj=s0.hit_obj, kerr=spin is not None)
+    args = (cuda_kernel._scalars(e, cfg, DEV), s0.x, s0.p, s0.E, s0.lam,
+            s0.status)
+
+    def run():
+        fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5, **kw)
+        *fin, ck = cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg, 1.5, **kw)
+        return (*fwd, *fin, *ck)
+
+    with torch.no_grad():
+        guarded = run()
+        with _build.built_with("BHGC_SPHERE_GUARD=0"):
+            unguarded = run()
+    assert int((guarded[3] == states.OBJECT).sum()) >= 20
+    for a, b in zip(guarded, unguarded):
+        assert torch.equal(a, b)

@@ -246,3 +246,41 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "kernels").exists()
+
+
+@pytest.mark.parametrize("defines", [("BHGC_SPHERE_GUARD=0",),
+                                     ("BHGC_IEEE_RECIPROCALS=1",)])
+def test_witness_build_keys_its_own_library(defines):
+    """A witness build's definitions are nvcc flags and key a library of
+    their own, so it never takes the shipped library's place on disk."""
+    assert _build._flags(()) == _build.NVCC_FLAGS
+    assert _build._flags(defines) == _build.NVCC_FLAGS + (f"-D{defines[0]}",)
+    assert _build.library_path(defines) != _build.library_path()
+    assert _build.library_path(defines) == _build.library_path(
+        tuple(defines))
+
+
+def test_failed_witness_build_names_its_definition(tmp_path, monkeypatch):
+    """The definitions reach every nvcc command of a witness build."""
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="-DBHGC_SPHERE_GUARD=0"):
+        _build.build(("BHGC_SPHERE_GUARD=0",))
+    assert not list(tmp_path.rglob("*.so"))
+
+
+def test_built_with_restores_the_shipped_library(monkeypatch):
+    """Launches inside built_with go through the witness library, and the
+    shipped one is back after the block, also when the block raises."""
+    shipped, witness, built = object(), object(), []
+    monkeypatch.setattr(_build, "_lib", shipped)
+    monkeypatch.setattr(_build, "build",
+                        lambda defines=(): built.append(defines) or "w.so")
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: witness)
+    monkeypatch.setattr(_build, "_declare", lambda lib: lib)
+    with pytest.raises(KeyError):
+        with _build.built_with("BHGC_SPHERE_GUARD=0") as lib:
+            assert lib is witness and _build.load() is witness
+            raise KeyError
+    assert built == [("BHGC_SPHERE_GUARD=0",)]
+    assert _build.load() is shipped
