@@ -11,7 +11,7 @@ there is no fallback to the plain PyTorch path.  ``built_with`` routes the
 launches of a block through a witness build of the same sources with
 preprocessor definitions (rk4_step.cuh's BHGC_SPHERE_GUARD=0,
 BHGC_IEEE_RECIPROCALS=1), which chip_smoke.py holds the shipped kernels
-against.
+against; ``built_from`` through a build of another directory of sources.
 """
 
 from __future__ import annotations
@@ -34,10 +34,10 @@ LIB_NAME = "libbhgc_kernels.so"
 _lib: ctypes.CDLL | None = None
 
 
-def _sources() -> list[Path]:
-    srcs = sorted(_CSRC.glob("*.cu"))
+def _sources(csrc: Path) -> list[Path]:
+    srcs = sorted(csrc.glob("*.cu"))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources found under {_CSRC}")
+        raise RuntimeError(f"no CUDA sources found under {csrc}")
     return srcs
 
 
@@ -56,11 +56,12 @@ def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
-def library_path(defines: tuple[str, ...] = ()) -> Path:
-    """Where the library for the current sources and flags, with the
-    preprocessor definitions ``defines`` ("NAME=VALUE"), lives."""
+def library_path(defines: tuple[str, ...] = (), csrc: Path = _CSRC) -> Path:
+    """Where the library for the sources under ``csrc`` (the package's by
+    default) and the flags, with the preprocessor definitions ``defines``
+    ("NAME=VALUE"), lives."""
     h = hashlib.sha256(" ".join(_flags(defines)).encode())
-    for src in sorted(_CSRC.glob("*.cu*")):
+    for src in sorted(Path(csrc).glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
@@ -76,13 +77,14 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
                                            (p.communicate() for p in procs))]
 
 
-def build(defines: tuple[str, ...] = ()) -> Path:
-    """Compile the sources (with ``defines``) unless a library for them
-    exists; return its path.
+def build(defines: tuple[str, ...] = (), csrc: Path = _CSRC) -> Path:
+    """Compile the sources under ``csrc`` (with ``defines``) unless a
+    library for them exists; return its path.
 
     The compilers' output, including ``-Xptxas=-v``'s registers and spills
     per kernel, is kept beside the library as ``build.log``."""
-    out = library_path(defines)
+    srcs = _sources(Path(csrc))
+    out = library_path(defines, csrc)
     flags = _flags(defines)
     if out.exists():
         return out
@@ -90,9 +92,9 @@ def build(defines: tuple[str, ...] = ()) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=out.parent))
     try:
-        objs = [tmp / (src.stem + ".o") for src in _sources()]
+        objs = [tmp / (src.stem + ".o") for src in srcs]
         runs = _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
-                         for src, obj in zip(_sources(), objs)])
+                         for src, obj in zip(srcs, objs)])
         if all(rc == 0 for _, rc, _ in runs):
             runs += _run_all([[nvcc, "-shared", "-o", str(tmp / LIB_NAME),
                                *map(str, objs)]])
@@ -120,14 +122,27 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-@contextlib.contextmanager
 def built_with(*defines: str):
     """Within the block, every launch goes through the library built with
     the preprocessor definitions ``defines`` ("NAME=VALUE"): a witness
     build, which chip_smoke.py holds the shipped library against."""
+    return _routed(build(tuple(defines)))
+
+
+def built_from(csrc: Path):
+    """Within the block, every launch goes through the library built from
+    the sources under ``csrc``: another version of the package's sources,
+    which tools/dopri_levers.py times against them."""
+    return _routed(build((), csrc))
+
+
+@contextlib.contextmanager
+def _routed(path):
+    """Every launch of the block through the library at ``path``; the
+    shipped one is back after it, also when the block raises."""
     global _lib
     shipped = load()
-    _lib = _declare(ctypes.CDLL(str(build(tuple(defines)))))
+    _lib = _declare(ctypes.CDLL(str(path)))
     try:
         yield _lib
     finally:
@@ -176,6 +191,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bhgc_dopri_ckpt.argtypes = ([vp, vp, i32, i32, i32] + [vp] * 18
                                     + [i32, i32, i32] + ctl + [vp])
     lib.bhgc_dopri_ckpt.restype = i32
+    # n -> blocks of a launch; kerr, has_disk, n_sph -> resident blocks
+    # per SM
+    for kind in ("fwd", "ckpt"):
+        blocks = getattr(lib, f"bhgc_dopri_{kind}_blocks")
+        blocks.argtypes = [i32]
+        blocks.restype = i32
+        occupancy = getattr(lib, f"bhgc_dopri_{kind}_occupancy")
+        occupancy.argtypes = [i32, i32, i32]
+        occupancy.restype = i32
     # scal, sph, n_sph, has_disk, kerr, cx, cp, ch, clam, cst, E, gx,
     # gp, bx, bp, bE, partial, order, gscal, gsph, n, n_steps, seg, the
     # controller, stream

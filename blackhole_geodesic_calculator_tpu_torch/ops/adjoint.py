@@ -652,6 +652,19 @@ def _error_norm(y, y5, e, ctl):
     return errn, err2, scale, r
 
 
+# The float after 1: a correctly rounded square root is at most 1 exactly
+# for the floats at most this one.
+ERR2_ACCEPT = 1.0 + 2.0**-23
+
+
+def error_accepts(err2):
+    """Whether the error norm errn (``_error_norm``: sqrt(err2), 0 where
+    err2 is not positive, NaN included) is at most 1, decided on err2
+    without the square root, as dopri_trip.cuh's ``error_accepts``: not
+    err2 > 1 + 2^-23."""
+    return ~(err2 > ERR2_ACCEPT)
+
+
 def events_merge(x, p, y, q, dt, lam, status, hit_obj, scal, sph=None,
                  has_disk=False, kerr=False):
     """The endpoint classification and freeze merge of ``_events_merge``
@@ -710,8 +723,8 @@ def dopri_trip(x, p, E, h, lam, status, hit_obj, scal, ctl, sph=None,
     ks, _ = _dopri_stages(y, E, dt, scal, kerr)
     c5, ce = _comb(ks, _DP_B5), _comb(ks, _DP_E)
     y5 = tuple(b + dt * c for b, c in zip(y, c5))
-    errn = _error_norm(y, y5, [dt * c for c in ce], ctl)[0]
-    accept = ((errn <= 1.0) | (h <= ctl.min_step)) & live
+    errn, err2, _, _ = _error_norm(y, y5, [dt * c for c in ce], ctl)
+    accept = (error_accepts(err2) | (h <= ctl.min_step)) & live
     xm, pm, lam1, st1, obj1 = events_merge(
         x, p, y5[:3], y5[3:], dt, lam, status, hit_obj, scal, sph, has_disk,
         kerr)
@@ -765,7 +778,7 @@ def dopri_trip_vjp(x, p, E, h, lam, status, scal, ctl, g, gh, sph=None,
     c5, ce = _comb(ks, _DP_B5), _comb(ks, _DP_E)
     y5 = tuple(b + dt * c for b, c in zip(y, c5))
     errn, err2, scale, r = _error_norm(y, y5, [dt * c for c in ce], ctl)
-    accept = ((errn <= 1.0) | (h <= ctl.min_step)) & live
+    accept = (error_accepts(err2) | (h <= ctl.min_step)) & live
     finite = torch.isfinite(y5[0])
     for c in y5[1:]:
         finite = finite & torch.isfinite(c)

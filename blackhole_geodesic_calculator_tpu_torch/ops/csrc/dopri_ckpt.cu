@@ -4,19 +4,23 @@
 // CUDA counterpart of `_fwd_dopri_ckpt_kernel` in
 // blackhole_geodesic_calculator_tpu/ops/pallas_kernel.py (:749-801), in its
 // Schwarzschild and Kerr variants, each event-free and with disk and sphere
-// events (KERR and EV as in dopri_fwd.cu).  It has no sphere guard, as on
-// the TPU; the guard changes no result.  One thread per ray runs the same
-// trip as dopri_fwd (dopri_trip.cuh), so its final state equals
-// dopri_fwd's, and before trips 0, seg, 2 seg, ... it writes the ray's
-// (x, p, h, lam, status) to row s of the checkpoint tensors (n_seg, n,
-// ...): the adjoint's recompute must restart the controller from the exact
-// h.  A ray that has frozen keeps writing its frozen state at the later
-// segment starts, so the adjoint (dopri_bwd.cu) can skip those segments by
-// their status.  Trips at or past n_steps are not run.  It also writes
-// each ray's count of ACTIVE rows, capped at 255, as rk4_ckpt.cu does.
+// events (KERR and EV as in dopri_fwd.cu).  Unlike the TPU kernel it
+// takes the sphere guard, as dopri_fwd does; the guard changes no result
+// (chip_smoke.py holds both kernels to a build without it bit for bit).
+// One thread per ray runs the same trip as dopri_fwd (dopri_trip.cuh), so
+// its final state equals dopri_fwd's, and before trips 0, seg, 2 seg, ...
+// it writes the ray's (x, p, h, lam, status) to row s of the checkpoint
+// tensors (n_seg, n, ...): the adjoint's recompute must restart the
+// controller from the exact h.  A ray that has frozen keeps writing its
+// frozen state at the later segment starts, so the adjoint (dopri_bwd.cu)
+// can skip those segments by their status.  Trips at or past n_steps are
+// not run.  It also writes each ray's count of ACTIVE rows, capped at 255,
+// as rk4_ckpt.cu does.
 //
 // Bound: like dopri_fwd, the FP32 pipes and warp divergence; the
-// checkpoints add n_seg x 36 bytes of writes per ray.
+// checkpoints add n_seg x 36 bytes of writes per ray.  The design is
+// dopri_fwd's: the same trip and block size; the Schwarzschild variants
+// may take 73 registers (7 blocks), where the checkpoint loop spills at 64.
 //
 // Plain C interface (loaded with ctypes): `bhgc_dopri_ckpt` launches on the
 // given stream and returns cudaGetLastError() as an int.
@@ -25,10 +29,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+// resident blocks per SM the registers must allow: 7 (<= 73 registers)
+// for the Schwarzschild variants, whose sphere variant spills at 64, and 6
+// (<= 85) for the Kerr ones, which take 80
+template <bool KERR>
+constexpr int kMinBlocks = KERR ? 6 : 7;
 
 template <bool KERR, int EV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<KERR>)
     dopri_ckpt_kernel(const float* __restrict__ scal,
                       const float* __restrict__ sph, int n_sph,
                       const float* __restrict__ x_in,
@@ -70,8 +79,8 @@ __global__ void __launch_bounds__(kThreads)
     // enabled = s seg + trip < n_steps (pallas_kernel.py:787)
     const int len = min(seg, n_steps - s * seg);
     for (int trip = 0; trip < len && r.status == kActive; ++trip) {
-      dopri_trip<KERR, (EV & 2) != 0, (EV & 1) != 0, false>(sc, ctl, E, sph,
-                                                            n_sph, r, h);
+      dopri_trip<KERR, (EV & 2) != 0, (EV & 1) != 0, true>(sc, ctl, E, sph,
+                                                           n_sph, r, h);
     }
   }
 
@@ -90,7 +99,36 @@ __global__ void __launch_bounds__(kThreads)
   live[i] = static_cast<unsigned char>(min(n_live, 255));
 }
 
+// Calls f(kernel) with the instantiation of (kerr, has_disk, n_sph).
+template <typename F>
+void with_variant(int kerr, int has_disk, int n_sph, F&& f) {
+  with_kerr(kerr, [&](auto kr) {
+    with_events(has_disk, n_sph, [&](auto ev) {
+      f(dopri_ckpt_kernel<decltype(kr)::value, decltype(ev)::value>);
+    });
+  });
+}
+
 }  // namespace
+
+// Blocks of a launch on n rays.
+extern "C" int bhgc_dopri_ckpt_blocks(int n) {
+  return (n + kThreads - 1) / kThreads;
+}
+
+// Blocks of the variant (kerr, has_disk, n_sph) that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+extern "C" int bhgc_dopri_ckpt_occupancy(int kerr, int has_disk, int n_sph) {
+  int blocks = -1;
+  with_variant(kerr, has_disk, n_sph, [&](auto kernel) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, 0) !=
+        cudaSuccess) {
+      blocks = -1;
+    }
+  });
+  return blocks;
+}
 
 extern "C" int bhgc_dopri_ckpt(const void* scal, const void* sph, int n_sph,
                                int has_disk, int kerr, const void* x,
@@ -102,24 +140,21 @@ extern "C" int bhgc_dopri_ckpt(const void* scal, const void* sph, int n_sph,
                                void* cst, void* live, int n, int n_steps,
                                int seg, float rtol, float atol,
                                float min_step, float max_step, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = bhgc_dopri_ckpt_blocks(n);
   const Controller ctl{rtol, atol, min_step, max_step};
-  with_kerr(kerr, [&](auto kr) {
-    with_events(has_disk, n_sph, [&](auto ev) {
-      dopri_ckpt_kernel<decltype(kr)::value, decltype(ev)::value>
-          <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-              static_cast<const float*>(scal), static_cast<const float*>(sph),
-              n_sph, static_cast<const float*>(x),
-              static_cast<const float*>(p), static_cast<const float*>(E),
-              static_cast<const float*>(h), static_cast<const float*>(lam),
-              static_cast<const int*>(st), static_cast<const int*>(obj),
-              static_cast<float*>(x_out), static_cast<float*>(p_out),
-              static_cast<float*>(lam_out), static_cast<int*>(st_out),
-              static_cast<int*>(obj_out), static_cast<float*>(cx),
-              static_cast<float*>(cp), static_cast<float*>(ch),
-              static_cast<float*>(clam), static_cast<int*>(cst),
-              static_cast<unsigned char*>(live), n, n_steps, seg, ctl);
-    });
+  with_variant(kerr, has_disk, n_sph, [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(scal), static_cast<const float*>(sph),
+        n_sph, static_cast<const float*>(x),
+        static_cast<const float*>(p), static_cast<const float*>(E),
+        static_cast<const float*>(h), static_cast<const float*>(lam),
+        static_cast<const int*>(st), static_cast<const int*>(obj),
+        static_cast<float*>(x_out), static_cast<float*>(p_out),
+        static_cast<float*>(lam_out), static_cast<int*>(st_out),
+        static_cast<int*>(obj_out), static_cast<float*>(cx),
+        static_cast<float*>(cp), static_cast<float*>(ch),
+        static_cast<float*>(clam), static_cast<int*>(cst),
+        static_cast<unsigned char*>(live), n, n_steps, seg, ctl);
   });
   return static_cast<int>(cudaGetLastError());
 }

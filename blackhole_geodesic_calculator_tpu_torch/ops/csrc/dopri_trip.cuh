@@ -11,7 +11,13 @@
 // clip(h clip(0.9 errn^-0.2, 0.2, 5), min_step, max_step), for a ray still
 // ACTIVE.  A trip is one attempt: a rejected one only shrinks h.  The
 // controller's constants are runtime arguments (Controller); the spacetime
-// and the events are the compile-time switches of rk4_step.cuh.
+// and the events are the compile-time switches of rk4_step.cuh.  The error
+// norm and the controller run without IEEE divisions, square root or
+// power: the six quotients by the special-function unit's reciprocal
+// (quot_ftz), the accept test on the squared norm, which is exact
+// (error_accepts), and errn^-0.2 from it by lg2 and ex2 (step_u); the
+// BHGC_IEEE_RECIPROCALS witness build gives quot_ftz and step_u their IEEE
+// forms.
 //
 // The adjoint is the transpose of the trip derived by hand, what the TPU
 // kernel takes with a whole-trip `jax.vjp` (`_dopri_trip_adjoint`,
@@ -19,7 +25,10 @@
 // `dopri_trip_vjp` of ops/adjoint.py, which the CPU tests hold against
 // JAX.  Accept, reject and the event selectors are decisions; the
 // controller is differentiated, so the cotangent of the next h reaches the
-// state through the error norm, on a rejected trip too.
+// state through the error norm, on a rejected trip too.  The adjoint's
+// recompute takes the trip's error norm, accept test and u (error_norm2,
+// error_accepts, step_u), so it makes the trip's decisions; the rest of
+// the transpose keeps its IEEE forms.
 
 #pragma once
 
@@ -160,41 +169,87 @@ __device__ __forceinline__ float err_scale(const Controller& ctl, float y,
   return ctl.atol + ctl.rtol * fmaxf(fabsf(y), fabsf(y5));
 }
 
-// The controller's factor clip(0.9 errn^-0.2, 0.2, 5); 0.9 (1e-10)^-0.2 = 90
-// clipped to 5 where errn = 0.
-__device__ __forceinline__ float step_factor(float errn) {
-  const float u = 0.9f * powf(errn > 0.0f ? errn : 1e-10f, -0.2f);
-  return fminf(fmaxf(u, 0.2f), 5.0f);
+// a / b with the special-function unit's reciprocal of b (rcp_ftz; b
+// normal), or the IEEE quotient in the BHGC_IEEE_RECIPROCALS build.
+__device__ __forceinline__ float quot_ftz(float a, float b) {
+#if BHGC_IEEE_RECIPROCALS
+  return a / b;
+#else
+  return a * rcp_ftz(b);
+#endif
+}
+
+// y5 = y + dt c5 and the square of the scaled RMS error, err2 = 1/6
+// sum_c r_c^2, r_c = (dt ce_c) / s_c, s_c = err_scale(y_c, y5_c) (>= atol,
+// normal): quot_ftz.  The trip and the adjoint's recompute share it, so
+// they take the same accept and step decisions.
+__device__ __forceinline__ float error_norm2(const Controller& ctl,
+                                             const float y[6], float dt,
+                                             const float c5[6],
+                                             const float ce[6], float y5[6],
+                                             float s[6], float r[6]) {
+  float err2 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    y5[c] = y[c] + dt * c5[c];
+    s[c] = err_scale(ctl, y[c], y5[c]);
+    r[c] = quot_ftz(dt * ce[c], s[c]);
+    err2 = err2 + r[c] * r[c];
+  }
+  return err2 * (1.0f / 6.0f);
+}
+
+// Whether the error norm errn = sqrt(err2) (0 where err2 is not positive,
+// NaN included, the plain path's double where) is at most 1, without the
+// square root: a correctly rounded sqrt(err2) is at most 1 exactly when
+// err2 is at most 1 + 2^-23, the float after 1.
+constexpr float kErr2Accept = 1.0f + 0x1p-23f;
+__device__ __forceinline__ bool error_accepts(float err2) {
+  return !(err2 > kErr2Accept);
+}
+
+// u = 0.9 errn^-0.2 of the controller's factor, from err2 = errn^2 (errn
+// = 0 reads as 1e-10): 0.9 2^(-0.1 log2 err2) by the special-function
+// unit's lg2 and ex2, with err2 = 0 or NaN read as 1e-20 and err2 floored
+// at the least normal float (they flush subnormals; the factor is clipped
+// to 5 there either way); or 0.9 powf(errn, -0.2) in the
+// BHGC_IEEE_RECIPROCALS build.  The trip and the adjoint share it, so
+// they make the same clip decisions.
+__device__ __forceinline__ float step_u(float err2) {
+#if defined(__CUDA_ARCH__) && !BHGC_IEEE_RECIPROCALS
+  const float e2 = err2 > 0.0f ? fmaxf(err2, kMinNormal) : 1e-20f;
+  float l, p;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(e2));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(-0.1f * l));
+  return 0.9f * p;
+#else
+  return 0.9f * powf(err2 > 0.0f ? sqrtf(err2) : 1e-10f, -0.2f);
+#endif
 }
 
 // One Dormand-Prince trip of an ACTIVE ray r with step h: on acceptance the
 // ray moves (classify_merge: classification, events, freeze), and if it is
-// still ACTIVE after the trip h becomes the controller's next step.  GUARD
-// as for rk4_step: the sphere guard, which changes no result.
+// still ACTIVE after the trip h becomes the controller's next step,
+// clip(h clip(u, 0.2, 5), min_step, max_step).  GUARD as for rk4_step: the
+// sphere guard, which changes no result.
 template <bool KERR, bool DISK, bool SPH, bool GUARD>
 __device__ __forceinline__ void dopri_trip(const Scalars& sc,
                                            const Controller& ctl, float E,
                                            const float* __restrict__ sph,
                                            int n_sph, Ray& r, float& h) {
   const float y[6] = {r.x0, r.x1, r.x2, r.p0, r.p1, r.p2};
-  float k[7][6], c5[6], ce[6], y5[6];
+  float k[7][6], c5[6], ce[6], y5[6], s[6], q[6];
   dopri_stages<KERR>(sc, E, y, h, k);
   dopri_combine(k, c5, ce);
-  float err2 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    y5[c] = y[c] + h * c5[c];
-    const float e = (h * ce[c]) / err_scale(ctl, y[c], y5[c]);
-    err2 = err2 + e * e;
-  }
-  err2 = err2 * (1.0f / 6.0f);
-  const float errn = err2 > 0.0f ? sqrtf(err2) : 0.0f;
-  if (errn <= 1.0f || h <= ctl.min_step) {
+  const float err2 = error_norm2(ctl, y, h, c5, ce, y5, s, q);
+  const bool accept = error_accepts(err2) || h <= ctl.min_step;
+  if (accept) {
     classify_merge<KERR, DISK, SPH, GUARD>(sc, sph, n_sph, h, y5[0], y5[1],
                                            y5[2], y5[3], y5[4], y5[5], r);
   }
   if (r.status == kActive) {
-    h = fminf(fmaxf(h * step_factor(errn), ctl.min_step), ctl.max_step);
+    const float f = fminf(fmaxf(step_u(err2), 0.2f), 5.0f);
+    h = fminf(fmaxf(h * f, ctl.min_step), ctl.max_step);
   }
 }
 
@@ -273,20 +328,13 @@ __device__ __forceinline__ void dopri_trip_adjoint(
       if (e != 0.0f) ce[c] = ce[c] + e * ki[c];
     }
   }
-  float err2 = 0.0f;
+  const float err2 = error_norm2(ctl, y, dt, c5, ce, y5, scale, r);
   bool finite = true;
 #pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    y5[c] = y[c] + dt * c5[c];
-    finite = finite && isfinite(y5[c]);
-    scale[c] = err_scale(ctl, y[c], y5[c]);
-    r[c] = (dt * ce[c]) / scale[c];
-    err2 = err2 + r[c] * r[c];
-  }
+  for (int c = 0; c < 6; ++c) finite = finite && isfinite(y5[c]);
   if (!finite) return;
-  err2 = err2 * (1.0f / 6.0f);
   const float errn = err2 > 0.0f ? sqrtf(err2) : 0.0f;
-  const bool accept = errn <= 1.0f || h <= ctl.min_step;
+  const bool accept = error_accepts(err2) || h <= ctl.min_step;
   bool h_active = true;   // a rejected trip leaves the ray ACTIVE
   if (accept) {
     Ray q;
@@ -301,9 +349,9 @@ __device__ __forceinline__ void dopri_trip_adjoint(
   }
 
   // --- the controller: h' = min(max(h f, min_step), max_step),
-  //     f = min(max(u, 0.2), 5), u = 0.9 errg^-0.2, errg = errn or 1e-10 ---
-  const float errg = errn > 0.0f ? errn : 1e-10f;
-  const float u = 0.9f * powf(errg, -0.2f);
+  //     f = min(max(u, 0.2), 5), u = 0.9 errn^-0.2 (step_u, the forward's
+  //     u), du/derrn = -0.2 u / errn ---
+  const float u = step_u(err2);
   const float u1 = fmaxf(u, 0.2f);
   const float f = fminf(u1, 5.0f);
   const float v = h * f;
@@ -312,8 +360,7 @@ __device__ __forceinline__ void dopri_trip_adjoint(
       h_active ? gh * dmin(v1, ctl.max_step) * dmax(v, ctl.min_step) : 0.0f;
   float g_h = h_active ? g_v * f : gh;
   const float g_u = g_v * h * dmin(u1, 5.0f) * dmax(u, 0.2f);
-  const float g_errn =
-      errn > 0.0f ? g_u * 0.9f * (-0.2f * powf(errg, -1.2f)) : 0.0f;
+  const float g_errn = errn > 0.0f ? g_u * (-0.2f * u / errn) : 0.0f;
 
   // --- the state: x' = merge(y, y5) if accepted, else y ---
   float g_y[6], g_y5[6];

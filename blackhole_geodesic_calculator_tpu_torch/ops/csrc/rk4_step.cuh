@@ -34,8 +34,9 @@
 // Witness builds (_build.built_with; chip_smoke.py holds the shipped
 // kernels against them): BHGC_SPHERE_GUARD=0 drops the sphere guard, so
 // its outputs show what the guard may not change; BHGC_IEEE_RECIPROCALS=1
-// gives rsqrt_ftz and rcp_ftz their IEEE forms, so its outputs show what
-// the special-function unit's approximations move.
+// gives rsqrt_ftz and rcp_ftz (and dopri_trip.cuh's quot_ftz and step_u)
+// their IEEE forms, so its outputs show what the special-function unit's
+// approximations move.
 #ifndef BHGC_SPHERE_GUARD
 #define BHGC_SPHERE_GUARD 1
 #endif

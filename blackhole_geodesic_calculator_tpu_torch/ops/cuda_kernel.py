@@ -46,7 +46,7 @@ Source note
   roots and two reciprocals on the special-function unit, and the
   Kerr-Schild radius adds two IEEE square roots), about 3.5 times that per
   taped step backward; a Dormand-Prince trip has seven
-  RHS evaluations, the error norm and the controller's power.  Against
+  RHS evaluations, the error norm and the controller.  Against
   that, 40 bytes of ray state read once and 36 written once per ray
   (Dormand-Prince: 44 read, the per-ray h), plus 32 bytes (36) per ray and
   segment of checkpoints.  At tens to hundreds of steps or trips per ray
@@ -83,7 +83,13 @@ Source note
   the blocks' warps but its key and sort cost more than that saves on an
   H100 (PERF.md).  A step computes the radius once: the endpoint's,
   which the next step's size reuses (``Ray::rad``), written with explicit
-  roundings so a recompute from a checkpoint meets the same bits.
+  roundings so a recompute from a checkpoint meets the same bits.  The
+  Dormand-Prince forward kernels run 128-thread blocks, so a block holds
+  few warps idle behind its slowest ray, and their controller takes no
+  IEEE division, square root or power (the special-function unit's
+  reciprocal, lg2 and ex2; the accept test on the squared error norm);
+  the adjoint's recompute takes the same forms, so it makes the same
+  decisions.
 
 ``integrate_plain`` is the plain PyTorch version of ``integrate_cuda``
 (ops/integrate.py's loops, the checkpointed ones under autograd), and

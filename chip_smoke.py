@@ -118,6 +118,8 @@ line) if anything is off:
      rays that took the same trips; and bench.py's dopri parity rows;
  21. holds dopri_ckpt (K5) against dopri_fwd bit for bit, and its
      checkpoint rows of (x, p, h, lam, status) against the plain loop's;
+     and both kernels' outputs, checkpoints and live counts against the
+     NO_GUARD build's, bit for bit;
  22. holds dopri_bwd (K6) against autograd of the plain checkpointed trip
      loop on the reference's weak-field fans (Schwarzschild and Kerr, with
      and without the disk and a sphere, also cut to 20 trips so rays are
@@ -136,8 +138,11 @@ line) if anything is off:
      plain path; times, the gradient in both ray orders;
  26. computes the Dormand-Prince kernels' bounds as phase 19 does, from the
      ray-trips of the plain trip loop replayed and the operations per trip
-     counted on ``adjoint.dopri_trip`` and ``dopri_trip_vjp``, and prints
-     dopri_bwd's table as phase 19 does rk4_bwd's.
+     counted on ``adjoint.dopri_trip`` and ``dopri_trip_vjp``; prints for
+     each dopri_fwd and dopri_ckpt variant on its frame the table phase 19
+     prints for rk4_fwd, with the share of trips rejected
+     (dopri_forward_rows), and dopri_bwd's table as phase 19 does
+     rk4_bwd's.
 
 Every check of a phase is recorded; after the last phase the run fails if
 any check failed.  The last line of standard output is
@@ -338,10 +343,11 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
 # The witness builds of the same sources (rk4_step.cuh, _build.built_with):
-# without the sphere guard, whose outputs rk4_fwd's and rk4_ckpt's must
-# equal bit for bit (phases 9 and 14); and with IEEE forms of the
-# special-function unit's reciprocals, against which phase 19 reads what
-# they move in the Kerr forward.
+# without the sphere guard, whose outputs rk4_fwd's and rk4_ckpt's (phases
+# 9 and 14) and dopri_fwd's and dopri_ckpt's (phase 21) must equal bit for
+# bit; and with IEEE forms of the special-function unit's reciprocals and
+# of the trip's controller, against which phases 19 and 26 read what they
+# move in the Kerr forward.
 NO_GUARD = ("BHGC_SPHERE_GUARD=0",)
 IEEE = ("BHGC_IEEE_RECIPROCALS=1",)
 
@@ -2604,7 +2610,9 @@ def phase_dopri_ckpt(dev, readings):
     """dopri_ckpt's final state against dopri_fwd's, bit for bit, and its
     checkpoint rows against the plain trip loop's states and h at the same
     trips: the Dormand-Prince fans at bench.py's gradient row's 600 trips;
-    and bit for bit alone on the rays of the two Einstein rings."""
+    and bit for bit alone on the rays of the two Einstein rings.  On every
+    case both kernels' outputs, checkpoints and live counts equal the
+    NO_GUARD build's bit for bit."""
     cfg = adaptive_cfg(600)
     cases = [(what, e, cfg, flat_state(s0), True)
              for what, e, s0 in dopri_batches(dev)]
@@ -2618,14 +2626,27 @@ def phase_dopri_ckpt(dev, readings):
     for what, e, c, s0, with_rows in cases:
         args, ctl, kw = dopri_args(e, c, s0)
         seg = cuda_kernel.segment(c.n_steps)
-        with torch.no_grad():
-            fwd = cuda_kernel.dopri_fwd(*args, ctl, **kw)
-            *fin, ck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)
+
+        def run():
+            with torch.no_grad():
+                fwd = cuda_kernel.dopri_fwd(*args, ctl, **kw)
+                *fin, ck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)
+            return fwd, fin, ck
+
+        fwd, fin, ck = run()
         same = all(torch.equal(a, b) for a, b in zip(fwd, fin))
         name = dopri_name("ckpt", e)
         bitwise[name] = bitwise.get(name, True) and same
         check(same, f"{what}: dopri_ckpt's final state differs from "
               "dopri_fwd's")
+        # the sphere guard (both kernels take it) changes no bit
+        with _build.built_with(*NO_GUARD):
+            witness = run()
+        unguarded = all(torch.equal(a, b) for a, b in zip(
+            (*fwd, *fin, *ck), (*witness[0], *witness[1], *witness[2])))
+        del witness
+        check(unguarded, f"{what}: dopri_fwd or dopri_ckpt differs from its "
+              "build without the sphere guard")
         msg = ""
         if with_rows:
             with torch.no_grad():
@@ -2653,7 +2674,9 @@ def phase_dopri_ckpt(dev, readings):
             errs[name] = max(errs.get(name, 0.0), worst_dx)
         log(f"# phase 21: [{what}] dopri_ckpt "
             + ("equals dopri_fwd bit for bit" if same else "DIFFERS") + msg
-            + "; " + live_equal(ck, what))
+            + "; " + live_equal(ck, what) + "; both "
+            + ("equal" if unguarded else "DIFFER from")
+            + " the build without the sphere guard")
     for name, same in bitwise.items():
         readings[name].update(equals_dopri_fwd=same,
                               max_abs_err=errs.get(name, 0.0))
@@ -3163,11 +3186,14 @@ def phase_dopri_adaptive(dev, name_limit, readings, spin=None):
 
 def trip_counts(env, cfg, s0, n_grad):
     """Per trip of the plain trip loop from ``s0`` (integrate_adaptive's),
-    the ACTIVE rays and those whose sphere guard passes (dopri_fwd's
-    GUARD); and each ray's trips among the first ``n_grad``."""
+    the ACTIVE rays and those whose sphere guard passes (the forward
+    kernels' GUARD); and per kernel, "fwd" over all the trips and "ckpt"
+    over the first ``n_grad``, each ray's trips and the trips rejected."""
     s, h = s0, torch.full_like(s0.E, dopri_h0(cfg))
     live, guard = [], []
-    per_ray = torch.zeros_like(s0.E, dtype=torch.int32)
+    per_ray = {kind: torch.zeros_like(s0.E, dtype=torch.int32)
+               for kind in ("fwd", "ckpt")}
+    rejected = dict.fromkeys(per_ray, 0)
     with torch.no_grad():
         for trip in range(cfg.n_steps):
             act = s.active
@@ -3175,25 +3201,24 @@ def trip_counts(env, cfg, s0, n_grad):
             if not k:
                 break
             live.append(k)
-            if trip < n_grad:
-                per_ray += act.int()
             if env.spheres is not None:
                 y, _, _, _ = dopri_step(env, s.x, s.p, s.E,
                                         torch.where(act, h, 0.0))
                 guard.append(int((act & guard_pass(env, s.x, y)).sum()))
-            s, h, _ = _dopri_trip(env, cfg, s, h)
-    return live, guard, per_ray
+            s, h, accept = _dopri_trip(env, cfg, s, h)
+            for kind in (("fwd", "ckpt") if trip < n_grad else ("fwd",)):
+                per_ray[kind] += act.int()
+                rejected[kind] += int((act & ~accept).sum())
+    return live, guard, {kind: (per_ray[kind], rejected[kind])
+                         for kind in per_ray}
 
 
-def phase_dopri_bounds(dev, name_limit, readings):
-    """The bound of each Dormand-Prince variant at its main path's inputs
-    (the ADAPTIVE_RAYS fan rows for the event-free variants, the RING^2
-    Einstein rings for the event variants): the ray-trips of the plain trip
-    loop replayed (ACTIVE rays summed), times the operations per trip
-    counted (OpCount) on ``adjoint.dopri_trip`` (its sphere quadratics only
-    where dopri_fwd's guard passes) and per adjoint trip on
-    ``adjoint.dopri_trip_vjp``; bytes: each input read once and each output
-    written once."""
+def dopri_frames(dev):
+    """The main path's frame of each Dormand-Prince variant, by name
+    suffix: (environment, forward config, gradient config, flat initial
+    state).  The ADAPTIVE_RAYS fans of bench.py's adaptive rows (2000
+    trips forward, 600 for the gradient) for the event-free variants, the
+    RING^2 Einstein rings for the event variants."""
     frames = {}
     for suffix, spin in (("", None), ("_kerr", 0.45)):
         env = fan_env(dev)
@@ -3207,10 +3232,114 @@ def phase_dopri_bounds(dev, name_limit, readings):
         fenv, s0 = flagship_rays(scene, cam, cfg, dev, RING)
         frames[suffix] = (fenv, cfg.integrator, cfg.integrator,
                           flat_state(s0))
-    for suffix, (env, cfg_f, cfg_g, s0) in frames.items():
+    return frames
+
+
+def dopri_launches(env, cfg_f, cfg_g, s0):
+    """The launches of dopri_fwd and dopri_ckpt on the frame (``env``, the
+    flat ``s0``) at their configs, by kind."""
+    args, ctl, kw = dopri_args(env, cfg_f, s0)
+    args_g, ctl_g, _ = dopri_args(env, cfg_g, s0)
+    seg = cuda_kernel.segment(cfg_g.n_steps)
+    return {"fwd": lambda: cuda_kernel.dopri_fwd(*args, ctl, **kw),
+            "ckpt": lambda: cuda_kernel.dopri_ckpt(*args_g, seg, ctl_g, **kw)}
+
+
+def dopri_ieee_deviation(tag, name, env, cfg, s0, launch, readings):
+    """What the special-function unit's forms move in dopri_fwd's outputs
+    (the trip's quot_ftz and step_u in dopri_trip.cuh, the Kerr right-hand
+    side's rsqrt_ftz and rcp_ftz): ``launch()``'s (x, p, lam, status,
+    hit_obj) against the same launch through the IEEE build, and each
+    against the plain trip loop from the flat ``s0``, by compare_adaptive
+    (statuses and hit ids that differ, rays away from b_c on other trips,
+    sky directions held to phase 20's invariants, event points); and the
+    rays that differ in some bit between the two builds."""
+    with torch.no_grad():
+        fast = launch()
+        with _build.built_with(*IEEE):
+            ieee = launch()
+        plain, _ = cuda_kernel.integrate_adaptive(env, s0, cfg)
+
+    def state(o):
+        return dataclasses.replace(s0, x=o[0], p=o[1], lam=o[2],
+                                   status=o[3], hit_obj=o[4])
+
+    differ = int(((fast[0] != ieee[0]).any(-1) | (fast[1] != ieee[1]).any(-1)
+                  | (fast[2] != ieee[2]) | (fast[3] != ieee[3])
+                  | (fast[4] != ieee[4])).sum())
+    log(f"# {tag}: {name} against its IEEE-reciprocal build: {differ} of "
+        f"{fast[2].numel()} rays differ in some bit")
+    dev = {"rays_differ": differ}
+    for key, a, b in (("fast_vs_ieee", state(fast), state(ieee)),
+                      ("fast_vs_plain", state(fast), plain),
+                      ("ieee_vs_plain", state(ieee), plain)):
+        got = phase(f"{tag} ({name} {key})", compare_adaptive, env, s0, a, b,
+                    f"{name} {key}", cfg.max_step)
+        if got is not None:
+            dev[key] = {"error": got[0], "other_trips": got[1]}
+    readings[name]["ieee_reciprocals"] = dev
+
+
+def dopri_forward_rows(tag, suffix, env, cfg_f, cfg_g, s0, counts, readings,
+                       name_limit):
+    """The rows of the forward kernels' table for the variants dopri_fwd
+    and dopri_ckpt + ``suffix`` on their main path's frame (``counts``:
+    trip_counts' per kernel): ptxas's registers, stack and spills, the
+    resident blocks per SM, the SASS size and census, the busy lanes and
+    warps, the share of trips rejected, the device time in input order and
+    its multiple of the bound; for a Kerr frame, dopri_fwd against its
+    IEEE-reciprocal build (dopri_ieee_deviation)."""
+    k = 0 if env.spheres is None else env.spheres.center.shape[0]
+    kerr, disk = env.spin is not None, env.disk is not None
+    lib = _build.load()
+    launches = dopri_launches(env, cfg_f, cfg_g, s0)
+    for kind, launch in launches.items():
+        name = f"dopri_{kind}{suffix}"
+        pattern = (rf"dopri_{kind}_kernelILb{int(kerr)}ELi"
+                   rf"{2 * disk + (k > 0)}E")
+        regs = [v for key, v in ptxas_info().items()
+                if re.search(pattern, key)]
+        census, n_sass = sass_census(pattern)
+        blocks = getattr(lib, f"bhgc_dopri_{kind}_occupancy")(
+            int(kerr), int(disk), k)
+        threads = 1024 // getattr(lib, f"bhgc_dopri_{kind}_blocks")(1024)
+        per_ray, rejected = counts[kind]
+        lanes, warps = busy_shares(per_ray, threads)
+        trips = int(per_ray.sum())
+        ms = device_ms(no_grad(launch))
+        bound = readings[name]["bound_ms"]
+        r, st, sp_st, sp_ld = regs[0] if regs else ("?",) * 4
+        log(f"# {tag}: {name}: {r} registers, {st} B stack frame, spills "
+            f"{sp_st}/{sp_ld} B; {blocks} blocks of {threads} threads per "
+            f"SM; SASS {n_sass} instructions, census {census}; lanes "
+            f"{lanes:.4f}, warps {warps:.4f}; {rejected} of {trips} "
+            f"ray-trips rejected ({rejected / max(trips, 1):.4f}); device "
+            f"{ms:.3f} ms, {ms / bound:.2f} x bound [{name_limit}]")
+        readings[name].update(
+            registers=r, stack_bytes=st, spill_bytes=[sp_st, sp_ld],
+            blocks_per_sm=blocks, threads=threads, sass_instructions=n_sass,
+            sass_census=census, busy_lanes=lanes, busy_warps=warps,
+            rejected_share=rejected / max(trips, 1),
+            device_ms_input_order=ms)
+    if kerr:
+        dopri_ieee_deviation(tag, f"dopri_fwd{suffix}", env, cfg_f, s0,
+                             launches["fwd"], readings)
+
+
+def phase_dopri_bounds(dev, name_limit, readings):
+    """The bound of each Dormand-Prince variant at its main path's inputs
+    (the ADAPTIVE_RAYS fan rows for the event-free variants, the RING^2
+    Einstein rings for the event variants): the ray-trips of the plain trip
+    loop replayed (ACTIVE rays summed), times the operations per trip
+    counted (OpCount) on ``adjoint.dopri_trip`` (its sphere quadratics only
+    where the forward kernels' guard passes) and per adjoint trip on
+    ``adjoint.dopri_trip_vjp``; bytes: each input read once and each output
+    written once."""
+    for suffix, (env, cfg_f, cfg_g, s0) in dopri_frames(dev).items():
         n, k = s0.E.numel(), (0 if env.spheres is None
                               else env.spheres.center.shape[0])
-        live, guard, per_ray = trip_counts(env, cfg_f, s0, cfg_g.n_steps)
+        live, guard, counts = trip_counts(env, cfg_f, s0, cfg_g.n_steps)
+        per_ray = counts["ckpt"][0]
         trips_f, trips_g = sum(live), sum(live[:cfg_g.n_steps])
         guarded = sum(guard)
         few = rays(s0, torch.arange(64, device=dev))
@@ -3236,7 +3365,8 @@ def phase_dopri_bounds(dev, name_limit, readings):
             guard_ops = ops_per_ray(lambda: guard_pass(env, few.x, y), 64)
         ops = {"fwd": trips_f * (trip_ops - quad + guard_ops)
                + guarded * quad,
-               "ckpt": trips_g * trip_ops,
+               "ckpt": trips_g * (trip_ops - quad + guard_ops)
+               + sum(guard[:cfg_g.n_steps]) * quad,
                "bwd": trips_g * (trip_ops + vjp_ops)}
         n_seg = -(-cfg_g.n_steps // cuda_kernel.segment(cfg_g.n_steps))
         table = 4 * (10 + 4 * k)
@@ -3264,6 +3394,8 @@ def phase_dopri_bounds(dev, name_limit, readings):
             f"{cfg_g.n_steps} trips, {guarded} past the sphere guard; per "
             f"trip {trip_ops} operations (sphere quadratics {quad}, guard "
             f"{guard_ops}), adjoint {vjp_ops}")
+        dopri_forward_rows("phase 26", suffix, env, cfg_f, cfg_g, s0, counts,
+                           readings, name_limit)
         # dopri_bwd on this frame's checkpoints, in each ray order
         args, ctl_g, kw = dopri_args(env, cfg_g, s0)
         seg = cuda_kernel.segment(cfg_g.n_steps)
@@ -3338,10 +3470,12 @@ PMODES = {1.0: 0, 1.5: 1, 2.0: 2}
 
 
 @functools.cache
-def ptxas_info():
+def ptxas_info(lib=None):
     """{kernel's mangled name: [registers, stack frame bytes, spill stores,
-    spill loads]} from the -Xptxas=-v lines of the build's log."""
-    text = (_build.library_path().parent / "build.log").read_text()
+    spill loads]} from the -Xptxas=-v lines of the log of the build of the
+    library ``lib`` (the shipped one by default)."""
+    lib = _build.library_path() if lib is None else lib
+    text = (lib.parent / "build.log").read_text()
     info, name, props = {}, None, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -3468,16 +3602,18 @@ def adjoint_table(tag, name, pattern, ckpt, launch, live, counts, seg,
 # The forward kernels (rk4_fwd, rk4_ckpt) on their frames: registers,
 # occupancy, code and its census, busy lanes and warps, and time.
 # =============================================================================
-def busy_shares(counts):
+def busy_shares(counts, threads=256):
     """(lanes, warps) busy over a forward kernel's whole run, thread t
-    taking ray t in 256-thread blocks: the ray-steps ``counts`` summed over
-    32 x the sum over warps of the warp's largest count, and that sum over
-    8 x the sum over blocks of the block's largest."""
-    c = torch.cat([counts, counts.new_zeros(-counts.numel() % 256)])
-    warp = c.view(-1, 8, 32).amax(2)
+    taking ray t in blocks of ``threads``: the ray-steps ``counts`` summed
+    over 32 x the sum over warps of the warp's largest count, and that sum
+    over the warps a block holds x the sum over blocks of the block's
+    largest."""
+    per = threads // 32
+    c = torch.cat([counts, counts.new_zeros(-counts.numel() % threads)])
+    warp = c.view(-1, per, 32).amax(2)
     w, b = int(warp.sum()), int(warp.amax(1).sum())
     return (float(counts.sum()) / (32 * w) if w else 1.0,
-            w / (8 * b) if b else 1.0)
+            w / (per * b) if b else 1.0)
 
 
 def ieee_deviation(tag, name, fenv, icfg, s0, launch, readings):
@@ -3578,7 +3714,7 @@ def forward_rows(tag, suffix, fenv, icfg, s0, per_ray, readings,
 
 
 def guard_pass(env, x, y):
-    """Per ray, whether the sphere guard of rk4_fwd and rk4_ckpt lets the K
+    """Per ray, whether the sphere guard of the forward kernels lets the K
     sphere quadratics of the segment x -> y run (rk4_step.cuh
     segment_events; the band's upper end gains |a| for a Kerr hole)."""
     rb = env.radius(y)

@@ -935,24 +935,36 @@ def test_adjoint_orders_agree(kernel, spin):
 # The sphere guard against a build without it (rk4_step.cuh
 # BHGC_SPHERE_GUARD=0, _build.built_with).
 # =============================================================================
+@pytest.mark.parametrize("kernel", ["rk4", "dopri"])
 @pytest.mark.parametrize("spin", [None, 0.45, -0.3])
-def test_sphere_guard_changes_no_bit(spin):
-    """rk4_fwd's and rk4_ckpt's outputs, checkpoints and live counts on the
-    event rays equal those of the build without the sphere guard bit for
-    bit: the guard skips only sphere quadratics that find no entry."""
+def test_sphere_guard_changes_no_bit(spin, kernel):
+    """The forward kernels' outputs, checkpoints and live counts on the
+    event rays -- rk4_fwd and rk4_ckpt, or dopri_fwd and dopri_ckpt --
+    equal those of the build without the sphere guard bit for bit: the
+    guard skips only sphere quadratics that find no entry."""
     e = events_env(env()) if spin is None else kerr_env(spin, True)
-    s0 = kerr_state(e, *event_rays())
-    cfg = tint.IntegratorConfig(**{**FLAGSHIP, "n_steps": 60})
-    seg = cuda_kernel.segment(cfg.n_steps)
     kw = dict(sph=cuda_kernel._sphere_table(e, DEV), has_disk=True,
-              obj=s0.hit_obj, kerr=spin is not None)
-    args = (cuda_kernel._scalars(e, cfg, DEV), s0.x, s0.p, s0.E, s0.lam,
-            s0.status)
+              kerr=spin is not None)
+    if kernel == "rk4":
+        s0 = kerr_state(e, *event_rays())
+        cfg = tint.IntegratorConfig(**{**FLAGSHIP, "n_steps": 60})
+        args = (cuda_kernel._scalars(e, cfg, DEV), s0.x, s0.p, s0.E,
+                s0.lam, s0.status, cfg.n_steps)
+        fwd, ckpt, tail = cuda_kernel.rk4_fwd, cuda_kernel.rk4_ckpt, (1.5,)
+    else:
+        s0 = kerr_state(e, *dopri_rays())
+        cfg = tint.IntegratorConfig(**DOPRI)
+        args = (cuda_kernel._scalars(e, cfg, DEV), s0.x, s0.p, s0.E,
+                torch.full_like(s0.E, tint.dopri_h0(cfg)), s0.lam,
+                s0.status, cfg.n_steps)
+        fwd, ckpt = cuda_kernel.dopri_fwd, cuda_kernel.dopri_ckpt
+        tail = (cuda_kernel.controller(cfg),)
+    seg = cuda_kernel.segment(cfg.n_steps)
 
     def run():
-        fwd = cuda_kernel.rk4_fwd(*args, cfg.n_steps, 1.5, **kw)
-        *fin, ck = cuda_kernel.rk4_ckpt(*args, cfg.n_steps, seg, 1.5, **kw)
-        return (*fwd, *fin, *ck)
+        out = fwd(*args, *tail, obj=s0.hit_obj, **kw)
+        *fin, ck = ckpt(*args, seg, *tail, obj=s0.hit_obj, **kw)
+        return (*out, *fin, *ck)
 
     with torch.no_grad():
         guarded = run()

@@ -336,6 +336,36 @@ def test_dopri_trip_vjp_matches_jax(name):
         close(gsph, jgsph, 1e-7, "dsph")
 
 
+def test_accept_on_err2_matches_the_square_root():
+    """The kernels' accept test on the squared error norm
+    (adjoint.error_accepts, dopri_trip.cuh's: not err2 > 1 + 2^-23) agrees
+    with the plain path's errn <= 1, errn = sqrt(err2) and 0 where err2 is
+    not positive, on every float32 within 2^12 ulps of 1, at +-0, on
+    subnormals, at the least normal float, at inf and at NaN; the float
+    after 1 is accepted and the one after it is not."""
+    one = int(np.array(1.0, np.float32).view(np.int32))
+    near = np.arange(one - 4096, one + 4097, dtype=np.int32).view(np.float32)
+    sub = np.array([1, 2, 3, 1 << 10, 1 << 22, (1 << 23) - 1],
+                   np.int32).view(np.float32)
+    special = np.array([0.0, -0.0, np.finfo(np.float32).tiny, 1e-20, 1e30,
+                        np.inf, -np.inf, np.nan], np.float32)
+    err2 = np.concatenate([near, sub, special])
+    with np.errstate(invalid="ignore"):
+        errn = np.where(err2 > 0, np.sqrt(np.where(err2 > 0, err2, 1.0)),
+                        0.0).astype(np.float32)
+    got = adjoint.error_accepts(torch.from_numpy(err2)).numpy()
+    np.testing.assert_array_equal(got, errn <= 1.0)
+    t = torch.from_numpy(err2)
+    pos = t > 0
+    plain = torch.where(pos, torch.sqrt(torch.where(pos, t, 1.0)), 0.0)
+    assert torch.equal(adjoint.error_accepts(t), plain <= 1.0)
+    after = np.nextafter(np.float32(1), np.float32(2))
+    assert bool(adjoint.error_accepts(torch.tensor(after)))
+    assert not bool(adjoint.error_accepts(
+        torch.tensor(np.nextafter(after, np.float32(2)))))
+    assert int(got[:near.size].sum()) == 4096 + 2
+
+
 @pytest.mark.parametrize("name", ["rejected", "f_low", "max_step", "object",
                                   "kerr_0.45"])
 def test_dopri_trip_vjp_matches_autograd(name):
