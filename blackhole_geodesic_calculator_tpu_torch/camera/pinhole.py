@@ -5,11 +5,17 @@ The reference ray model:
     aspect   = H / W
     x_render = fov_x * (x - W//2) / W
     y_render = fov_y * (y - H//2) / H * aspect
-    dir      = normalize(euler_rotate((x_render, y_render, -1)))
+    dir_cam  = (x_render + (u - 0.5) / W, y_render + (v - 0.5) * aspect / H, -1)
+    dir      = normalize(euler_rotate(dir_cam))
+
+with (u, v) a sample's uniform draws in [0, 1) per pixel, or no jitter
+(pixel centres).  torch's generator cannot reproduce the JAX package's
+counter-based ``jax.random`` draws, so the draws are an input: the tests
+pass in JAX's, the renderer draws its own from a seeded generator on the
+rays' device (render/renderer.py ``sample_draws``).
 
 The camera looks down -z in its local frame and is oriented by XYZ Euler
-angles like Blender's (R = Rz @ Ry @ Rx).  This slice renders pixel centres
-only; the jittered multisample path is not ported yet.
+angles like Blender's (R = Rz @ Ry @ Rx).
 """
 
 from __future__ import annotations
@@ -77,15 +83,27 @@ def pixel_grid(width: int, height: int,
 
 
 def generate_rays(cam: Camera, width: int, height: int, ys: torch.Tensor,
-                  xs: torch.Tensor, key=None):
-    """Ray origins (broadcast) and unit directions for pixel centres (ys, xs)."""
-    if key is not None:
-        raise NotImplementedError(
-            "jittered sampling is not ported yet; it comes with the "
-            "multisample render path")
+                  xs: torch.Tensor, jitter: torch.Tensor | None = None):
+    """Ray origins (broadcast) and unit directions through pixels (ys, xs).
+
+    ``jitter`` is one sample's uniform draws (u, v) in [0, 1), a (2,) +
+    xs.shape float32 tensor on the rays' device: the direction moves by
+    (u - 0.5) / W and (v - 0.5) * aspect / H, as the JAX package's
+    jittered sample does (pinhole.py:87-90).  None gives the pixel
+    centres."""
     aspect = height / width
     x_render = cam.fov[0] * (xs - width // 2) / width
     y_render = cam.fov[1] * (ys - height // 2) / height * aspect
+    if jitter is not None:
+        if tuple(jitter.shape) != (2,) + tuple(xs.shape):
+            raise ValueError(f"jitter has shape {tuple(jitter.shape)}, "
+                             f"expected {(2,) + tuple(xs.shape)}")
+        if jitter.device != cam.position.device:
+            raise ValueError(f"jitter is on {jitter.device}, the camera on "
+                             f"{cam.position.device}")
+        ju, jv = jitter - 0.5
+        x_render = x_render + ju / width
+        y_render = y_render + jv * aspect / height
     d_cam = torch.stack(
         [x_render, y_render, -torch.ones_like(x_render)], dim=-1)
     rot = euler_matrix(cam.euler)

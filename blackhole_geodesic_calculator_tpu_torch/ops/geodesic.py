@@ -60,6 +60,43 @@ def null_init(x3: torch.Tensor, d: torch.Tensor, mass,
     return p, E
 
 
+def timelike_init(x3: torch.Tensor, v: torch.Tensor, mass,
+                  a=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Initial (p3, E) of a massive particle at ``x3`` with proper-time
+    coordinate velocity dx/dtau = ``v`` of any magnitude (JAX
+    geodesic.py:86-121).
+
+    Closed form from g u u = -1 with u = (T, v) in the Kerr-Schild chart,
+    the future root:
+
+        (q - 1) T^2 + 2 q s T + (|v|^2 + q s^2 + 1) = 0,   q = 2H, s = l.v
+        T = (q s + sqrt(q^2 s^2 + (1 - q)(|v|^2 + q s^2 + 1))) / (1 - q)
+        p = v + q (T + s) l,        E = T - q (T + s)
+
+    (flat limit: T = sqrt(1 + |v|^2), p = v).  The right-hand side is the
+    null one; only the conserved Hh differs (-1/2 instead of 0), so the
+    same integrator and kernels apply.
+    """
+    q, l3, _ = ks_fields(x3, mass, a)
+    s = torch.sum(l3 * v, dim=-1)
+    v2 = torch.sum(v * v, dim=-1)
+    one_m_q = 1.0 - q
+    disc = q * q * s * s + one_m_q * (v2 + q * s * s + 1.0)
+    # Double-where guard: inside the horizon (q >= 1) there is no future
+    # root in this chart; there the sqrt and the division see 1 and T is 1,
+    # so the frozen INSIDE_HORIZON rays stay NaN-free in value and in
+    # gradient (a bare clamp would pass NaN cotangents through).
+    valid = (disc > 0) & (one_m_q > 0)
+    one = torch.ones_like(disc)
+    T = (q * s + torch.sqrt(torch.where(valid, disc, one))) / torch.where(
+        valid, one_m_q, one)
+    T = torch.where(valid, T, one)
+    qc = q * (T + s)
+    p = v + qc[..., None] * l3
+    E = T - qc
+    return p, E
+
+
 def xdot(x3: torch.Tensor, p3: torch.Tensor, E: torch.Tensor, mass,
          a=None) -> torch.Tensor:
     """Coordinate velocity dx/dlambda = dHh/dp = p - q (E + l.p) l."""

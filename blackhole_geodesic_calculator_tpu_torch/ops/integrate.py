@@ -22,7 +22,10 @@ the segment events of a z = 0 disk and of K spheres: a ray whose step
 crosses the disk annulus or enters a sphere freezes at the interpolated
 event point (DISK or OBJECT).  Kerr steps with the analytic right-hand side
 ``kerr_rhs`` and classifies and sizes steps by the Kerr-Schild radius (JAX
-integrate.py:78-90).  Timelike rays raise ``NotImplementedError``.
+integrate.py:78-90).  ``launch`` starts photons (``null_init``) or, with
+``time_like=True``, massive particles (``timelike_init``): the right-hand
+side is the same, so both go through the same loops and kernels.
+``trajectory`` records every step of a plain RK4 loop.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch.utils.checkpoint
 
 from . import states
 from ..models.kerr import ks_radius
-from .geodesic import kerr_rhs, null_init, schwarzschild_rhs, xdot
+from .geodesic import (kerr_rhs, null_init, schwarzschild_rhs, timelike_init,
+                       xdot)
 from .states import RayState
 
 
@@ -494,20 +498,42 @@ def integrate(env: GeodesicEnv, s0: RayState,
     return cuda_kernel.integrate_plain(env, s0, cfg)
 
 
+def _init(env: GeodesicEnv, x0, d0, time_like: bool) -> RayState:
+    init = timelike_init if time_like else null_init
+    p0, E0 = init(x0, d0, env.mass, env.spin)
+    return states.init_state(x0, p0, E0)
+
+
 def launch(env: GeodesicEnv, x0, d0, cfg: IntegratorConfig,
            time_like: bool = False) -> RayState:
-    """Init photons at x0 with unit coordinate velocities d0, then integrate.
+    """Init rays at x0 with coordinate velocities d0, then integrate.
 
-    Rays starting inside the horizon are marked INSIDE_HORIZON immediately
-    and never step.
+    ``time_like=False`` (photons): d0 are unit directions.
+    ``time_like=True`` (massive particles): d0 is dx/dtau of any
+    magnitude.  Rays starting inside the horizon are marked INSIDE_HORIZON
+    immediately and never step.
     """
-    if time_like:
-        raise NotImplementedError("timelike (massive) rays are not ported yet")
-    p0, E0 = null_init(x0, d0, env.mass, env.spin)
-    s0 = states.init_state(x0, p0, E0)
+    s0 = _init(env, x0, d0, time_like)
     inside = env.radius(x0) <= env.r_capture
     s0.status = s0.status.masked_fill(inside, states.INSIDE_HORIZON)
     return integrate(env, s0, cfg)
+
+
+def trajectory(env: GeodesicEnv, x0, d0, cfg: IntegratorConfig,
+               time_like: bool = False):
+    """(xs, ps, final state) of ``cfg.n_steps`` RK4 steps from the rays'
+    start, every step recorded: xs and ps of shape (n_steps + 1, ..., 3),
+    the start first (JAX integrate.py:562-578, an XLA scan there, a plain
+    loop of ``_fixed_step`` here on the tensors' device).  For small
+    batches: it keeps every step.  Unlike ``launch`` it marks no ray
+    INSIDE_HORIZON."""
+    s = _init(env, x0, d0, time_like)
+    xs, ps = [s.x], [s.p]
+    for _ in range(cfg.n_steps):
+        s = _fixed_step(env, cfg, s)
+        xs.append(s.x)
+        ps.append(s.p)
+    return torch.stack(xs), torch.stack(ps), s
 
 
 def final_direction(env: GeodesicEnv, s: RayState) -> torch.Tensor:

@@ -8,11 +8,20 @@ with respect to the mass, the camera position, the sky and disk textures,
 the sphere geometry and every shading parameter: every step is a tensor
 operation autograd records, the integrator through its checkpointed
 adjoint and the texture lookups through their hand-written backward.
+
+A multisampled image renders its samples one at a time, one integrator
+launch each, and averages them (the JAX package's sample scan,
+renderer.py:159-173); the samples' jitter draws come from a generator on
+the tensors' device seeded with ``RenderConfig.seed``, or from the caller
+(``sample_draws``).  ``render_image_u8`` tonemaps and quantizes on the
+device; ``render_progressive`` yields the image sample by sample or, with
+one sample, row band by row band.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import torch
 
@@ -34,8 +43,8 @@ from ..scene.shading import shade
 class RenderConfig:
     """Static render settings.
 
-    * samples        -> samples per pixel (only 1 is ported)
-    * seed           -> sampling seed of the multisample path
+    * samples        -> samples per pixel
+    * seed           -> seed of the samples' jitter draws (sample_draws)
     * lam_max        -> affine budget
     * r_escape       -> 0 means 2x camera distance + 20 r_s
     * marks          -> debug crop window; -1 = off
@@ -119,11 +128,40 @@ def _bh_frame(scene: Scene) -> Scene:
     return dataclasses.replace(scene, spheres=spheres, lights=lights)
 
 
+def sample_draws(cfg: RenderConfig, device,
+                 draws: torch.Tensor | None = None) -> torch.Tensor:
+    """The (samples, 2, Hc, Wc) float32 jitter draws of a multisampled
+    render: uniform in [0, 1), one (u, v) per sample and pixel of the crop
+    window, drawn on ``device`` by a ``torch.Generator`` there seeded with
+    ``cfg.seed`` -- one seed gives one image, run after run -- or
+    ``draws`` as the caller gives them (the tests pass in the JAX
+    package's ``jax.random`` draws), checked for shape and device.  Draws
+    on another device are refused, never moved."""
+    x0, x1, y0, y1 = cfg.crop()
+    shape = (cfg.samples, 2, y1 - y0, x1 - x0)
+    device = torch.device(device)
+    if draws is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(cfg.seed)
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=device)
+    if tuple(draws.shape) != shape or draws.dtype != torch.float32:
+        raise ValueError(f"draws must be float32 of shape {shape}; got "
+                         f"{draws.dtype} {tuple(draws.shape)}")
+    if draws.device.type != device.type or (
+            device.index is not None and draws.device != device):
+        raise ValueError(f"draws are on {draws.device}, the camera on "
+                         f"{device}")
+    return draws
+
+
 def render_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
-                ys: torch.Tensor, xs: torch.Tensor, key=None) -> torch.Tensor:
-    """Shade the rays through pixels (ys, xs) of any shape; returns
+                ys: torch.Tensor, xs: torch.Tensor,
+                jitter: torch.Tensor | None = None) -> torch.Tensor:
+    """Shade the rays through pixels (ys, xs) of any shape, jittered by
+    ``jitter`` (generate_rays) or through the pixel centres; returns
     ys.shape + (3,)."""
-    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs, key)
+    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs, jitter)
 
     env = scene_env(scene, cfg, cam)
     scene_bh = _bh_frame(scene)
@@ -135,26 +173,100 @@ def render_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
 
 
 def render_sample(scene: Scene, cam: Camera, cfg: RenderConfig,
-                  key=None) -> torch.Tensor:
-    """One sample of the (cropped) image; returns (Hc, Wc, 3)."""
+                  jitter: torch.Tensor | None = None) -> torch.Tensor:
+    """One sample of the (cropped) image, jittered by ``jitter`` (2, Hc,
+    Wc) or through the pixel centres; returns (Hc, Wc, 3)."""
     x0, x1, y0, y1 = cfg.crop()
     ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1,
                         device=cam.position.device)
-    return render_rays(scene, cam, cfg, ys, xs, key)
+    return render_rays(scene, cam, cfg, ys, xs, jitter)
 
 
-def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
-                 key=None) -> torch.Tensor:
-    """Full render -> (H, W, 4) RGBA; pixels outside the crop window are
-    white with alpha 1.  One sample renders the pixel centres, so ``key``
-    (the multisample jitter seed) is not used."""
-    if cfg.samples != 1:
-        raise NotImplementedError(
-            "samples > 1 is not ported yet; it comes with the multisample "
-            "render path")
-    rgb = render_sample(scene, cam, cfg, None)
+def _frame(cfg: RenderConfig, rgb: torch.Tensor) -> torch.Tensor:
+    """The (H, W, 4) frame: ``rgb`` in the crop window, white with alpha 1
+    elsewhere."""
     x0, x1, y0, y1 = cfg.crop()
     full = torch.ones((cfg.height, cfg.width, 4), dtype=rgb.dtype,
                       device=rgb.device)
     full[y0:y1, x0:x1, :3] = rgb
     return full
+
+
+def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
+                 draws: torch.Tensor | None = None) -> torch.Tensor:
+    """Full render -> (H, W, 4) RGBA; pixels outside the crop window are
+    white with alpha 1.  One sample renders the pixel centres and reads no
+    draws; ``cfg.samples`` > 1 renders each sample jittered by its draws
+    (sample_draws), one integrator launch each, and averages them as the
+    JAX scan does: stacked, then the mean over the sample axis.  Autograd
+    runs through every sample."""
+    if cfg.samples == 1:
+        return _frame(cfg, render_sample(scene, cam, cfg))
+    draws = sample_draws(cfg, cam.position.device, draws)
+    rgbs = [render_sample(scene, cam, cfg, draws[i])
+            for i in range(cfg.samples)]
+    return _frame(cfg, torch.stack(rgbs).mean(dim=0))
+
+
+def render_image_u8(scene: Scene, cam: Camera, cfg: RenderConfig,
+                    draws: torch.Tensor | None = None, tonemap: bool = False,
+                    exposure: float = 1.0) -> torch.Tensor:
+    """``render_image`` with the tonemap (Reinhard, times ``exposure``) and
+    the uint8 quantization clip(img * 255 + 0.5, 0, 255) done on the
+    image's device (JAX renderer.py:278-309): returns the (H, W, 4) uint8
+    frame there, so only it crosses to the host, a quarter of the float
+    frame's bytes.  Equal to quantizing the float render on the host as
+    io_.write_png does.  No gradient is recorded."""
+    with torch.no_grad():
+        img = render_image(scene, cam, cfg, draws)
+        rgb = img[..., :3]
+        if tonemap:
+            rgb = rgb * exposure
+            rgb = rgb / (1.0 + rgb)
+        img = torch.cat([rgb, img[..., 3:]], dim=-1)
+        return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def render_progressive(scene: Scene, cam: Camera, cfg: RenderConfig,
+                       draws: torch.Tensor | None = None,
+                       row_bands: int = 16
+                       ) -> Iterator[tuple[int, torch.Tensor]]:
+    """Generator of (update index, partial (H, W, 4) RGBA), a new tensor
+    each time (JAX renderer.py:312-370).
+
+    * samples > 1: one yield per sample, with the running average of the
+      samples so far; the draws are render_image's, so the last frame is
+      render_image's image.
+    * samples == 1: one yield per row band, at most ``row_bands`` bands of
+      equal height; the last band is shifted up to end on the crop edge,
+      so every traced row is a crop row.  A band's pixels equal the whole
+      frame's: each ray is traced on its own.
+    """
+    x0, x1, y0, y1 = cfg.crop()
+    device = cam.position.device
+
+    if cfg.samples == 1:
+        n_rows = y1 - y0
+        band = max(1, -(-n_rows // max(1, min(row_bands, n_rows))))
+        full = torch.ones((cfg.height, cfg.width, 4), dtype=torch.float32,
+                          device=device)
+        i, yb = 0, y0
+        while yb < y1:
+            take = min(band, y1 - yb)
+            yr = min(yb, y1 - band)
+            ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, yr, yr + band,
+                                device=device)
+            rgb = render_rays(scene, cam, cfg, ys, xs)
+            full = full.clone()
+            full[yb:yb + take, x0:x1, :3] = rgb[yb - yr:yb - yr + take]
+            yield i, full
+            i += 1
+            yb += take
+        return
+
+    draws = sample_draws(cfg, device, draws)
+    acc = None
+    for i in range(cfg.samples):
+        rgb = render_sample(scene, cam, cfg, draws[i])
+        acc = rgb if acc is None else acc + rgb
+        yield i, _frame(cfg, acc / (i + 1))

@@ -4,9 +4,10 @@
 
 Run from the root of a checkout.  It drives the port's main paths -- the
 forward render through rk4_fwd and its gradient through rk4_ckpt and
-rk4_bwd, and the adaptive Dormand-Prince render and gradient through
-dopri_fwd, dopri_ckpt and dopri_bwd -- and fails (non-zero exit, no result
-line) if anything is off:
+rk4_bwd, the adaptive Dormand-Prince render and gradient through
+dopri_fwd, dopri_ckpt and dopri_bwd, BASELINE config 4's multisampled
+animation frame and massive particles through all six -- and fails
+(non-zero exit, no result line) if anything is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
   1. builds the kernels from the checkout's sources (build/kernels/), one
@@ -142,13 +143,41 @@ line) if anything is off:
      each dopri_fwd and dopri_ckpt variant on its frame the table phase 19
      prints for rk4_fwd, with the share of trips rejected
      (dopri_forward_rows), and dopri_bwd's table as phase 19 does
-     rk4_bwd's.
+     rk4_bwd's;
+ 27. renders BASELINE config 4's frame (bench.py bench_animation: the
+     events scene from the orbit camera, SIZE^2 at ANIM_SAMPLES samples
+     per pixel, frame 1 of ANIM_FRAMES) through render_image: the event
+     variant of rk4_fwd once per sample and nothing else, the image against
+     the plain render on the same draws as phase 11's, the first sample's
+     final states as phase 11's; render_image_u8 against the host
+     quantization of the float frame (equal; within one level with the
+     tonemap); the orbit's frames through render_image_u8 and
+     io_.write_png, one read back; times and frames/s;
+ 28. takes that frame's gradient of mean(img^2) to the mass, the camera
+     and the sky: the event variants of rk4_ckpt and rk4_bwd once per
+     sample each, held to the plain path as phase 11's (the sky whole, the
+     mass and camera on the pixels calm in every sample); the sky
+     cotangent of mean(img) equals the mean of the samples'; two runs;
+     times, the device's busy share, each kernel's device ms and bound
+     per sample, the checkpoint bytes autograd holds;
+ 29. render_progressive's last sample equals render_image, its 16 row
+     bands the frame's rows bit for bit (one rk4_fwd launch each);
+     render_stats and debug_rays against the plain path;
+ 30. launches PARTICLES massive particles (launch(..., time_like=True):
+     circular and eccentric bound orbits, plunging and escaping particles,
+     a band inside the horizon) through rk4_fwd, rk4_ckpt and rk4_bwd and
+     through dopri_fwd, dopri_ckpt and dopri_bwd, each held to its plain
+     version by its null-ray phase's rules without the photon-only parts
+     (near b_c, sky directions): statuses, x, p and lam, Hh = -1/2 and the
+     angular momentum conserved, the cotangents of the initial velocities
+     and the mass, no NaN; each kernel's times and bound there.
 
 Every check of a phase is recorded; after the last phase the run fails if
 any check failed.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launch count on the main path, error, times and bound.  Imports
-nothing of JAX.
+with its launch count on the main paths (``launches_by_path`` when more
+than one runs it), error, times and bound, and for the variants of phases
+28 and 30 their readings there.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -160,9 +189,11 @@ import functools
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -171,14 +202,19 @@ import torch
 import blackhole_geodesic_calculator_tpu_torch as P
 from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
     generate_rays, pixel_grid)
+from blackhole_geodesic_calculator_tpu_torch.io_ import write_png
 from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius
 from blackhole_geodesic_calculator_tpu_torch.ops import (
     _build, adjoint, cuda_kernel, states)
-from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init
+from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import (
+    hamiltonian, null_init, timelike_init)
 from blackhole_geodesic_calculator_tpu_torch.ops.integrate import (
     DiskGeom, GeodesicEnv, SphereGeom, _disk_event, _dopri_trip, _dt_eff,
     _fixed_step, _sphere_events, dopri_h0, dopri_step, final_direction,
     rk4_step)
+from blackhole_geodesic_calculator_tpu_torch.render import (
+    debug_rays, format_debug_string, render_progressive, render_sample,
+    render_stats, sample_draws)
 from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
     _bh_frame, scene_env)
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
@@ -337,6 +373,30 @@ TOL_DOPRI_GRAD_SCALAR = 5e-2
 TOL_ADAPTIVE_GRAD = 1e-2
 ADAPTIVE_RAYS = 512 * 512   # bench.py's bench_adaptive fan
 RING = 512                  # the Einstein ring (BASELINE config 2) is RING^2
+# BASELINE config 4 (bench.py bench_animation): SIZE^2 frames of the events
+# scene at ANIM_SAMPLES samples per pixel from an orbit of ANIM_FRAMES
+# cameras; the frame held is frame 1 of the orbit.
+ANIM_SAMPLES = 5
+ANIM_FRAMES = 10
+# Massive particles of the timelike fan (phase 30), and its limits: the
+# super-Hamiltonian of a particle still in flight after K1 within H_DRIFT of
+# -1/2 (tests/test_timelike.py's 5e-4); Dormand-Prince particles on the same
+# trips are those whose lam agrees within SAME_TRIP, and every particle in
+# flight keeps its angular momentum x cross p within TOL_L of max(1, |L|)
+# (the CPU test's; a particle's end on another trip is elsewhere on its
+# orbit).
+PARTICLES = 1024 * 1024
+H_DRIFT = 5e-4
+# A ray is as ill-conditioned as one near b_c (ulp_sensitive) when one ulp
+# of its start moves its plain path by more than ULP_SHARE of a state
+# tolerance; a particle near its orbit's separatrix (near_separatrix) when
+# its E^2 lies within SEP_BAND of the peak of its effective potential --
+# the unstable circular orbits at r = 4-6 M among them, where one ulp
+# moves p by 1.4e-4 within 100 steps (a CPU replay; 8e-6 for the others).
+ULP_SHARE = 0.1
+SEP_BAND = 1e-3
+SAME_TRIP = 1e-4
+TOL_L = 1e-4
 # The card's peak rates for the bound of each kernel (NVIDIA's data sheet
 # for the H100 SXM at 700 W, float32 outside the tensor cores).
 PEAK_FLOPS = 67e12
@@ -572,20 +632,40 @@ def photon_band(m, a):
             float(r_ret) + 0.3 * m)
 
 
-def compare_flagship(env, cfg, s0, a, b, what=None):
+def ulp_sensitive(env, cfg, s0, sp):
+    """Rays whose plain path ``sp`` from ``s0`` moves by more than
+    ULP_SHARE of a state tolerance (or changes its status or hit id) when
+    its start moves by one ulp: two correct float32 paths part on them as
+    on the rays near b_c, and are held so.  Jittered samples land on such
+    rays outside near_b_c's band (a band's edge at 5.5 M, where rays still
+    circle the photon sphere)."""
+    with torch.no_grad():
+        sq = cuda_kernel.integrate_plain(env, dataclasses.replace(
+            s0, x=s0.x * (1.0 + 2.0 ** -23)), cfg)
+    lim = ULP_SHARE
+    return ((sq.status != sp.status) | (sq.hit_obj != sp.hit_obj)
+            | ((sq.lam - sp.lam).abs() > lim * TOL_X)
+            | ((sq.x - sp.x).abs().amax(-1) > lim * TOL_X)
+            | (((sq.p - sp.p).abs() / sp.p.norm(dim=-1, keepdim=True)
+                .clamp_min(1.0)).amax(-1) > lim * TOL_P))
+
+
+def compare_flagship(env, cfg, s0, a, b, what=None, near=None):
     """Kernel state ``a`` against plain state ``b`` for every flagship ray.
 
     Statuses must be equal everywhere.  Rays near b_c (see near_b_c) part
     by more than the state tolerances (up to 1.2e-2 in lam on an H100), so
     they are held to lam within half a step instead: a ray that took a step
     more or fewer in one path fails.  All other rays are held to the full
-    tolerances of compare_states.  Returns (error, rays aligned, largest
+    tolerances of compare_states.  ``near`` replaces near_b_c's band by
+    another mask of rays held so.  Returns (error, rays aligned, largest
     |d lam| in the band)."""
     what = what or f"{SIZE}x{SIZE} flagship"
     if not torch.equal(a.status, b.status):
         n_bad = int((a.status != b.status).sum())
         raise AssertionError(f"{what}: {n_bad} statuses differ")
-    near = near_b_c(env, s0)
+    if near is None:
+        near = near_b_c(env, s0)
     err, n = compare_states(env, cfg, rays(a, ~near), rays(b, ~near),
                             f"{what}, away from b_c")
     # a ray near b_c a whole step apart must end at a boundary (step_apart)
@@ -708,6 +788,7 @@ def step_profile(step, wall, what, name_limit, runs=5):
     for key, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"#   {t:8.3f} ms {100 * t / max(total, 1e-9):5.1f}%  "
             f"x{c // runs:<4d} {key[:90]}")
+    return total, total / wall
 
 
 # =============================================================================
@@ -807,11 +888,12 @@ def phase_flagship_fwd(scene, cam, dev, readings):
         + " ".join(f"{k}={v}" for k, v in zip(names, hist) if v))
 
 
-def flagship_rays(scene, cam, cfg, dev, size=SIZE):
+def flagship_rays(scene, cam, cfg, dev, size=SIZE, jitter=None):
     """A frame's environment and initial ray state, as render_image builds
-    them, with (size, size) batch shape (the flagship's SIZE)."""
+    them, with (size, size) batch shape (the flagship's SIZE); ``jitter``
+    one sample's draws (render_image's sample_draws)."""
     ys, xs = pixel_grid(size, size, device=dev)
-    o, d = generate_rays(cam, size, size, ys, xs)
+    o, d = generate_rays(cam, size, size, ys, xs, jitter)
     fenv = scene_env(scene, cfg, cam)
     return fenv, initial_state(fenv, o, d)
 
@@ -1457,15 +1539,16 @@ def split_edges(env, cfg, s0, a, b, what):
     return ~flip, n, worst
 
 
-def compare_events(env, cfg, s0, a, b, what):
+def compare_events(env, cfg, s0, a, b, what, near=None):
     """compare_flagship for the event variant: statuses and hit ids equal
     apart from the edge rays of split_edges, which are counted, capped and
-    left out; rays near b_c held to lam within half a step, the others to
-    the state tolerances.  Returns (error, rays aligned a step apart, edge
-    rays)."""
+    left out; rays near b_c (or in ``near``) held to lam within half a
+    step, the others to the state tolerances.  Returns (error, rays
+    aligned a step apart, edge rays)."""
     keep, n_edge, worst = split_edges(env, cfg, s0, a, b, what)
     a, b, s0k = rays(a, keep), rays(b, keep), rays(s0, keep)
-    err, n, _ = compare_flagship(env, cfg, s0k, a, b, what)
+    err, n, _ = compare_flagship(env, cfg, s0k, a, b, what,
+                                 None if near is None else near[keep])
     hist = torch.bincount(b.status.reshape(-1).long(), minlength=8).tolist()
     log(f"# events [{what}] {n_edge} edge rays left out (largest margin "
         f"{worst:.3e}); hit ids equal; DISK {hist[4]} OBJECT {hist[5]}")
@@ -1793,6 +1876,28 @@ def texel_flips(scene, a, end_a, b, end_b):
     return shaded & ((ra != rb) | (ca != cb))
 
 
+def frame_parts(scene, fenv, icfg, s0, s, sp):
+    """The ill-conditioned parts of a frame's gradient, as (H, W) masks by
+    name -- near b_c, near the sky's pole, on the disk texture's seam, the
+    silhouettes, after an ill-conditioned event -- and its texel flips,
+    from the initial state ``s0``, the kernel's final state ``s`` and the
+    plain loop's ``sp``."""
+    with torch.no_grad():
+        end = final_direction(fenv, sp)
+        kappa = event_kappa(fenv, icfg, flat_state(s0)).reshape(
+            sp.status.shape)
+        flips = texel_flips(scene, s, final_direction(fenv, s), sp, end)
+    rho = end[..., :2].norm(dim=-1)
+    # the disk texture's azimuth arccos(x / R) sign(y) has a derivative
+    # ~ 1 / |y| near the x axis, as the sky's at its pole
+    seam = ((sp.status == states.DISK)
+            & (sp.x[..., 1].abs() < POLE_RHO * sp.x[..., :2].norm(dim=-1)))
+    return {"near b_c": near_b_c(fenv, s0), "near the pole": rho < POLE_RHO,
+            "on the disk texture's seam": seam,
+            "silhouettes": silhouettes(sp.status, sp.hit_obj),
+            "ill-conditioned events": kappa > KAPPA_CALM}, flips
+
+
 def variant(spin):
     """(kernel name suffix, label) of the Schwarzschild event variants or,
     with a spin, of the Kerr variants."""
@@ -1874,21 +1979,8 @@ def phase_events_render(dev, readings, spin=None):
     # the parts of the frame: near b_c, near the sky's pole, on a
     # silhouette, after an ill-conditioned event, texel flips, and the calm
     # rest
-    with torch.no_grad():
-        end = final_direction(fenv, sp)
-        kappa = event_kappa(fenv, cfg.integrator, flat_state(s0)).reshape(
-            SIZE, SIZE)
-        flips = texel_flips(scene, s, final_direction(fenv, s), sp, end)
-    rho = end[..., :2].norm(dim=-1)
-    # the disk texture's azimuth arccos(x / R) sign(y) has a derivative
-    # ~ 1 / |y| near the x axis, as the sky's at its pole
-    seam = ((sp.status == states.DISK)
-            & (sp.x[..., 1].abs() < POLE_RHO * sp.x[..., :2].norm(dim=-1)))
-    parts = {"near b_c": near_b_c(fenv, s0), "near the pole": rho < POLE_RHO,
-             "on the disk texture's seam": seam,
-             "silhouettes": silhouettes(sp.status, sp.hit_obj),
-             "ill-conditioned events": kappa > KAPPA_CALM}
-    calm = torch.ones_like(rho, dtype=torch.bool)
+    parts, flips = frame_parts(scene, fenv, cfg.integrator, s0, s, sp)
+    calm = torch.ones_like(flips)
     for m in parts.values():
         calm &= ~m
     n_flips = int((calm & flips).sum())
@@ -3326,6 +3418,52 @@ def dopri_forward_rows(tag, suffix, env, cfg_f, cfg_g, s0, counts, readings,
                              launches["fwd"], readings)
 
 
+def dopri_bound(env, cfg_f, cfg_g, s0):
+    """The work of dopri_fwd (at ``cfg_f``), dopri_ckpt and dopri_bwd (at
+    ``cfg_g``) on the flat initial state ``s0``: operations and bytes by
+    kind, trip_counts' replay, and the operations per trip counted (trip,
+    sphere quadratics, guard, adjoint trip)."""
+    dev = s0.x.device
+    n, k = s0.E.numel(), (0 if env.spheres is None
+                          else env.spheres.center.shape[0])
+    live, guard, counts = trip_counts(env, cfg_f, s0, cfg_g.n_steps)
+    trips_f, trips_g = sum(live), sum(live[:cfg_g.n_steps])
+    few = rays(s0, torch.arange(64, device=dev))
+    few.status = torch.zeros_like(few.status)
+    scal = cuda_kernel._scalars(env, cfg_f, dev).detach()
+    sph = cuda_kernel._sphere_table(env, dev).detach() if k else None
+    ctl = cuda_kernel.controller(cfg_f)
+    h = torch.full_like(few.E, 0.5)
+    xs, ps = few.x.unbind(-1), few.p.unbind(-1)
+    ev = dict(sph=sph, has_disk=env.disk is not None,
+              kerr=env.spin is not None)
+    trip_ops = ops_per_ray(lambda: adjoint.dopri_trip(
+        xs, ps, few.E, h, few.lam, few.status, few.hit_obj, scal, ctl,
+        **ev), 64)
+    g6 = tuple(torch.ones_like(few.E) for _ in range(6))
+    vjp_ops = ops_per_ray(lambda: adjoint.dopri_trip_vjp(
+        xs, ps, few.E, h, few.lam, few.status, scal, ctl, g6,
+        torch.ones_like(h), **ev), 64)
+    quad = guard_ops = 0
+    if k:
+        y = few.x + 0.1 * few.p
+        quad = ops_per_ray(lambda: _sphere_events(env, few.x, y), 64)
+        guard_ops = ops_per_ray(lambda: guard_pass(env, few.x, y), 64)
+    ops = {"fwd": trips_f * (trip_ops - quad + guard_ops) + sum(guard) * quad,
+           "ckpt": trips_g * (trip_ops - quad + guard_ops)
+           + sum(guard[:cfg_g.n_steps]) * quad,
+           "bwd": trips_g * (trip_ops + vjp_ops)}
+    n_seg = -(-cfg_g.n_steps // cuda_kernel.segment(cfg_g.n_steps))
+    table = 4 * (10 + 4 * k)
+    state_in, state_out = 44 * n, 36 * n
+    ckpts = 36 * n_seg * n
+    nbytes = {"fwd": state_in + state_out + table,
+              "ckpt": state_in + state_out + ckpts + table,
+              "bwd": ckpts + 28 * n + 28 * n + 2 * table}
+    return (ops, nbytes, (live, guard, counts),
+            (trip_ops, quad, guard_ops, vjp_ops))
+
+
 def phase_dopri_bounds(dev, name_limit, readings):
     """The bound of each Dormand-Prince variant at its main path's inputs
     (the ADAPTIVE_RAYS fan rows for the event-free variants, the RING^2
@@ -3338,53 +3476,17 @@ def phase_dopri_bounds(dev, name_limit, readings):
     for suffix, (env, cfg_f, cfg_g, s0) in dopri_frames(dev).items():
         n, k = s0.E.numel(), (0 if env.spheres is None
                               else env.spheres.center.shape[0])
-        live, guard, counts = trip_counts(env, cfg_f, s0, cfg_g.n_steps)
+        (ops, nbytes, (live, guard, counts),
+         (trip_ops, quad, guard_ops, vjp_ops)) = dopri_bound(env, cfg_f,
+                                                             cfg_g, s0)
         per_ray = counts["ckpt"][0]
         trips_f, trips_g = sum(live), sum(live[:cfg_g.n_steps])
         guarded = sum(guard)
-        few = rays(s0, torch.arange(64, device=dev))
-        few.status = torch.zeros_like(few.status)
-        scal = cuda_kernel._scalars(env, cfg_f, dev).detach()
-        sph = cuda_kernel._sphere_table(env, dev).detach() if k else None
-        ctl = cuda_kernel.controller(cfg_f)
-        h = torch.full_like(few.E, 0.5)
-        xs, ps = few.x.unbind(-1), few.p.unbind(-1)
-        ev = dict(sph=sph, has_disk=env.disk is not None,
-                  kerr=env.spin is not None)
-        trip_ops = ops_per_ray(lambda: adjoint.dopri_trip(
-            xs, ps, few.E, h, few.lam, few.status, few.hit_obj, scal, ctl,
-            **ev), 64)
-        g6 = tuple(torch.ones_like(few.E) for _ in range(6))
-        vjp_ops = ops_per_ray(lambda: adjoint.dopri_trip_vjp(
-            xs, ps, few.E, h, few.lam, few.status, scal, ctl, g6,
-            torch.ones_like(h), **ev), 64)
-        quad = guard_ops = 0
-        if k:
-            y = few.x + 0.1 * few.p
-            quad = ops_per_ray(lambda: _sphere_events(env, few.x, y), 64)
-            guard_ops = ops_per_ray(lambda: guard_pass(env, few.x, y), 64)
-        ops = {"fwd": trips_f * (trip_ops - quad + guard_ops)
-               + guarded * quad,
-               "ckpt": trips_g * (trip_ops - quad + guard_ops)
-               + sum(guard[:cfg_g.n_steps]) * quad,
-               "bwd": trips_g * (trip_ops + vjp_ops)}
-        n_seg = -(-cfg_g.n_steps // cuda_kernel.segment(cfg_g.n_steps))
-        table = 4 * (10 + 4 * k)
-        state_in, state_out = 44 * n, 36 * n
-        ckpts = 36 * n_seg * n
-        nbytes = {"fwd": state_in + state_out + table,
-                  "ckpt": state_in + state_out + ckpts + table,
-                  "bwd": ckpts + 28 * n + 28 * n + 2 * table}
         for kind in ("fwd", "ckpt", "bwd"):
-            t_ops = ops[kind] / PEAK_FLOPS * 1e3
-            t_bytes = nbytes[kind] / PEAK_BYTES * 1e3
             name = f"dopri_{kind}{suffix}"
-            readings[name].update(
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None, ops=ops[kind], bytes=nbytes[kind])
+            readings[name].update(bound(ops[kind], nbytes[kind]))
             log(f"# phase 26: {name}: {ops[kind]:.4e} operations, "
-                f"{nbytes[kind]:.4e} bytes -> bound {max(t_ops, t_bytes):.4f}"
+                f"{nbytes[kind]:.4e} bytes -> bound {readings[name]['bound_ms']:.4f}"
                 f" ms by {readings[name]['bound_by']} (device "
                 f"{readings[name].get('device_ms', float('nan')):.3f} ms) "
                 f"[{name_limit}]")
@@ -3748,6 +3850,56 @@ def ray_steps(env, cfg, s0):
     return steps, guard, per_ray
 
 
+def bound(ops, nbytes):
+    """The bound readings of work of ``ops`` float32 operations and
+    ``nbytes`` bytes: the larger of their times at the card's peak rates
+    (PEAK_FLOPS, PEAK_BYTES)."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, ops=ops, bytes=nbytes)
+
+
+def rk4_bound(fenv, icfg, s0):
+    """The work of rk4_fwd, rk4_ckpt and rk4_bwd on the flat initial state
+    ``s0``: operations and bytes by kind, the replayed (ray-steps,
+    ray-steps past the sphere guard, each ray's steps) of ray_steps, and
+    the operations per ray-step counted (step, sphere quadratics, guard,
+    adjoint)."""
+    dev = s0.x.device
+    n_seg = -(-icfg.n_steps // cuda_kernel.segment(icfg.n_steps))
+    n, k = s0.E.numel(), (0 if fenv.spheres is None
+                          else fenv.spheres.center.shape[0])
+    steps, guard, per_ray = ray_steps(fenv, icfg, s0)
+    few = rays(s0, torch.arange(64, device=dev))
+    few.status = torch.zeros_like(few.status)
+    step_ops = ops_per_ray(lambda: _fixed_step(fenv, icfg, few), 64)
+    quad = guard_ops = 0
+    if k:
+        y = few.x + 0.1 * few.p
+        quad = ops_per_ray(lambda: _sphere_events(fenv, few.x, y), 64)
+        guard_ops = ops_per_ray(lambda: guard_pass(fenv, few.x, y), 64)
+    scal = cuda_kernel._scalars(fenv, icfg, dev).detach()
+    sph = cuda_kernel._sphere_table(fenv, dev).detach() if k else None
+    g6 = tuple(torch.ones_like(few.E) for _ in range(6))
+    adj_ops = ops_per_ray(lambda: adjoint.step_adjoint(
+        few.x.unbind(-1), few.p.unbind(-1), few.E, few.status, scal, g6,
+        icfg.dt_power, sph=sph, has_disk=fenv.disk is not None,
+        kerr=fenv.spin is not None), 64)
+    fwd_ops = steps * (step_ops - quad + guard_ops) + guard * quad
+    ops = {"fwd": fwd_ops, "ckpt": fwd_ops,
+           "bwd": steps * (step_ops + adj_ops)}
+    table = 4 * (10 + 4 * k)
+    state_in, state_out = 40 * n, 36 * n
+    ckpts = 32 * n_seg * n
+    nbytes = {"fwd": state_in + state_out + table,
+              "ckpt": state_in + state_out + ckpts + table,
+              "bwd": ckpts + 28 * n + 28 * n + 2 * table}
+    return (ops, nbytes, (steps, guard, per_ray),
+            (step_ops, quad, guard_ops, adj_ops))
+
+
 def phase_bounds(dev, name_limit, readings):
     """The least time the card could take for each kernel's work at the
     main path's inputs: the larger of its operations over the float32 peak
@@ -3778,44 +3930,17 @@ def phase_bounds(dev, name_limit, readings):
               "_kerr_events": frame(events_scene(dev, spin=0.45),
                                     events_cam(dev))}
     for suffix, (fenv, icfg, s0) in frames.items():
-        n_seg = -(-icfg.n_steps // cuda_kernel.segment(icfg.n_steps))
         n, k = s0.E.numel(), (0 if fenv.spheres is None
                               else fenv.spheres.center.shape[0])
-        steps, guard, per_ray = ray_steps(fenv, icfg, s0)
-        few = rays(s0, torch.arange(64, device=dev))
-        few.status = torch.zeros_like(few.status)
-        step_ops = ops_per_ray(lambda: _fixed_step(fenv, icfg, few), 64)
-        quad = guard_ops = 0
-        if k:
-            y = few.x + 0.1 * few.p
-            quad = ops_per_ray(lambda: _sphere_events(fenv, few.x, y), 64)
-            guard_ops = ops_per_ray(lambda: guard_pass(fenv, few.x, y), 64)
+        (ops, nbytes, (steps, guard, per_ray),
+         (step_ops, quad, guard_ops, adj_ops)) = rk4_bound(fenv, icfg, s0)
         scal = cuda_kernel._scalars(fenv, icfg, dev).detach()
         sph = cuda_kernel._sphere_table(fenv, dev).detach() if k else None
-        g6 = tuple(torch.ones_like(few.E) for _ in range(6))
-        adj_ops = ops_per_ray(lambda: adjoint.step_adjoint(
-            few.x.unbind(-1), few.p.unbind(-1), few.E, few.status, scal, g6,
-            icfg.dt_power, sph=sph, has_disk=fenv.disk is not None,
-            kerr=fenv.spin is not None), 64)
-        fwd_ops = steps * (step_ops - quad + guard_ops) + guard * quad
-        ops = {"fwd": fwd_ops, "ckpt": fwd_ops,
-               "bwd": steps * (step_ops + adj_ops)}
-        table = 4 * (10 + 4 * k)
-        state_in, state_out = 40 * n, 36 * n
-        ckpts = 32 * n_seg * n
-        nbytes = {"fwd": state_in + state_out + table,
-                  "ckpt": state_in + state_out + ckpts + table,
-                  "bwd": ckpts + 28 * n + 28 * n + 2 * table}
         for kind in ("fwd", "ckpt", "bwd"):
-            t_ops = ops[kind] / PEAK_FLOPS * 1e3
-            t_bytes = nbytes[kind] / PEAK_BYTES * 1e3
             name = f"rk4_{kind}{suffix}"
-            readings[name].update(
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None, ops=ops[kind], bytes=nbytes[kind])
+            readings[name].update(bound(ops[kind], nbytes[kind]))
             log(f"# phase 19: {name}: {ops[kind]:.4e} operations, "
-                f"{nbytes[kind]:.4e} bytes -> bound {max(t_ops, t_bytes):.4f}"
+                f"{nbytes[kind]:.4e} bytes -> bound {readings[name]['bound_ms']:.4f}"
                 f" ms by {readings[name]['bound_by']} (device "
                 f"{readings[name].get('device_ms', float('nan')):.3f} ms) "
                 f"[{name_limit}]")
@@ -3881,6 +4006,769 @@ def phase_bounds(dev, name_limit, readings):
                 f"rk4_bwd device {ms['none']:.3f} ms in input order, "
                 f"{ms['cost']:.3f} ms in cost order [{name_limit}]")
             del ck
+
+
+# =============================================================================
+# BASELINE config 4: the multisampled animation frame and its outputs.
+# =============================================================================
+def anim_cfg(backend="auto"):
+    """bench.py's make_render_cfg(SIZE, 100, samples=ANIM_SAMPLES)."""
+    return dataclasses.replace(flagship_cfg(backend), samples=ANIM_SAMPLES)
+
+
+def frame_cam(phi, dev):
+    """bench_animation's orbit camera: position (25 sin phi, 0, 25 cos
+    phi), euler (0, phi, 0), fov 0.8."""
+    return P.Camera.make(position=(25.0 * np.sin(phi), 0.0,
+                                   25.0 * np.cos(phi)),
+                         euler=(0.0, phi, 0.0), fov=(0.8, 0.8), device=dev)
+
+
+def count_path(readings, path, launches):
+    """Record the launches of each kernel variant on a main path of this
+    run: the kernels line's ``launches`` of a variant is the sum over its
+    main paths, ``launches_by_path`` the parts."""
+    for name, n in launches.items():
+        readings[name].setdefault("launches_by_path", {})[path] = n
+
+
+def read_png(path):
+    """An 8-bit RGB(A) PNG whose rows all have filter 0 (the port's
+    encoder) as a (H, W, C) uint8 array, with zlib alone.  Checks each
+    chunk's CRC."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, shape = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != (
+                zlib.crc32(tag + body) & 0xFFFFFFFF):
+            raise AssertionError(f"{path}: bad CRC in chunk {tag!r}")
+        if tag == b"IHDR":
+            w, h, _, color = struct.unpack(">IIBB", body[:10])
+            shape = (h, w, {2: 3, 6: 4}[color])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        shape[0], 1 + shape[1] * shape[2])
+    if not (raw[:, 0] == 0).all():
+        raise AssertionError(f"{path}: a row with a filter other than 0")
+    return raw[:, 1:].reshape(shape)
+
+
+def plain_kernel_ms(env, s0, cfg):
+    """Host-clock ms of the plain versions of the three kernels of
+    ``cfg.method`` on the flat state ``s0``, by kind: the early-exit loop
+    (fwd), the checkpointed loop's forward under autograd (ckpt) and its
+    backward (bwd)."""
+    def forward():
+        x = s0.x.detach().clone().requires_grad_(True)
+        s = dataclasses.replace(s0, x=x)
+        return cuda_kernel.integrate_plain(env, s, cfg).x.sum()
+
+    return {"fwd": once_ms(no_grad(lambda: cuda_kernel.integrate_plain(
+        env, s0, cfg))), "ckpt": once_ms(forward),
+        "bwd": backward_ms(forward)}
+
+
+def phase_anim_fwd(dev, name_limit, readings):
+    """BASELINE config 4's frame 1 at SIZE^2 and ANIM_SAMPLES samples
+    through render_image: rk4_fwd's event variant once per sample and
+    nothing else, the image against the plain render on the same draws,
+    the first sample's final states against the plain loop's; the uint8
+    frame against the host quantization of the float frame; the orbit's
+    ANIM_FRAMES frames through render_image_u8 written as PNG, one read
+    back; times."""
+    scene, cam = events_scene(dev), frame_cam(2 * np.pi / ANIM_FRAMES, dev)
+    cfg, cfg_plain = anim_cfg(), anim_cfg("torch")
+    t_phase = time.perf_counter()
+    reset_counts()
+    img = P.render_image(scene, cam, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "animation frame", launches)
+    check(launches == only(rk4_fwd_events=ANIM_SAMPLES),
+          f"animation frame launched {launches}, expected rk4_fwd_events "
+          f"{ANIM_SAMPLES} times")
+    if img.shape != (SIZE, SIZE, 4) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("animation frame is not a finite image")
+    draws = sample_draws(cfg, dev)
+    img_plain, plain_frame_ms = once(no_grad(
+        lambda: P.render_image(scene, cam, cfg_plain, draws)))
+    image_rule(img, img_plain, f"{SIZE}x{SIZE} x {ANIM_SAMPLES} spp "
+               "animation frame, kernel vs plain", FLAGSHIP_MEAN,
+               FLAGSHIP_FRAC)
+    one = P.render_image(scene, cam, flagship_cfg())
+    log(f"# phase 27: the {ANIM_SAMPLES} samples move the frame by mean "
+        f"|d| {float((img - one).abs().mean()):.3e} from its pixel centres")
+    # the first sample's jittered rays, each held as phase 11 holds the
+    # events frame's
+    fenv, s0 = flagship_rays(scene, cam, cfg, dev, jitter=draws[0])
+    with torch.no_grad():
+        s = cuda_kernel.integrate_cuda(fenv, s0, cfg.integrator)
+        sp = cuda_kernel.integrate_plain(fenv, s0, cfg.integrator)
+    near = near_b_c(fenv, s0)
+    sens = ulp_sensitive(fenv, cfg.integrator, s0, sp)
+    log(f"# phase 27: sample 0: {int(near.sum())} rays near b_c, "
+        f"{int((sens & ~near).sum())} more that one ulp of their start moves "
+        f"by > {ULP_SHARE:g} of a tolerance (ulp_sensitive)")
+    e, n, n_edge = compare_events(
+        fenv, cfg.integrator, flat_state(s0), flat_state(s), flat_state(sp),
+        f"{SIZE}x{SIZE} animation frame, sample 0",
+        (near | sens).reshape(-1))
+    r = readings["rk4_fwd_events"]
+    r.update(max_abs_err=max(r.get("max_abs_err", 0.0), e),
+             rays_aligned=r.get("rays_aligned", 0) + n,
+             edge_rays=r.get("edge_rays", 0) + n_edge)
+
+    # the uint8 frame: the host's quantization of the float frame
+    host_img = img.cpu().numpy()
+    u8 = P.render_image_u8(scene, cam, cfg).cpu().numpy()
+    host = (np.clip(host_img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    same_u8 = np.array_equal(u8, host)
+    rgb = host_img[..., :3]
+    tm = np.concatenate([rgb / (1.0 + rgb), host_img[..., 3:]], -1)
+    host_t = (np.clip(tm, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    u8t = P.render_image_u8(scene, cam, cfg, tonemap=True).cpu().numpy()
+    levels = int(np.abs(u8t.astype(int) - host_t.astype(int)).max())
+    log(f"# phase 27: render_image_u8 "
+        + ("equals" if same_u8 else "DIFFERS from")
+        + f" the host quantization of the float frame; with the tonemap "
+        f"within {levels} level(s)")
+    check(same_u8, "render_image_u8 differs from the host quantization")
+    check(levels <= 1, f"tonemapped uint8 frame {levels} levels off")
+
+    # the orbit: ANIM_FRAMES frames through render_image_u8, as PNG
+    out = ROOT / "build" / "animation"
+    out.mkdir(parents=True, exist_ok=True)
+    paths, frames = [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(ANIM_FRAMES):
+        fu8 = P.render_image_u8(scene, frame_cam(2 * np.pi * f / ANIM_FRAMES,
+                                                 dev), cfg)
+        paths.append(write_png(str(out / f"frame_{f:04d}.png"), fu8))
+        if f == 1:
+            frames[f] = fu8.cpu().numpy()
+    loop_s = time.perf_counter() - t0
+    back = read_png(paths[1])
+    check(np.array_equal(back, frames[1]) and np.array_equal(back, u8),
+          "a PNG frame does not read back as the uint8 frame")
+    size_mb = sum(Path(q).stat().st_size for q in paths) / 1e6
+    ms = {
+        "float frame": timed(no_grad(lambda: P.render_image(scene, cam,
+                                                            cfg)), runs=5),
+        "uint8 frame, on the host": timed(
+            lambda: P.render_image_u8(scene, cam, cfg).cpu(), runs=5),
+        "PNG write": timed(lambda: write_png(paths[1], back), runs=3),
+        "float frame (plain)": plain_frame_ms,
+    }
+    fps = ANIM_FRAMES / loop_s
+    for what, v in ms.items():
+        log(f"# phase 27: {what} {SIZE}x{SIZE} x {ANIM_SAMPLES} spp: "
+            f"median {v:.3f} ms [{name_limit}]")
+    log(f"# phase 27: {ANIM_FRAMES} orbit frames through render_image_u8 "
+        f"and write_png ({size_mb:.1f} MB) in "
+        f"{loop_s:.3f} s: {fps:.3f} frames/s; frame 1 read back equal "
+        f"[{name_limit}]")
+    readings["animation"] = dict(
+        frame_ms=ms["float frame"], u8_frame_ms=ms["uint8 frame, on the host"],
+        png_ms=ms["PNG write"], frames_per_s=fps,
+        plain_frame_ms=ms["float frame (plain)"])
+    log(f"# phase 27: done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_anim_grad(dev, name_limit, readings):
+    """The gradient of mean(img[..., :3]^2) of config 4's frame 1 to the
+    mass, the camera position and the sky: rk4_ckpt's and rk4_bwd's event
+    variants once per sample each and rk4_fwd never; against the plain
+    path on the same draws, the sky whole and the mass and camera on the
+    pixels calm in every sample (frame_parts); the sky cotangents of the
+    samples add up; two runs; times, the device busy share, each kernel's
+    device ms per sample and its bound, K2's checkpoint bytes."""
+    scene, cam = events_scene(dev), frame_cam(2 * np.pi / ANIM_FRAMES, dev)
+    cfg, cfg_plain = anim_cfg(), anim_cfg("torch")
+    icfg = cfg.integrator
+    t_phase = time.perf_counter()
+    reset_counts()
+    gk = render_grads(scene, cam, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "animation step", launches)
+    check(launches == only(rk4_ckpt_events=ANIM_SAMPLES,
+                           rk4_bwd_events=ANIM_SAMPLES),
+          f"animation step launched {launches}, expected rk4_ckpt_events "
+          f"and rk4_bwd_events {ANIM_SAMPLES} times each")
+    for g in gk:
+        check(bool(torch.isfinite(g).all()), "animation gradient not finite")
+    gp, plain_ms = once(lambda: render_grads(scene, cam, cfg_plain))
+    errs = compare_render_grads(gk, gp, f"{SIZE}x{SIZE} x {ANIM_SAMPLES} spp "
+                                "animation frame, kernel vs plain (mass, "
+                                "camera: a reading)", float("inf"))
+    check(errs[2] <= TOL_EVENTS_GRAD,
+          f"animation sky gradient outside {TOL_EVENTS_GRAD:g}")
+    # the calm pixels: calm in every sample, each sample's texel flips
+    # counted and capped as phase 11's
+    draws = sample_draws(cfg, dev)
+    calm = torch.ones((SIZE, SIZE), dtype=torch.bool, device=dev)
+    flips_per_sample, samples = [], []
+    for k in range(ANIM_SAMPLES):
+        fenv, s0 = flagship_rays(scene, cam, cfg, dev, jitter=draws[k])
+        with torch.no_grad():
+            s = cuda_kernel.integrate_cuda(fenv, s0, icfg)
+            sp = cuda_kernel.integrate_plain(fenv, s0, icfg)
+        parts, flips = frame_parts(scene, fenv, icfg, s0, s, sp)
+        c = torch.ones_like(flips)
+        for m in parts.values():
+            c &= ~m
+        flips_per_sample.append(int((c & flips).sum()))
+        calm &= c & ~flips
+        samples.append((fenv, flat_state(s0)))
+        del s, sp
+    check(max(flips_per_sample) <= MAX_TEXEL_FLIPS,
+          f"animation frame: {flips_per_sample} texel flips among the calm "
+          f"pixels of the samples (at most {MAX_TEXEL_FLIPS} each)")
+    log(f"# grad [animation frame] calm in every sample: {int(calm.sum())} "
+        f"pixels (texel flips left out per sample {flips_per_sample})")
+    calm_errs = compare_render_grads(
+        render_grads(scene, cam, cfg, calm.float()),
+        render_grads(scene, cam, cfg_plain, calm.float()),
+        f"{SIZE}x{SIZE} x {ANIM_SAMPLES} spp animation frame, calm pixels, "
+        "kernel vs plain", TOL_CALM_GRAD)
+
+    # a linear loss: the frame's sky cotangent is the mean of its samples'
+    def sky_grad(loss):
+        bg = scene.background.detach().clone().requires_grad_(True)
+        loss(dataclasses.replace(scene, background=bg)).backward()
+        return bg.grad
+
+    whole = sky_grad(lambda sc: P.render_image(sc, cam, cfg)[..., :3].mean())
+    parts_sum = sum(sky_grad(lambda sc, k=k: render_sample(
+        sc, cam, cfg, draws[k]).mean()) for k in range(ANIM_SAMPLES))
+    add_err = rel_err(whole, parts_sum / ANIM_SAMPLES)
+    log(f"# grad [animation frame] the sky cotangent of mean(img) against "
+        f"the mean of its {ANIM_SAMPLES} samples': {add_err:.3e}")
+    check(add_err <= 1e-5, "the samples' sky cotangents do not add up")
+    # two runs of the whole gradient
+    gk2 = render_grads(scene, cam, cfg)
+    same = [bool(torch.equal(a, b)) for a, b in zip(gk, gk2)]
+    sky_spread = rel_err(gk2[2], gk[2])
+    log(f"# determinism: two {ANIM_SAMPLES}-sample gradients: mass "
+        + ("equal" if same[0] else "differs") + ", camera "
+        + ("equal" if same[1] else "differs") + ", sky "
+        + ("equal bit for bit" if same[2] else
+           f"spread max|d|/max|g| = {sky_spread:.3e}"))
+
+    # times and the device's busy share
+    step = lambda: render_grads(scene, cam, cfg)  # noqa: E731
+    wall = timed(step, runs=5)
+    log(f"# phase 28: animation forward+backward step {SIZE}x{SIZE} x "
+        f"{ANIM_SAMPLES} spp: median {wall:.3f} ms, plain {plain_ms:.3f} ms "
+        f"[{name_limit}]")
+    busy_ms, busy = step_profile(step, wall, "phase 28: animation "
+                                 "forward+backward step", name_limit)
+    # each kernel on each sample's rays: device ms and bound
+    kw = None
+    dev_ms = {k: [] for k in ("fwd", "ckpt", "bwd")}
+    bounds = {k: [] for k in ("fwd", "ckpt", "bwd")}
+    ckpt_bytes = 0
+    for fenv, s0 in samples:
+        scal = cuda_kernel._scalars(fenv, icfg, dev)
+        seg = cuda_kernel.segment(icfg.n_steps)
+        kw = event_kw(fenv, s0)
+        args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
+        ckpt = no_grad(lambda: cuda_kernel.rk4_ckpt(*args, icfg.n_steps, seg,
+                                                    1.5, **kw))
+        ck = ckpt()[-1]
+        ckpt_bytes += sum(t.numel() * t.element_size() for t in ck)
+        g = torch.ones_like(s0.x)
+        dev_ms["fwd"].append(device_ms(no_grad(lambda: cuda_kernel.rk4_fwd(
+            *args, icfg.n_steps, 1.5, **kw))))
+        dev_ms["ckpt"].append(device_ms(ckpt))
+        dev_ms["bwd"].append(device_ms(no_grad(lambda: cuda_kernel.rk4_bwd(
+            scal, ck, s0.E, g, g, icfg.n_steps, seg, 1.5, sph=kw["sph"],
+            has_disk=True, kerr=False))))
+        ops, nbytes, (steps, _, _), _ = rk4_bound(fenv, icfg, s0)
+        for kind in bounds:
+            bounds[kind].append(bound(ops[kind], nbytes[kind])["bound_ms"])
+        del ck
+    kernel_plain = plain_kernel_ms(*samples[0], icfg)
+    for kind in ("fwd", "ckpt", "bwd"):
+        name = f"rk4_{kind}_events"
+        readings[name]["animation"] = dict(
+            device_ms_per_sample=statistics.mean(dev_ms[kind]),
+            bound_ms_per_sample=statistics.mean(bounds[kind]),
+            plain_ms_per_sample=kernel_plain[kind])
+        log(f"# phase 28: {name} per sample: device "
+            + ", ".join(f"{v:.3f}" for v in dev_ms[kind]) + " ms, bound "
+            + ", ".join(f"{v:.4f}" for v in bounds[kind])
+            + f" ms; its plain version on sample 0 {kernel_plain[kind]:.3f} "
+            "ms "
+            f"[{name_limit}]")
+    readings.setdefault("animation", {}).update(
+        step_ms=wall, step_plain_ms=plain_ms, device_busy_ms=busy_ms,
+        device_busy=busy, ckpt_bytes=ckpt_bytes)
+    log(f"# phase 28: rk4_ckpt's checkpoints of the {ANIM_SAMPLES} samples, "
+        f"held for autograd: {ckpt_bytes / 2**20:.1f} MiB per step")
+    readings["rk4_bwd_events"]["animation"].update(
+        render_grad_err=max([errs[2]] + calm_errs),
+        sky_sum_err=add_err, gradients_equal=same)
+    log(f"# phase 28: done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_anim_outputs(dev, readings):
+    """render_progressive on config 4's frame 1: at ANIM_SAMPLES samples its
+    last yield equals render_image within 1e-5; at one sample its 16
+    bands, one rk4_fwd launch each, equal the whole frame's rows bit for
+    bit.  render_stats and debug_rays (a square crop of SIZE / 16 pixels a
+    side right of the frame's centre) on the card against the plain path: counts and
+    statuses equal but for the edge rays compare_events admits."""
+    scene, cam = events_scene(dev), frame_cam(2 * np.pi / ANIM_FRAMES, dev)
+    cfg, one = anim_cfg(), flagship_cfg()
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        img = P.render_image(scene, cam, cfg)
+        frames = list(render_progressive(scene, cam, cfg))
+        d_last = float((frames[-1][1] - img).abs().max())
+        full = P.render_image(scene, cam, one)
+        reset_counts()
+        bands = list(render_progressive(scene, cam, one, row_bands=16))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    band = -(-SIZE // 16)
+    bad = [i for i, f in bands
+           if not torch.equal(f[i * band:(i + 1) * band],
+                              full[i * band:(i + 1) * band])]
+    log(f"# phase 29: render_progressive at {ANIM_SAMPLES} samples: "
+        f"{len(frames)} yields, the last within {d_last:.3e} of render_image;"
+        f" at one sample {len(bands)} bands ({launches}), "
+        + ("each equal to the frame's rows bit for bit" if not bad
+           else f"bands {bad} DIFFER from the frame's rows"))
+    check(len(frames) == ANIM_SAMPLES and d_last <= 1e-5,
+          "render_progressive's last sample is not render_image's image")
+    check(not bad and len(bands) == 16
+          and launches == only(rk4_fwd_events=16),
+          "render_progressive's bands differ from the frame")
+    check(torch.equal(bands[-1][1], full), "the last band's frame differs")
+
+    plain = flagship_cfg("torch")
+    sk, sp = render_stats(scene, cam, one), render_stats(scene, cam, plain)
+    diff = {k: sk["status"][k] - sp["status"][k] for k in sk["status"]}
+    moved = sum(abs(v) for v in diff.values())
+    log(f"# phase 29: render_stats kernel {sk['status']} vs plain; "
+        f"differences {diff}; lam_mean {sk['lam_mean']:.6f} vs "
+        f"{sp['lam_mean']:.6f}, lam_max {sk['lam_max']:.4f} vs "
+        f"{sp['lam_max']:.4f}")
+    check(sk["rays_total"] == sp["rays_total"] == SIZE * SIZE
+          and moved <= 2 * MAX_EDGE
+          and abs(sk["lam_mean"] - sp["lam_mean"]) <= 1e-3,
+          "render_stats differs from the plain path's")
+    w = SIZE // 16
+    dcfg = dataclasses.replace(one, mark_x_min=10 * w, mark_x_max=11 * w - 1,
+                               mark_y_min=15 * w // 2,
+                               mark_y_max=17 * w // 2 - 1)
+    rk = debug_rays(scene, cam, dcfg)
+    rp = debug_rays(scene, cam, dataclasses.replace(
+        dcfg, integrator=plain.integrator))
+    flip = (rk["status"] != rp["status"]) | (rk["hit_obj"] != rp["hit_obj"])
+    same_rays = all(np.array_equal(rk[k], rp[k])
+                    for k in ("ys", "xs", "origin", "direction"))
+    text_k = format_debug_string(rk).splitlines()
+    text_p = format_debug_string(rp).splitlines()
+    layout = len(text_k) == len(text_p) == w * w and all(
+        a.split(" end_loc=")[0] == b.split(" end_loc=")[0]
+        for a, b in zip(text_k, text_p))
+    hist = np.bincount(rp["status"], minlength=8).tolist()
+    log(f"# phase 29: debug_rays over {w}x{w} pixels: launch records "
+        + ("equal" if same_rays else "DIFFER") + f", {int(flip.sum())} "
+        f"statuses or hit ids differ; statuses {hist}; the text's layout "
+        + ("equal" if layout else "DIFFERS"))
+    check(same_rays and layout and int(flip.sum()) <= MAX_EDGE,
+          "debug_rays differs from the plain path's")
+    readings.setdefault("animation", {})["progressive_last_err"] = d_last
+    log(f"# phase 29: done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# =============================================================================
+# Massive particles: launch(..., time_like=True) through K1-K6.
+# =============================================================================
+def particle_fan(n, dev, seed=0, mass=0.5):
+    """n massive particles about a hole of mass ``mass`` in random orbital
+    planes: circular orbits at r = 4-20 M (dx/dtau = r Omega u^t along the
+    tangent, Omega^2 = M / r^3, u^t = 1 / sqrt(1 - 3M/r)), bound eccentric
+    orbits at perihelion (tests/test_timelike.py's p~ = 20, e = 0.2),
+    plunging and escaping particles, and a tenth inside the horizon.
+    Returns (x0, dx/dtau)."""
+    M = mass
+    rng = np.random.default_rng(seed)
+    kind = rng.choice(5, size=n, p=[0.4, 0.2, 0.15, 0.15, 0.1])
+    n_hat = rng.normal(size=(n, 3))
+    n_hat /= np.linalg.norm(n_hat, axis=-1, keepdims=True)
+    a = rng.normal(size=(n, 3))
+    t_hat = a - np.sum(a * n_hat, -1, keepdims=True) * n_hat
+    t_hat /= np.linalg.norm(t_hat, axis=-1, keepdims=True)
+    r = rng.uniform(4.0, 20.0, n) * M
+    speed = r * np.sqrt(M / r ** 3) / np.sqrt(1.0 - 3.0 * M / r)
+    pt, e = 20.0, 0.2
+    ecc = kind == 1
+    r[ecc] = pt * M / (1 + e)
+    speed[ecc] = M * pt / np.sqrt(pt - 3 - e * e) / r[ecc]
+    v = speed[:, None] * t_hat
+    for k, lo, hi, sign, vr, vt in ((2, 4.0, 15.0, -1.0, (0.3, 1.0), 0.1),
+                                    (3, 6.0, 20.0, 1.0, (0.6, 2.0), 0.3)):
+        m = kind == k
+        r[m] = rng.uniform(lo, hi, int(m.sum()))
+        v[m] = (sign * rng.uniform(*vr, (int(m.sum()), 1)) * n_hat[m]
+                + rng.uniform(0.0, vt, (int(m.sum()), 1)) * t_hat[m])
+    m = kind == 4
+    r[m] = rng.uniform(0.05, 0.95, int(m.sum())) * 2 * M
+    v[m] = rng.normal(size=(int(m.sum()), 3)) * 0.5
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    return f(r[:, None] * n_hat), f(v)
+
+
+def particle_state(env, x0, v0):
+    """The state ``launch(..., time_like=True)`` integrates."""
+    p0, E0 = timelike_init(x0, v0, env.mass, env.spin)
+    s0 = states.init_state(x0.contiguous(), p0, E0)
+    s0.status = s0.status.masked_fill(env.radius(x0) <= env.r_capture,
+                                      states.INSIDE_HORIZON)
+    return s0
+
+
+def near_separatrix(env, s0):
+    """Particles of the Schwarzschild hole ``env`` whose energy E and
+    angular momentum L = |x cross p| (both conserved) put E^2 within
+    SEP_BAND of the peak of their effective potential (1 - 2M/r)(1 +
+    L^2/r^2), at r_u = (L^2 - sqrt(L^4 - 12 L^2 M^2)) / 2M: near the
+    unstable circular orbit that separates falling in from getting away,
+    where each orbit multiplies a rounding difference, as b_c does for
+    photons."""
+    m = env.mass.double()
+    E = s0.E.double()
+    L2 = torch.linalg.cross(s0.x, s0.p, dim=-1).double().pow(2).sum(-1)
+    has_peak = L2 > 12.0 * m * m
+    ru = (L2 - (L2 * L2 - 12.0 * L2 * m * m).clamp_min(0.0).sqrt()) / (
+        2.0 * m)
+    ru = torch.where(has_peak, ru, torch.ones_like(ru))
+    vmax = (1.0 - 2.0 * m / ru) * (1.0 + L2 / (ru * ru))
+    return has_peak & ((E * E - vmax).abs() < SEP_BAND)
+
+
+def compare_particles(env, cfg, s0, a, b, what):
+    """Kernel state ``a`` against plain state ``b`` of massive particles
+    from ``s0``: every output finite, statuses equal; the particles near
+    their separatrix (near_separatrix) to lam within half a step, the
+    others to x and lam within TOL_X and p within TOL_P of max(1, |p|),
+    those that end a step apart on a boundary aligned (step_apart).  (No
+    final directions: a particle's end is no sky lookup.)  Returns the
+    largest error and the rays aligned."""
+    for s in (a, b):
+        if not all(bool(torch.isfinite(t).all()) for t in (s.x, s.p, s.lam)):
+            raise AssertionError(f"{what}: a non-finite output")
+    n_bad = int((a.status != b.status).sum())
+    if n_bad:
+        raise AssertionError(f"{what}: {n_bad} statuses differ")
+    near = near_separatrix(env, s0)
+    dl_near = (a.lam - b.lam).abs()[near]
+    jump = near & ((a.lam - b.lam).abs() >= 0.5 * cfg.dt)
+    _, _, n_jump = step_apart(env, cfg, rays(a, jump), rays(b, jump))
+    a, b, n_apart = step_apart(env, cfg, rays(a, ~near), rays(b, ~near))
+    dx = float((a.x - b.x).abs().max())
+    dl = float((a.lam - b.lam).abs().max())
+    dp = float(((a.p - b.p).abs()
+                / b.p.norm(dim=-1, keepdim=True).clamp_min(1.0)).max())
+    dln = float(dl_near[dl_near < 0.5 * cfg.dt].max()) if bool(
+        (dl_near < 0.5 * cfg.dt).any()) else 0.0
+    log(f"# particles [{what}] n={s0.E.numel()} statuses equal, "
+        f"{n_apart + n_jump} end a step apart at a boundary; away from the "
+        f"separatrix max|dx|={dx:.3e} max|dp|={dp:.3e} max|dlam|={dl:.3e}; "
+        f"{int(near.sum())} near it max|dlam|={dln:.3e}")
+    if not (dx <= TOL_X and dl <= TOL_X and dp <= TOL_P):
+        raise AssertionError(f"{what}: outside tolerance (x/lam {TOL_X}, p "
+                             f"{TOL_P})")
+    return max(dx, dp, dl), n_apart + n_jump
+
+
+def particle_cfgs():
+    """(RK4 config and its lam_max, Dormand-Prince forward and gradient
+    configs and their lam_max) of the timelike fan: the flagship schedule,
+    bound orbits still in flight after 100 steps; bench.py's adaptive
+    tolerances at max_step 4 until bound orbits end on the budget."""
+    return ((flagship_cfg().integrator, 1000.0),
+            (adaptive_cfg(2000, 4.0), adaptive_cfg(120, 4.0), 60.0))
+
+
+def particle_grads(env, x0, v0, cfg, kernel):
+    """The final state and the cotangents of the initial velocities and
+    the mass for sum(x^2) over the particles that neither fall in nor
+    err, through launch(..., time_like=True) on the kernels or the plain
+    loop."""
+    mass = env.mass.detach().clone().requires_grad_(True)
+    e = dataclasses.replace(env, mass=mass)
+    v = v0.detach().clone().requires_grad_(True)
+    c = dataclasses.replace(cfg, backend="auto" if kernel else "torch")
+    s = P.launch(e, x0, v, c, time_like=True)
+    keep = (s.status != states.CAPTURED) & (s.status != states.ERROR)
+    torch.where(keep[..., None], s.x * s.x, 0.0).sum().backward()
+    return s, v.grad, mass.grad
+
+
+def phase_timelike(dev, name_limit, readings):
+    """PARTICLES massive particles (particle_fan) through launch(...,
+    time_like=True): rk4_fwd against the plain loop and Hh = -1/2 along
+    its particles still in flight; rk4_ckpt = rk4_fwd bit for bit and its
+    checkpoint rows against the plain loop; rk4_bwd's cotangents of the
+    initial velocities and the mass against autograd of the plain loop;
+    dopri_fwd against the plain trip loop (statuses on DOPRI_AGREE, the
+    same-trip particles to the state tolerances, every particle in
+    flight by its angular momentum and Hh); dopri_ckpt = dopri_fwd and its
+    rows; dopri_bwd's cotangents (the median over the same-trip particles,
+    the mass); no NaN anywhere, the inside-horizon band's cotangents zero;
+    each kernel's call and device ms and bound."""
+    t_phase = time.perf_counter()
+    (rcfg, r_lam), (dcfg_f, dcfg_g, d_lam) = particle_cfgs()
+    x0, v0 = particle_fan(PARTICLES, dev)
+    errs, out = {}, {}
+
+    # RK4: rk4_fwd
+    env = dataclasses.replace(fan_env(dev), lam_max=torch.tensor(r_lam,
+                                                                 device=dev))
+    reset_counts()
+    with torch.no_grad():
+        sk = P.launch(env, x0, v0, rcfg, time_like=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "timelike fan", launches)
+    check(launches == only(rk4_fwd=1),
+          f"timelike forward launched {launches}, expected rk4_fwd once")
+    with torch.no_grad():
+        sp = P.launch(env, x0, v0, dataclasses.replace(rcfg, backend="torch"),
+                      time_like=True)
+    inside = sk.status == states.INSIDE_HORIZON
+    check(bool(inside.any()) and torch.equal(sk.x[inside], x0[inside]),
+          "inside-horizon particles moved")
+    s0 = flat_state(particle_state(env, x0, v0))
+    near = near_separatrix(env, s0)
+    errs["rk4_fwd"], aligned = compare_particles(env, rcfg, s0, sk, sp,
+                                                 f"timelike fan {PARTICLES}")
+    flying = sk.status == states.ACTIVE
+    drift = float((hamiltonian(sk.x, sk.p, sk.E, env.mass)[flying] + 0.5)
+                  .abs().max())
+    hist = torch.bincount(sk.status.long(), minlength=8).tolist()
+    log(f"# phase 30: rk4_fwd: statuses {hist}; Hh + 1/2 of the "
+        f"{int(flying.sum())} particles in flight within {drift:.3e} "
+        f"(limit {H_DRIFT:g})")
+    check(drift <= H_DRIFT and int(flying.sum()) > PARTICLES // 3,
+          "the super-Hamiltonian drifted along rk4_fwd's particles")
+
+    # rk4_ckpt: rk4_fwd bit for bit, its rows against the plain loop
+    with torch.no_grad():
+        fwd, fin, ck = run_ckpt(env, rcfg, s0)
+        seg = cuda_kernel.segment(rcfg.n_steps)
+        _, rows = cuda_kernel.integrate_ckpt_plain(env, s0, rcfg, seg)
+    same = all(torch.equal(a, b) for a, b in zip(fwd, fin))
+    check(same, "timelike: rk4_ckpt's final state differs from rk4_fwd's")
+    keep = (fin[2] - sp.lam).abs() <= TOL_X
+    errs["rk4_ckpt"] = max(compare_particles(
+        env, rcfg, rays(s0, keep), rays(ckpt_rows(ck, k, s0), keep),
+        rays(row, keep), f"timelike fan, checkpoint row {k}")[0]
+        for k, row in enumerate(rows))
+    log(f"# phase 30: rk4_ckpt " + ("equals rk4_fwd bit for bit" if same
+                                    else "DIFFERS from rk4_fwd")
+        + f"; {len(rows)} rows of seg {seg} agree; " + live_equal(ck, "fan"))
+    del ck
+
+    # rk4_bwd: the cotangents of the initial velocities and the mass
+    reset_counts()
+    out_k, gk, mk = particle_grads(env, x0, v0, rcfg, True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "timelike fan", launches)
+    check(launches == only(rk4_ckpt=1, rk4_bwd=1),
+          f"timelike gradient launched {launches}")
+    out_p, gp, mp = particle_grads(env, x0, v0, rcfg, False)
+    ok = ((out_k.lam - out_p.lam).abs() <= TOL_X) & ~near
+    gerr = rel_err(gk[ok], gp[ok])
+    merr = abs(float(mk) / float(mp) - 1.0)
+    zero = float(gk[inside].abs().max())
+    log(f"# grad [timelike fan, rk4] velocity cotangents away from the "
+        f"separatrix {gerr:.3e} (max |d| / max |plain|; near it "
+        f"{rel_err(gk[near], gp[near]):.3e}, a reading), mass {float(mk):.7g} vs {float(mp):.7g} (rel "
+        f"{merr:.3e}); inside-horizon cotangents {zero:g}; finite: "
+        f"{bool(torch.isfinite(gk).all())}")
+    check(bool(torch.isfinite(gk).all()) and zero == 0.0
+          and gerr <= TOL_GRAD and merr <= TOL_GRAD_MASS,
+          f"timelike rk4_bwd outside ({TOL_GRAD:g}, mass {TOL_GRAD_MASS:g})")
+    errs["rk4_bwd"] = max(gerr, merr)
+
+    # Dormand-Prince: dopri_fwd
+    env = dataclasses.replace(fan_env(dev), lam_max=torch.tensor(d_lam,
+                                                                 device=dev))
+    reset_counts()
+    with torch.no_grad():
+        sk = P.launch(env, x0, v0, dcfg_f, time_like=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "timelike fan", launches)
+    check(launches == only(dopri_fwd=1),
+          f"timelike adaptive forward launched {launches}")
+    with torch.no_grad():
+        sp = P.launch(env, x0, v0, dataclasses.replace(dcfg_f,
+                                                       backend="torch"),
+                      time_like=True)
+    s0 = flat_state(particle_state(env, x0, v0))
+    errs["dopri_fwd"] = compare_adaptive_particles(env, s0, sk, sp,
+                                                   dcfg_f.max_step,
+                                                   f"timelike fan {PARTICLES}")
+
+    # dopri_ckpt: dopri_fwd bit for bit, its rows against the plain loop
+    args, ctl, kw = dopri_args(env, dcfg_g, s0)
+    seg = cuda_kernel.segment(dcfg_g.n_steps)
+    with torch.no_grad():
+        fwd = cuda_kernel.dopri_fwd(*args, ctl, **kw)
+        *fin, ck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)
+        _, rows, hs = cuda_kernel.integrate_adaptive_ckpt_plain(
+            env, s0, dcfg_g, seg)
+    same = all(torch.equal(a, b) for a, b in zip(fwd, fin))
+    check(same, "timelike: dopri_ckpt's final state differs from dopri_fwd's")
+    worst_st, worst_dx = 1.0, 0.0
+    for k, row in enumerate(rows):
+        cx, cp, ch, clam, cst = (t[k] for t in ck[:5])
+        worst_st = min(worst_st, float((cst == row.status).float().mean()))
+        keep = ((clam - row.lam).abs() <= SAME_TRIP) & (
+            row.status != states.CAPTURED) & ~near
+        worst_dx = max(worst_dx, masked_max((cx - row.x).abs().amax(-1),
+                                            keep))
+    log(f"# phase 30: dopri_ckpt " + ("equals dopri_fwd bit for bit" if same
+                                      else "DIFFERS from dopri_fwd")
+        + f"; {len(rows)} rows of seg {seg}: statuses equal on >= "
+        f"{worst_st:.6f}, same-trip particles' max|dx| {worst_dx:.3e}; "
+        + live_equal(ck, "fan"))
+    check(worst_st >= DOPRI_AGREE and worst_dx <= TOL_X,
+          "timelike dopri_ckpt rows outside tolerance")
+    errs["dopri_ckpt"] = worst_dx
+    del ck
+
+    # dopri_bwd
+    reset_counts()
+    out_k, gk, mk = particle_grads(env, x0, v0, dcfg_g, True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "timelike fan", launches)
+    check(launches == only(dopri_ckpt=1, dopri_bwd=1),
+          f"timelike adaptive gradient launched {launches}")
+    out_p, gp, mp = particle_grads(env, x0, v0, dcfg_g, False)
+    same = ((out_k.status == out_p.status)
+            & ((out_k.lam - out_p.lam).abs() <= SAME_TRIP) & ~inside & ~near)
+    med = float(ray_rel(gk, gp)[same].median())
+    merr = abs(float(mk) / float(mp) - 1.0)
+    zero = float(gk[inside].abs().max())
+    log(f"# grad [timelike fan, Dormand-Prince, {dcfg_g.n_steps} trips] "
+        f"{int(same.sum())} particles on the same trips: velocity "
+        f"cotangents median |d| / |plain| {med:.3e}; mass {float(mk):.7g} "
+        f"vs {float(mp):.7g} (rel {merr:.3e}); inside-horizon cotangents "
+        f"{zero:g}; finite: {bool(torch.isfinite(gk).all())}")
+    check(bool(torch.isfinite(gk).all()) and zero == 0.0
+          and med <= TOL_DOPRI_GRAD and merr <= TOL_DOPRI_GRAD_SCALAR,
+          f"timelike dopri_bwd outside ({TOL_DOPRI_GRAD:g} median, mass "
+          f"{TOL_DOPRI_GRAD_SCALAR:g})")
+    errs["dopri_bwd"] = max(med, merr)
+
+    # times and bounds of each kernel on the fan
+    renv = dataclasses.replace(fan_env(dev), lam_max=torch.tensor(
+        r_lam, device=dev))
+    r0 = flat_state(particle_state(renv, x0, v0))
+    rscal = cuda_kernel._scalars(renv, rcfg, dev)
+    rseg = cuda_kernel.segment(rcfg.n_steps)
+    rargs = (rscal, r0.x, r0.p, r0.E, r0.lam, r0.status)
+    g = torch.ones_like(r0.x)
+    with torch.no_grad():
+        rck = cuda_kernel.rk4_ckpt(*rargs, rcfg.n_steps, rseg, 1.5)[-1]
+        dck = cuda_kernel.dopri_ckpt(*args, seg, ctl, **kw)[-1]
+    bkw = dict(kw)
+    del bkw["obj"]
+    calls = {
+        "rk4_fwd": no_grad(lambda: cuda_kernel.rk4_fwd(*rargs, rcfg.n_steps,
+                                                       1.5)),
+        "rk4_ckpt": no_grad(lambda: cuda_kernel.rk4_ckpt(
+            *rargs, rcfg.n_steps, rseg, 1.5)),
+        "rk4_bwd": no_grad(lambda: cuda_kernel.rk4_bwd(
+            rscal, rck, r0.E, g, g, rcfg.n_steps, rseg, 1.5)),
+        "dopri_fwd": no_grad(lambda: cuda_kernel.dopri_fwd(
+            *dopri_args(env, dcfg_f, s0)[0], cuda_kernel.controller(dcfg_f),
+            **kw)),
+        "dopri_ckpt": no_grad(lambda: cuda_kernel.dopri_ckpt(
+            *args, seg, ctl, **kw)),
+        "dopri_bwd": no_grad(lambda: cuda_kernel.dopri_bwd(
+            args[0], dck, s0.E, g, g, dcfg_g.n_steps, seg, ctl, **bkw)),
+    }
+    rops, rbytes, (steps, _, _), _ = rk4_bound(renv, rcfg, r0)
+    dops, dbytes, (live, _, _), _ = dopri_bound(env, dcfg_f, dcfg_g, s0)
+    plain = {"rk4": plain_kernel_ms(renv, r0, rcfg),
+             "dopri": plain_kernel_ms(env, s0, dcfg_g)}
+    plain["dopri"]["fwd"] = plain_kernel_ms(env, s0, dcfg_f)["fwd"]
+    for name, fn in calls.items():
+        method, kind = name.split("_")
+        ops, nbytes = (rops, rbytes) if method == "rk4" else (dops, dbytes)
+        out[name] = dict(ms=timed(fn), device_ms=device_ms(fn),
+                         plain_ms=plain[method][kind],
+                         max_abs_err=errs[name],
+                         **bound(ops[kind], nbytes[kind]))
+        readings[name]["timelike"] = out[name]
+        log(f"# phase 30: {name} on the timelike fan: call "
+            f"{out[name]['ms']:.3f} ms, device {out[name]['device_ms']:.3f} "
+            f"ms, bound {out[name]['bound_ms']:.4f} ms by "
+            f"{out[name]['bound_by']}, plain {out[name]['plain_ms']:.3f} ms "
+            f"[{name_limit}]")
+    log(f"# phase 30: {PARTICLES} particles, {steps} ray-steps of RK4 "
+        f"({steps / PARTICLES:.2f} per particle), {sum(live)} ray-trips of "
+        f"Dormand-Prince (the slowest particle {len(live)} of "
+        f"{dcfg_f.n_steps} trips); rays aligned a step apart {aligned}")
+    log(f"# phase 30: done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def compare_adaptive_particles(env, s0, a, b, max_step, what):
+    """dopri_fwd's state ``a`` of massive particles from ``s0`` against the
+    plain trip loop's ``b``: statuses on >= DOPRI_AGREE, lam within
+    max_step; the particles that neither fall in nor start inside, away
+    from their separatrix, and took the same trips (lam within SAME_TRIP)
+    to the state tolerances; all in flight
+    by what their paths conserve: x cross p within TOL_L of max(1, |L|),
+    Hh within H_DRIFT of -1/2; every output finite.  Returns the largest
+    error of the same-trip particles."""
+    for s in (a, b):
+        if not all(bool(torch.isfinite(t).all()) for t in (s.x, s.p, s.lam)):
+            raise AssertionError(f"{what}: a non-finite output")
+    agree = a.status == b.status
+    share = float(agree.float().mean())
+    dlam = (a.lam - b.lam).abs()
+    fly = agree & (b.status != states.CAPTURED) & (
+        b.status != states.INSIDE_HORIZON)
+    same = fly & (dlam <= SAME_TRIP) & ~near_separatrix(env, s0)
+    dx = masked_max((a.x - b.x).abs().amax(-1), same)
+    dp = masked_max(((a.p - b.p).abs() / b.p.norm(dim=-1, keepdim=True)
+                     .clamp_min(1.0)).amax(-1), same)
+    La = torch.linalg.cross(a.x, a.p, dim=-1)
+    Lb = torch.linalg.cross(b.x, b.p, dim=-1)
+    dL = masked_max((La - Lb).abs().amax(-1)
+                    / Lb.norm(dim=-1).clamp_min(1.0), fly)
+    drift = max(masked_max((hamiltonian(s.x, s.p, s.E, env.mass) + 0.5)
+                           .abs(), fly) for s in (a, b))
+    hist = torch.bincount(b.status.long(), minlength=8).tolist()
+    log(f"# particles [{what}, Dormand-Prince] statuses equal on "
+        f"{share:.6f}; max|dlam| {masked_max(dlam, agree):.3e} (limit "
+        f"{max_step:g}); {int(same.sum())} of {int(fly.sum())} in flight "
+        f"on the same trips: max|dx| {dx:.3e} max|dp| {dp:.3e}; all in "
+        f"flight: |dL| {dL:.3e}, |Hh + 1/2| {drift:.3e}; statuses {hist}")
+    if not (share >= DOPRI_AGREE and masked_max(dlam, agree) <= max_step
+            + 1e-3 and dx <= TOL_X and dp <= TOL_P and dL <= TOL_L
+            and drift <= H_DRIFT and int(same.sum()) > int(fly.sum()) // 3):
+        raise AssertionError(f"{what}: outside the Dormand-Prince limits")
+    return max(dx, dp)
 
 
 def main() -> int:
@@ -3952,6 +4840,14 @@ def main() -> int:
           name_limit, readings, 0.45)
     phase("phase 26 (Dormand-Prince bounds)", phase_dopri_bounds, dev,
           name_limit, readings)
+    phase("phase 27 (animation frame)", phase_anim_fwd, dev, name_limit,
+          readings)
+    phase("phase 28 (animation gradient)", phase_anim_grad, dev, name_limit,
+          readings)
+    phase("phase 29 (progressive, stats, debug)", phase_anim_outputs, dev,
+          readings)
+    phase("phase 30 (timelike fan)", phase_timelike, dev, name_limit,
+          readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
@@ -3985,6 +4881,22 @@ def main() -> int:
         log(f"# bench.py adaptive row [{key}, {ADAPTIVE_RAYS} rays]: forward "
             f"{v['fwd_ms']:.3f} ms, forward+gradient {v['fwd_grad_ms']:.3f} "
             f"ms, plain {v['fwd_grad_plain_ms']:.3f} ms [{name_limit}]")
+    v = readings.pop("animation")
+    log(f"# animation [BASELINE config 4, {SIZE}x{SIZE} x {ANIM_SAMPLES} "
+        f"spp]: float frame {v['frame_ms']:.3f} ms, uint8 frame "
+        f"{v['u8_frame_ms']:.3f} ms, PNG write {v['png_ms']:.3f} ms, "
+        f"{v['frames_per_s']:.3f} frames/s; "
+        f"forward+backward {v['step_ms']:.3f} ms (plain "
+        f"{v['step_plain_ms']:.3f} ms), device busy "
+        f"{100 * v['device_busy']:.1f}%; K2 checkpoints "
+        f"{v['ckpt_bytes'] / 2**20:.1f} MiB per step [{name_limit}]")
+    # a variant's launches: its earlier main path's and this slice's
+    for name in KERNELS:
+        r = readings[name]
+        by = r.pop("launches_by_path", {})
+        if by:
+            r["launches_by_path"] = {"earlier": r["launches"], **by}
+            r["launches"] = sum(r["launches_by_path"].values())
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **readings[name]}

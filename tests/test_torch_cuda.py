@@ -1,7 +1,8 @@
 """The CUDA kernels of the PyTorch port against their plain PyTorch versions:
 rk4_fwd, rk4_ckpt and rk4_bwd, and the adaptive Dormand-Prince dopri_fwd,
 dopri_ckpt and dopri_bwd, event-free and with disk and sphere events,
-Schwarzschild and Kerr, and renders and their gradients through them.
+Schwarzschild and Kerr, photons and massive particles, and renders --
+multisampled and progressive too -- and their gradients through them.
 
 Needs a CUDA device and nvcc, and skips without them (decided in a fixture
 when each test runs, never at import).  This file imports
@@ -26,7 +27,9 @@ from blackhole_geodesic_calculator_tpu_torch.ops import _build, cuda_kernel  # n
 from blackhole_geodesic_calculator_tpu_torch.ops import integrate as tint  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import states  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius  # noqa: E402
+from blackhole_geodesic_calculator_tpu_torch.ops import geodesic as tgeo  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init  # noqa: E402
+import torch_particles  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -973,3 +976,199 @@ def test_sphere_guard_changes_no_bit(spin, kernel):
     assert int((guarded[3] == states.OBJECT).sum()) >= 20
     for a, b in zip(guarded, unguarded):
         assert torch.equal(a, b)
+
+
+# =============================================================================
+# Massive particles (launch(..., time_like=True)) through K1-K6, and the
+# multisampled and progressive renders.
+# =============================================================================
+def particle_fan(n=1500, seed=0):
+    """tests/torch_particles.py's fan of massive particles on the card."""
+    return tuple(torch.as_tensor(a, device=DEV)
+                 for a in torch_particles.particle_fan(n, seed))
+
+
+def particle_env(lam_max):
+    return dataclasses.replace(env(), lam_max=torch.tensor(lam_max,
+                                                           device=DEV))
+
+
+def particle_state(e, x0, v0):
+    p0, E0 = tgeo.timelike_init(x0, v0, e.mass)
+    s0 = states.init_state(x0, p0, E0)
+    s0.status = s0.status.masked_fill(x0.norm(dim=-1) <= e.r_capture,
+                                      states.INSIDE_HORIZON)
+    return s0
+
+
+PARTICLE_RK4 = dict(FLAGSHIP)
+PARTICLE_DOPRI = dict(n_steps=400, dt=0.05, method="dopri", rtol=1e-5,
+                      atol=1e-8, max_step=4.0)
+
+
+@pytest.mark.parametrize("method", ["rk4", "dopri"])
+def test_timelike_kernels_match_plain(method):
+    """launch(..., time_like=True) of the particle fan through rk4_fwd or
+    dopri_fwd against the plain loop: RK4 statuses equal, x and lam within
+    1e-3 and p within 1e-4 of max(1, |p|) (bound orbits ACTIVE at the
+    end, Hh = -1/2 within 5e-4 there); Dormand-Prince statuses on >=
+    99.8%, the particles on the same trips (lam within 1e-4) that do not
+    fall in to those tolerances, the angular momentum x cross p of all
+    that do not fall in to 1e-4.  Inside-horizon particles never move."""
+    rk4 = method == "rk4"
+    e = particle_env(1000.0 if rk4 else 60.0)
+    x0, v0 = particle_fan()
+    cfg = tint.IntegratorConfig(**(PARTICLE_RK4 if rk4 else PARTICLE_DOPRI))
+    before = counts()
+    sk = tint.launch(e, x0, v0, cfg, time_like=True)
+    assert launched(before) == {f"{method}_fwd": 1}
+    sp = tint.launch(e, x0, v0, dataclasses.replace(cfg, backend="torch"),
+                     time_like=True)
+    inside = sk.status == states.INSIDE_HORIZON
+    assert int(inside.sum()) > 50 and torch.equal(sk.x[inside], x0[inside])
+    for s in (sk, sp):
+        assert torch.isfinite(s.x).all() and torch.isfinite(s.p).all()
+    agree = sk.status == sp.status
+    out = agree & (sp.status != states.CAPTURED) & ~inside
+    dlam = (sk.lam - sp.lam).abs()
+    held = out & (dlam <= 1e-4) if not rk4 else agree
+    if rk4:
+        assert bool(agree.all())
+        H = tgeo.hamiltonian(sk.x, sk.p, sk.E, e.mass)
+        act = sk.status == states.ACTIVE
+        assert int(act.sum()) > 500
+        assert float((H[act] + 0.5).abs().max()) < 5e-4
+    else:
+        assert float(agree.float().mean()) >= MIN_AGREE
+        assert float(dlam[agree].max()) <= PARTICLE_DOPRI["max_step"] + 1e-3
+        assert int(held.sum()) > int(out.sum()) // 3
+        L = lambda s: torch.linalg.cross(s.x, s.p, dim=-1)  # noqa: E731
+        dL = (L(sk) - L(sp)).abs().amax(-1) / L(sp).norm(dim=-1).clamp_min(1)
+        assert float(dL[out].max()) <= 1e-4
+    assert float((sk.x - sp.x)[held].abs().max()) <= TOL_X
+    assert float(dlam[held].max()) <= TOL_X
+    dp = (sk.p - sp.p).abs() / sp.p.norm(dim=-1, keepdim=True).clamp_min(1)
+    assert float(dp[held].max()) <= TOL_P
+
+
+@pytest.mark.parametrize("method", ["rk4", "dopri"])
+def test_timelike_gradients_match_autograd(method):
+    """The gradient of sum(x^2) over the particles that do not fall in, to
+    the initial velocities and the mass, through rk4_ckpt and rk4_bwd (or
+    dopri_ckpt and dopri_bwd) against autograd of the plain loop: finite
+    everywhere, the inside-horizon band's zero; RK4 per particle to 1e-3
+    of the largest and the mass to 1e-3; Dormand-Prince the median over
+    the particles on the same trips to 2e-4 and the mass to 5e-2 (the
+    limits of chip_smoke.py's dopri_bwd phase)."""
+    rk4 = method == "rk4"
+    e0 = particle_env(1000.0 if rk4 else 60.0)
+    x0, v0 = particle_fan(seed=1)
+    cfg = tint.IntegratorConfig(**(dict(PARTICLE_RK4, n_steps=60) if rk4
+                                   else dict(PARTICLE_DOPRI, n_steps=120)))
+
+    def grads(c):
+        mass = e0.mass.clone().requires_grad_(True)
+        e = dataclasses.replace(e0, mass=mass)
+        v = v0.clone().requires_grad_(True)
+        s = tint.launch(e, x0, v, c, time_like=True)
+        keep = (s.status != states.CAPTURED) & (s.status != states.ERROR)
+        torch.where(keep[..., None], s.x ** 2, 0.0).sum().backward()
+        return s, v.grad, mass.grad
+
+    before = counts()
+    sk, gk, mk = grads(cfg)
+    assert launched(before) == {f"{method}_ckpt": 1, f"{method}_bwd": 1}
+    sp, gp, mp = grads(dataclasses.replace(cfg, backend="torch"))
+    inside = sk.status == states.INSIDE_HORIZON
+    assert torch.isfinite(gk).all() and torch.isfinite(mk)
+    assert float(gk[inside].abs().max()) == 0.0
+    same = (sk.status == sp.status) & ((sk.lam - sp.lam).abs() <= 1e-4)
+    if rk4:
+        assert float((gk - gp)[same].abs().max() / gp.abs().max()) <= 1e-3
+        assert abs(float(mk) / float(mp) - 1.0) <= 1e-3
+    else:
+        nb = gp.norm(dim=-1)
+        rel = (gk - gp).norm(dim=-1) / (nb + 1e-3 * nb.max())
+        assert float(rel[same & ~inside].median()) <= 2e-4
+        assert abs(float(mk) / float(mp) - 1.0) <= 5e-2
+
+
+def anim_scene():
+    """bench.py's events scene (a disk and four moons) at a small size."""
+    v, u = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    sky = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * u / 128)
+                    * np.sin(np.pi * v / 64), v / 64,
+                    ((u // 8 + v // 8) % 2).astype(np.float32)], -1)
+    scene = events_scene()
+    return dataclasses.replace(scene, background=torch.as_tensor(
+        sky, dtype=torch.float32, device=DEV))
+
+
+def test_multisample_render_launches_per_sample():
+    """A 3-sample 32x32 frame of the events scene from config 4's orbit
+    camera: the forward launches rk4_fwd's event variant once per sample,
+    its gradient rk4_ckpt's and rk4_bwd's once per sample each, and both
+    agree with the plain path on the same draws; render_image_u8 equals
+    the host quantization of the float frame."""
+    scene = anim_scene()
+    phi = 2 * np.pi / 10
+    cam = P.Camera.make(position=(25 * np.sin(phi), 0.0, 25 * np.cos(phi)),
+                        euler=(0.0, phi, 0.0), fov=(0.8, 0.8), device=DEV)
+    cfg = P.RenderConfig(width=32, height=32, samples=3, lam_max=100.0,
+                         integrator=P.IntegratorConfig(**FLAGSHIP))
+    plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch"))
+    before = counts()
+    img = P.render_image(scene, cam, cfg)
+    assert launched(before) == {"rk4_fwd_events": 3}
+    ref = P.render_image(scene, cam, plain)
+    d = (img - ref).abs()
+    assert float(d.mean()) < 2e-3 and float((d > 0.1).float().mean()) < 0.01
+    u8 = P.render_image_u8(scene, cam, cfg)
+    host = (img.clamp(0, 1) * 255 + 0.5).to(torch.uint8)
+    assert torch.equal(u8, host)
+
+    def grads(c):
+        leaves = (scene.bh.mass, cam.position, scene.background)
+        for t in leaves:
+            t.requires_grad_(True)
+            t.grad = None
+        P.render_image(scene, cam, c)[..., :3].pow(2).mean().backward()
+        out = [t.grad.clone() for t in leaves]
+        for t in leaves:
+            t.requires_grad_(False)
+        return out
+
+    before = counts()
+    gk = grads(cfg)
+    assert launched(before) == {"rk4_ckpt_events": 3, "rk4_bwd_events": 3}
+    gp = grads(plain)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all()
+    assert float((gk[2] - gp[2]).abs().max() / gp[2].abs().max()) <= 1e-2
+
+
+def test_progressive_bands_equal_the_frame():
+    """render_progressive at one sample, 16 bands over 200 rows of a 200 x
+    240 events frame: each band's rows equal the whole frame's bit for bit
+    (one thread per ray, no reduction), one rk4_fwd launch per band; at 3
+    samples its last yield equals render_image within 1e-5."""
+    scene = anim_scene()
+    cam = P.Camera.make(position=(0.0, 0.0, 25.0), euler=(0.25, 0.0, 0.0),
+                        fov=(0.8, 0.8), device=DEV)
+    cfg = P.RenderConfig(width=240, height=200, lam_max=100.0,
+                         integrator=P.IntegratorConfig(**FLAGSHIP))
+    with torch.no_grad():
+        full = P.render_image(scene, cam, cfg)
+        before = counts()
+        frames = list(P.render_progressive(scene, cam, cfg, row_bands=16))
+        assert launched(before) == {"rk4_fwd_events": len(frames)}
+        band = -(-200 // 16)
+        for i, frame in frames:
+            y0, y1 = i * band, min((i + 1) * band, 200)
+            assert torch.equal(frame[y0:y1], full[y0:y1])
+        assert torch.equal(frames[-1][1], full)
+        cfg3 = dataclasses.replace(cfg, samples=3)
+        img3 = P.render_image(scene, cam, cfg3)
+        last = list(P.render_progressive(scene, cam, cfg3))[-1][1]
+        assert float((last - img3).abs().max()) <= 1e-5

@@ -140,10 +140,37 @@ def test_generate_rays_matches_jax(width, height, euler):
 
 
 def test_generate_rays_jitter_raises():
-    ys, xs = tcam.pixel_grid(4, 4)
-    with pytest.raises(NotImplementedError):
-        tcam.generate_rays(tcam.Camera.make((0, 0, 20), device="cpu"), 4, 4,
-                           ys, xs, key=1)
+    """Jittered rays run: one sample's draws (u, v) move each direction by
+    (u - 0.5) / W and (v - 0.5) * aspect / H as the JAX package's jitter
+    does (draws of exactly 0.5 give the pixel centres; JAX's own draws in
+    tests/test_torch_multisample.py); draws of the wrong shape, or on
+    another device than the camera, raise."""
+    width, height, euler = 12, 8, (0.2, -0.1, 0.4)
+    cam = tcam.Camera.make((1.0, 2.0, 20.0), euler, (0.9, 0.6), device="cpu")
+    ys, xs = tcam.pixel_grid(width, height)
+    u = torch.rand((2,) + tuple(xs.shape), generator=torch.Generator()
+                   .manual_seed(0))
+    _, d = tcam.generate_rays(cam, width, height, ys, xs, u)
+    _, d_mid = tcam.generate_rays(cam, width, height, ys, xs,
+                                  torch.full_like(u, 0.5))
+    _, d0 = tcam.generate_rays(cam, width, height, ys, xs)
+    assert torch.equal(d_mid, d0)
+    # the JAX package's jittered direction, from the same draws
+    jys, jxs = jcam.pixel_grid(width, height)
+    aspect = height / width
+    xr = 0.9 * (np.asarray(jxs) - width // 2) / width + (u[0].numpy() - 0.5) \
+        / width
+    yr = 0.6 * (np.asarray(jys) - height // 2) / height * aspect \
+        + (u[1].numpy() - 0.5) * aspect / height
+    dc = np.stack([xr, yr, -np.ones_like(xr)], -1)
+    rot = np.asarray(jcam.euler_matrix(jnp.asarray(euler, jnp.float32)))
+    ref = dc @ rot.T
+    ref /= np.linalg.norm(ref, axis=-1, keepdims=True)
+    np.testing.assert_allclose(d.numpy(), ref, rtol=RTOL, atol=1e-6)
+    with pytest.raises(ValueError, match="shape"):
+        tcam.generate_rays(cam, width, height, ys, xs, u[:1])
+    with pytest.raises(ValueError, match="the camera on"):
+        tcam.generate_rays(cam, width, height, ys, xs, u.to("meta"))
 
 
 def test_sample_equirect_matches_jax():

@@ -121,23 +121,43 @@ def test_convert_carries_trees_as_float32():
 
 
 def test_out_of_slice_renders_raise():
-    """Multisampling is outside the ported slices and raises, for a Kerr
-    hole too (Kerr and Dormand-Prince are ported)."""
+    """Multisampled renders run, for a Kerr hole too: an 8x8 frame at 2
+    samples with the JAX package's draws holds the golden rule against
+    the JAX render (Schwarzschild, then a = 0.45); the product path's own
+    seeded draws give the same image twice and another than the pixel
+    centres.  Draws of the wrong shape or on another device raise."""
+    import jax
+
     scene, cam, cfg = flagship(8)
-    tscene, tcam, tcfg = port(scene, cam, cfg)
-    with pytest.raises(NotImplementedError):
-        render_image(tscene, tcam, dataclasses.replace(tcfg, samples=2))
+    cfg = dataclasses.replace(cfg, samples=2)
+    keys = jax.random.split(jax.random.PRNGKey(cfg.seed), 2)
+    draws = torch.as_tensor(np.stack([np.array(jax.random.uniform(k, (2, 8,
+                                                                      8)))
+                                      for k in keys]))
     spun = dataclasses.replace(scene, bh=JBlackHole.make(mass=0.5,
                                                          spin=0.45))
-    with pytest.raises(NotImplementedError):
-        render_image(convert.scene_from_reference(spun, device="cpu"), tcam,
-                     dataclasses.replace(tcfg, samples=2))
+    for s in (scene, spun):
+        tscene, tcam, tcfg = port(s, cam, cfg)
+        img = render_image(tscene, tcam, tcfg, draws)
+        assert img.shape == (8, 8, 4) and torch.isfinite(img).all()
+        golden_rule(img.numpy(), np.asarray(jrender(s, cam, cfg)),
+                    "8x8, 2 samples")
+    seeded = render_image(tscene, tcam, tcfg)
+    assert torch.equal(seeded, render_image(tscene, tcam, tcfg))
+    centres = render_image(tscene, tcam, dataclasses.replace(tcfg, samples=1))
+    assert not torch.equal(seeded, centres)
+    with pytest.raises(ValueError, match="shape"):
+        render_image(tscene, tcam, tcfg, draws[:1])
+    with pytest.raises(ValueError, match="the camera on"):
+        render_image(tscene, tcam, tcfg, draws.to("meta"))
 
 
 def test_import_leaves_jax_out():
     """The port runs where JAX is not installed: importing it and running
     its CPU render path, for a Schwarzschild and a Kerr hole, with RK4 and
-    with Dormand-Prince, must not import jax."""
+    with Dormand-Prince, multisampled, as uint8 frames written to PNG,
+    progressively, its stats and debug dumps and massive particles, must
+    not import jax."""
     code = (
         "import sys, torch\n"
         "import blackhole_geodesic_calculator_tpu_torch as P\n"
@@ -152,6 +172,19 @@ def test_import_leaves_jax_out():
         "                       P.RenderConfig(\n"
         "            width=4, height=4, integrator=P.IntegratorConfig(\n"
         "                n_steps=8, method=method)))\n"
+        "from blackhole_geodesic_calculator_tpu_torch import io_, render\n"
+        "import tempfile, os\n"
+        "cam = P.Camera.make((0, 0, 20), device='cpu')\n"
+        "cfg = P.RenderConfig(width=4, height=4, samples=2,\n"
+        "                     integrator=P.IntegratorConfig(n_steps=8))\n"
+        "u8 = render.render_image_u8(s, cam, cfg, tonemap=True)\n"
+        "io_.write_png(os.path.join(tempfile.mkdtemp(), 'f.png'), u8)\n"
+        "list(render.render_progressive(s, cam, cfg))\n"
+        "render.render_stats(s, cam, cfg)\n"
+        "render.format_debug_string(render.debug_rays(s, cam, cfg))\n"
+        "env = render.scene_env(s, cfg, cam)\n"
+        "P.launch(env, torch.tensor([[5.0, 0, 0]]), torch.tensor([[0, 0.3,\n"
+        "         0.0]]), cfg.integrator, time_like=True)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('blackhole_geodesic_calculator_tpu.')\n"
         "               or m == 'blackhole_geodesic_calculator_tpu'\n"
