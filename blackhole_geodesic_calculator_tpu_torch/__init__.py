@@ -11,17 +11,27 @@ sphere geometry.  Photons and massive particles (``launch(...,
 time_like=True)``) go through the fixed-step RK4 or adaptive
 Dormand-Prince integrators: hand-written CUDA kernels on the GPU, for the
 forward and for the checkpointed forward and exact adjoint of the
-gradient; plain PyTorch loops on the CPU.
+gradient; plain PyTorch loops on the CPU.  It also renders the Stokes Q
+and U of a polarized disk (``render_stokes``), maps the rotation of the
+polarization along each ray (``polarization_map``: the closed form for
+Schwarzschild, the parallel-transport ODE of the ``models`` metrics for
+Kerr), and renders with the Gen-1 hybrid (``render_limited``: curved
+space only inside a sphere of influence, or a ``SurrogateTable``).
 """
 
 from .camera.pinhole import Camera
 from .ops.integrate import GeodesicEnv, IntegratorConfig, launch
-from .render.renderer import (RenderConfig, render_image, render_image_u8,
-                              render_progressive)
+from .render.limited import LimitedConfig, SurrogateTable, render_limited
+from .render.renderer import (RenderConfig, polarization_map,
+                              polarization_rays, render_image,
+                              render_image_u8, render_progressive,
+                              render_stokes, stokes_rays)
 from .scene.scene import BlackHole, Disk, Lights, Scene, Spheres
 
 __all__ = [
     "BlackHole", "Camera", "Disk", "GeodesicEnv", "IntegratorConfig",
-    "Lights", "RenderConfig", "Scene", "Spheres", "launch", "render_image",
-    "render_image_u8", "render_progressive",
+    "LimitedConfig", "Lights", "RenderConfig", "Scene", "Spheres",
+    "SurrogateTable", "launch", "polarization_map", "polarization_rays",
+    "render_image", "render_image_u8", "render_limited",
+    "render_progressive", "render_stokes", "stokes_rays",
 ]

@@ -15,18 +15,23 @@ renderer.py:159-173); the samples' jitter draws come from a generator on
 the tensors' device seeded with ``RenderConfig.seed``, or from the caller
 (``sample_draws``).  ``render_image_u8`` tonemaps and quantizes on the
 device; ``render_progressive`` yields the image sample by sample or, with
-one sample, row band by row band.
+one sample, row band by row band.  ``render_stokes`` adds the Stokes Q
+and U of a polarized disk, and ``polarization_map`` maps the rotation of
+the polarization basis along each ray (the parallel-transport ODE for a
+Kerr hole).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Iterator
 
 import torch
 
-from ..camera.pinhole import Camera, generate_rays, pixel_grid
-from ..models.kerr import horizon_radius
+from ..camera.pinhole import Camera, euler_matrix, generate_rays, pixel_grid
+from ..models.kerr import horizon_radius, kerr_ks_metric
+from ..ops import states
 from ..ops.integrate import (
     DiskGeom,
     GeodesicEnv,
@@ -35,6 +40,9 @@ from ..ops.integrate import (
     final_direction,
     launch,
 )
+from ..ops.polarization import (_cross, _unit, plane_normal,
+                                polarization_rotation,
+                                transport_polarization_ode)
 from ..scene.scene import Scene
 from ..scene.shading import shade
 
@@ -270,3 +278,130 @@ def render_progressive(scene: Scene, cam: Camera, cfg: RenderConfig,
         rgb = render_sample(scene, cam, cfg, draws[i])
         acc = rgb if acc is None else acc + rgb
         yield i, _frame(cfg, acc / (i + 1))
+
+
+def stokes_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
+                ys: torch.Tensor, xs: torch.Tensor):
+    """Polarized render of the rays through pixels (ys, xs): (rgb, Q, U),
+    rgb of shape ys.shape + (3,), the Stokes Q and U of shape ys.shape
+    (JAX renderer.py:198-265).
+
+    Disk light is emitted with degree q sin^2(theta_em) (q = the disk's
+    ``pol_frac``, theta_em the angle between the photon and the disk
+    normal) and its E-vector along the disk normal's projection transverse
+    to the photon; it reaches the camera by the exact Schwarzschild
+    transport (ops/polarization.py), also used for a Kerr hole as its
+    a -> 0 approximation.  chi = atan2(f.up, f.right) against the camera's
+    image axes (the columns of ``euler_matrix``), Q = Ip cos 2chi, U = Ip
+    sin 2chi with Ip = degree x the pixel's luminance.  The sky, the
+    spheres and a disk without ``pol_frac`` are unpolarized: Q = U = 0."""
+    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
+    env = scene_env(scene, cfg, cam)
+    o_rel = origin - scene.bh.loc
+
+    s = launch(env, o_rel, d, cfg.integrator)
+    end_dir = final_direction(env, s)
+    rgb = shade(_bh_frame(scene), s, end_dir)
+
+    zero = torch.zeros(rgb.shape[:-1], dtype=rgb.dtype, device=rgb.device)
+    if scene.disk is None or scene.disk.pol_frac is None:
+        return rgb, zero, zero
+
+    is_disk = s.status == states.DISK
+    # the photon's direction at the crossing: a ray freezes at the event
+    # point, so the final unit coordinate velocity is the disk-local one
+    k_d = end_dir
+    # emitted E-vector: the disk normal's projection transverse to the
+    # photon; |f_raw| = sin(theta_em), which sets the degree too
+    f_raw = k_d.new_tensor([0.0, 0.0, 1.0]) - k_d * k_d[..., 2:3]
+    sin2 = torch.sum(f_raw * f_raw, dim=-1)
+    p_eff = scene.disk.pol_frac * sin2
+    f_hat = f_raw / torch.clamp_min(torch.sqrt(sin2), 1e-12)[..., None]
+
+    # the components in the (n, e(k)) frame are invariants of the transport
+    n = plane_normal(o_rel, d)
+    e_d = _unit(_cross(k_d, n))
+    alpha = torch.sum(f_hat * n, dim=-1)
+    beta = torch.sum(f_hat * e_d, dim=-1)
+    e_c = _unit(_cross(d, n))
+    f_obs = alpha[..., None] * n + beta[..., None] * e_c
+
+    rot = euler_matrix(cam.euler)
+    chi = torch.atan2(torch.sum(f_obs * rot[:, 1], dim=-1),
+                      torch.sum(f_obs * rot[:, 0], dim=-1))
+    lum = torch.mean(rgb, dim=-1)
+    ip = torch.where(is_disk, p_eff * lum, 0.0)
+    return rgb, ip * torch.cos(2.0 * chi), ip * torch.sin(2.0 * chi)
+
+
+def render_stokes(scene: Scene, cam: Camera, cfg: RenderConfig):
+    """The polarized frame over the crop window at the pixel centres:
+    (rgb (Hc, Wc, 3), Q (Hc, Wc), U (Hc, Wc)); see ``stokes_rays``."""
+    x0, x1, y0, y1 = cfg.crop()
+    ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1,
+                        device=cam.position.device)
+    return stokes_rays(scene, cam, cfg, ys, xs)
+
+
+def polarization_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
+                      ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """The polarization rotation (radians) of the rays through pixels
+    (ys, xs); returns ys.shape (JAX renderer.py:373-424).
+
+    Schwarzschild: the closed form on the integrator's escape directions
+    (``launch``), kept for ESCAPED and BUDGET rays, NaN for the others.
+    Kerr: the parallel-transport ODE of ``kerr_ks_metric`` from the camera
+    with the in-plane launch basis, the angle of the transported vector in
+    the escape frame's (e_in, n) basis, NaN for rays that end inside 0.99
+    of the stop radius."""
+    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
+    env = scene_env(scene, cfg, cam)
+    o_rel = origin - scene.bh.loc
+
+    if scene.bh.spin is None:
+        s = launch(env, o_rel, d, cfg.integrator)
+        d1 = final_direction(env, s)
+        ang = polarization_rotation(o_rel, d, d1)
+        escaped = (s.status == states.ESCAPED) | (s.status == states.BUDGET)
+        return torch.where(escaped, ang, torch.nan)
+
+    metric = kerr_ks_metric(scene.bh.mass, scene.bh.spin)
+    x3 = o_rel.reshape(-1, 3)
+    d3 = d.reshape(-1, 3)
+    n = plane_normal(x3, d3)
+    f0 = _unit(_cross(d3, n))             # the in-plane basis at launch
+    it = cfg.integrator
+    r_stop = float(cfg.r_escape) if cfg.r_escape > 0 else 70.0
+    f_obs, d1, x1, _ = transport_polarization_ode(
+        metric, x3, d3, f0, n_steps=it.n_steps, dt=it.dt, r_stop=r_stop,
+        dt_boost=max(it.dt_boost, 1.0), r_ref=it.dt_boost_r_ref or 1.6)
+    e_in1 = _unit(_cross(d1, n))
+    ang = torch.atan2(torch.sum(f_obs * n, dim=-1),
+                      torch.sum(f_obs * e_in1, dim=-1))
+    escaped = torch.linalg.norm(x1, dim=-1) >= 0.99 * r_stop
+    return torch.where(escaped, ang, torch.nan).reshape(ys.shape)
+
+
+# Above this many Kerr pixels, polarization_map warns: the transport ODE
+# costs far more a ray than the render path.
+_KERR_POLARIZATION_WARN_PIXELS = 256 * 256
+
+
+def polarization_map(scene: Scene, cam: Camera, cfg: RenderConfig
+                     ) -> torch.Tensor:
+    """The per-pixel polarization rotation (radians) over the crop window,
+    (Hc, Wc): the closed form for Schwarzschild, the transport ODE (frame
+    dragging included) for Kerr; NaN where the ray did not escape.  Warns
+    above 256^2 Kerr pixels."""
+    x0, x1, y0, y1 = cfg.crop()
+    n_pix = (x1 - x0) * (y1 - y0)
+    if scene.bh.spin is not None and n_pix > _KERR_POLARIZATION_WARN_PIXELS:
+        warnings.warn(
+            f"Kerr polarization map over {n_pix} pixels on one device: the "
+            "parallel-transport ODE is ~40x the render path's flops. Use a "
+            "mark_* crop window (the JAX package's "
+            "parallel.polarization_map_sharded is not ported yet).",
+            stacklevel=2)
+    ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1,
+                        device=cam.position.device)
+    return polarization_rays(scene, cam, cfg, ys, xs)

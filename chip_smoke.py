@@ -6,8 +6,10 @@ Run from the root of a checkout.  It drives the port's main paths -- the
 forward render through rk4_fwd and its gradient through rk4_ckpt and
 rk4_bwd, the adaptive Dormand-Prince render and gradient through
 dopri_fwd, dopri_ckpt and dopri_bwd, BASELINE config 4's multisampled
-animation frame and massive particles through all six -- and fails
-(non-zero exit, no result line) if anything is off:
+animation frame and massive particles through all six, the polarized
+(Stokes) frame, the polarization maps and the Gen-1 hybrid renderer
+through rk4_fwd -- and fails (non-zero exit, no result line) if anything
+is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
   1. builds the kernels from the checkout's sources (build/kernels/), one
@@ -170,14 +172,43 @@ animation frame and massive particles through all six -- and fails
      version by its null-ray phase's rules without the photon-only parts
      (near b_c, sky directions): statuses, x, p and lam, Hh = -1/2 and the
      angular momentum conserved, the cotangents of the initial velocities
-     and the mass, no NaN; each kernel's times and bound there.
+     and the mass, no NaN; each kernel's times and bound there;
+ 31. holds ks_directional_christoffel against the Metric.christoffel
+     contraction (forward-mode AD of the Kerr-Schild metric) at 65,536
+     points and a = 0.45, 0, -0.3; renders bench.py bench_stokes's
+     POL_KERR^2 Kerr (a = 0.45) polarization map through
+     polarization_map, the parallel-transport ODE in PyTorch operations:
+     no kernel launched, |f.k| and |g(f,f) - g0| of the finished
+     (escaped) rays away from b_c within FK_DRIFT and NORM_DRIFT (the
+     schedule's long steps by the photon orbits drift by more: a
+     reading), the map equal to its ODE run alone, and a seeded
+     POL_SUBSET of its rays against the same function on the CPU
+     (wrapped angles away from b_c, NaN patterns but for capped
+     escape-edge rays); times;
+ 32. renders bench_stokes's SIZE^2 frame (the events disk with pol_frac
+     0.7) through render_stokes: rk4_fwd's event variant once and nothing
+     else, rgb against the plain render, the rays' final states as phase
+     11, Q and U within TOL_STOKES where the statuses agree; the flagship
+     sky's SIZE^2 Schwarzschild polarization map through rk4_fwd against
+     the plain map; K1's times and bound on the Stokes frame; times;
+ 33. renders bench.py _surrogate_image_compare's HYBRID^2 Kerr (a = 0.45)
+     Gen-1 frame through render_limited (rk4_fwd_kerr once) and a
+     Schwarzschild Gen-1 frame with a disk, a lit moon and debug colours
+     (rk4_fwd_events once), each against the plain render (image, shadow
+     pixels within SHADOW_PX, debug colours) and its rays against the
+     plain loop; the rays render_limited pre-sets ESCAPED or
+     INSIDE_HORIZON come back from rk4_fwd bit for bit; holds
+     SurrogateTable.build through rk4_fwd against the plain build on the
+     CPU (captured equal, exit directions within TOL_DIR away from b_c)
+     and renders the approx frame from its table; K1's times and bound on
+     each frame and the table; times.
 
 Every check of a phase is recorded; after the last phase the run fails if
 any check failed.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
 with its launch count on the main paths (``launches_by_path`` when more
 than one runs it), error, times and bound, and for the variants of phases
-28 and 30 their readings there.  Imports nothing of JAX.
+28, 30, 32 and 33 their readings there.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -203,7 +234,8 @@ import blackhole_geodesic_calculator_tpu_torch as P
 from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
     generate_rays, pixel_grid)
 from blackhole_geodesic_calculator_tpu_torch.io_ import write_png
-from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius
+from blackhole_geodesic_calculator_tpu_torch.models.kerr import (
+    horizon_radius, kerr_ks_metric)
 from blackhole_geodesic_calculator_tpu_torch.ops import (
     _build, adjoint, cuda_kernel, states)
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import (
@@ -212,9 +244,12 @@ from blackhole_geodesic_calculator_tpu_torch.ops.integrate import (
     DiskGeom, GeodesicEnv, SphereGeom, _disk_event, _dopri_trip, _dt_eff,
     _fixed_step, _sphere_events, dopri_h0, dopri_step, final_direction,
     rk4_step)
+from blackhole_geodesic_calculator_tpu_torch.ops.polarization import (
+    _cross, _unit, ks_directional_christoffel, plane_normal,
+    transport_polarization_ode)
 from blackhole_geodesic_calculator_tpu_torch.render import (
-    debug_rays, format_debug_string, render_progressive, render_sample,
-    render_stats, sample_draws)
+    debug_rays, format_debug_string, limited, render_progressive,
+    render_sample, render_stats, sample_draws)
 from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
     _bh_frame, scene_env)
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
@@ -397,6 +432,34 @@ ULP_SHARE = 0.1
 SEP_BAND = 1e-3
 SAME_TRIP = 1e-4
 TOL_L = 1e-4
+# Phases 31-33 (polarization and the Gen-1 hybrid).  The Kerr polarization
+# map is POL_KERR^2 (bench.py bench_stokes's psize); POL_SUBSET of its rays
+# are held against the same function on the CPU, away from b_c to TOL_POL
+# rad (wrapped).  ks_directional_christoffel is held to the AD Christoffel
+# contraction within TOL_CHRISTOFFEL of each point's largest entry (the
+# reference test's rtol 2e-5 plus its atol of 2e-5 of the largest entry;
+# reading on the CPU at 65,536 points 1.2e-5), the transport's invariants
+# on the finished rays to FK_DRIFT and NORM_DRIFT
+# (tests/test_polarization.py's).  The Stokes Q and U against the plain
+# render within TOL_STOKES on the rays whose status agrees.  The hybrid
+# frames are HYBRID^2 (bench.py _surrogate_image_compare's size), held to
+# the plain render's image by HYBRID_MEAN and HYBRID_FRAC (a debug-coloured
+# pixel that flips at an edge moves whole channels by 1) and to its shadow
+# pixel count within SHADOW_PX (tests/test_limited.py's gate); the surrogate
+# table's exit directions to TOL_DIR on the escaping rays TABLE_BAND or
+# more from b_c (nearer, rays circle the photon sphere and part).
+POL_KERR = 256
+POL_SUBSET = 1024
+TOL_POL = 1e-3
+TOL_CHRISTOFFEL = 4e-5
+FK_DRIFT = 1e-4
+NORM_DRIFT = 1e-3
+TOL_STOKES = 1e-3
+HYBRID = 512
+HYBRID_MEAN = 1e-4
+HYBRID_FRAC = 1e-4
+SHADOW_PX = 4
+TABLE_BAND = 0.25
 # The card's peak rates for the bound of each kernel (NVIDIA's data sheet
 # for the H100 SXM at 700 W, float32 outside the tensor cores).
 PEAK_FLOPS = 67e12
@@ -4771,6 +4834,540 @@ def compare_adaptive_particles(env, s0, a, b, max_step, what):
     return max(dx, dp)
 
 
+
+# =============================================================================
+# Polarization and the Gen-1 hybrid: metrics, the Kerr transport ODE, the
+# Stokes frame and the hybrid renderer through rk4_fwd.
+# =============================================================================
+def k1_frame(tag, fenv, icfg, s0, err, readings, name_limit):
+    """rk4_fwd's readings on a frame of phases 32-33, under
+    readings[variant][tag]: the call and device ms of one launch on the
+    flat initial state ``s0``, its bound by phase 19's rule (rk4_bound:
+    the frame's replayed ray-steps times the operations per ray-step
+    counted on the plain step, and the state's bytes once), the plain
+    loop's ms, and ``err``, the largest state error against it."""
+    name = cuda_kernel.variant("rk4_fwd", fenv.spin is not None,
+                               fenv.disk is not None
+                               or fenv.spheres is not None)
+    scal = cuda_kernel._scalars(fenv, icfg, s0.x.device)
+    kw = event_kw(fenv, s0)
+    call = no_grad(lambda: cuda_kernel.rk4_fwd(
+        scal, s0.x, s0.p, s0.E, s0.lam, s0.status, icfg.n_steps,
+        float(icfg.dt_power), **kw))
+    ops, nbytes, (steps, _, _), _ = rk4_bound(fenv, icfg, s0)
+    r = dict(ms=timed(call), device_ms=device_ms(call),
+             plain_ms=once_ms(no_grad(lambda: cuda_kernel.integrate_plain(
+                 fenv, s0, icfg))),
+             max_abs_err=err, rays=s0.E.numel(), ray_steps=steps,
+             **bound(ops["fwd"], nbytes["fwd"]))
+    readings[name][tag] = r
+    log(f"# {tag}: {name} on {r['rays']} rays ({steps} ray-steps): call "
+        f"{r['ms']:.3f} ms, device {r['device_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+        f"{r['plain_ms']:.3f} ms [{name_limit}]")
+    return r
+
+
+def wrapped(a, b):
+    """a - b wrapped into [-pi, pi)."""
+    return torch.remainder(a - b + np.pi, 2 * np.pi) - np.pi
+
+
+def compare_maps(m, mp, hold, what, tol):
+    """Polarization map ``m`` against ``mp``: the NaN patterns equal but
+    for at most MAX_EDGE rays at the escape edge, and the wrapped angle
+    difference within ``tol`` on the rays of ``hold`` finite in both.
+    Returns (the largest difference held, the largest elsewhere)."""
+    nan_flip = int((torch.isnan(m) != torch.isnan(mp)).sum())
+    both = ~torch.isnan(m) & ~torch.isnan(mp)
+    d = wrapped(m, mp).abs()
+    held = masked_max(d, both & hold)
+    other = masked_max(d, both & ~hold)
+    log(f"# map [{what}] {int(both.sum())} angles in both, {nan_flip} NaN "
+        f"flips (at most {MAX_EDGE}); wrapped |d| {held:.3e} on "
+        f"{int((both & hold).sum())} rays held (limit {tol:g}), "
+        f"{other:.3e} on the {int((both & ~hold).sum())} others")
+    if not (nan_flip <= MAX_EDGE and held <= tol):
+        raise AssertionError(f"{what}: map outside its limits")
+    return held, other
+
+
+def kerr_pol_frame(dev, size=None):
+    """bench.py bench_stokes's Kerr polarization row (:825-838): the sky
+    around a hole of a = 0.45, the events camera (0, 0, 25) tilted by 0.25
+    rad, fov 0.8, the flagship schedule, lam_max 200, at ``size``^2
+    (POL_KERR)."""
+    size = size or POL_KERR
+    scene = P.Scene(bh=P.BlackHole.make(mass=0.5, spin=0.45, device=dev),
+                    background=torch.as_tensor(make_sky(),
+                                               dtype=torch.float32,
+                                               device=dev))
+    cfg = dataclasses.replace(flagship_cfg(), width=size, height=size,
+                              lam_max=200.0)
+    return scene, events_cam(dev), cfg
+
+
+def on_cpu(obj):
+    """A scene or camera dataclass tree with its tensors on the CPU."""
+    if obj is None or isinstance(obj, torch.Tensor):
+        return None if obj is None else obj.cpu()
+    return dataclasses.replace(obj, **{
+        f.name: on_cpu(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)})
+
+
+def phase_polarization_kerr(dev, name_limit, readings):
+    """The metrics and the Kerr polarization map: ks_directional_christoffel
+    against the Metric.christoffel contraction at FAN points (a = 0.45, 0,
+    -0.3); bench_stokes's POL_KERR^2 Kerr map through the transport ODE,
+    no kernel launched, its invariants on the finished rays, and a seeded
+    POL_SUBSET of its rays against the same function on the CPU; times."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    x4 = f(np.c_[np.zeros(FAN), rng.uniform(-10, 10, (FAN, 3))])
+    k4, v4 = f(rng.normal(size=(FAN, 4))), f(rng.normal(size=(FAN, 4)))
+    worst = 0.0
+    for a in (0.45, 0.0, -0.3):
+        gam = kerr_ks_metric(0.5, a).christoffel(x4)
+        con = ks_directional_christoffel(0.5, a)
+        for v in (k4, v4):
+            want = torch.sum(gam * k4[:, None, :, None]
+                             * v[:, None, None, :], dim=(-2, -1))
+            err = ((con(x4, k4, v) - want).abs().amax(-1)
+                   / want.abs().amax(-1).clamp_min(1e-3))
+            worst = max(worst, float(err.max()))
+    del gam
+    log(f"# phase 31: ks_directional_christoffel against the AD Christoffel "
+        f"contraction at {FAN} points, a = 0.45, 0, -0.3: {worst:.3e} of "
+        f"each point's largest entry (limit {TOL_CHRISTOFFEL:g})")
+    check(worst <= TOL_CHRISTOFFEL,
+          "ks_directional_christoffel differs from the AD contraction")
+
+    scene, cam, cfg = kerr_pol_frame(dev)
+    reset_counts()
+    with torch.no_grad():
+        m = P.polarization_map(scene, cam, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == {}, f"the Kerr polarization map launched {launches}")
+    if m.shape != (POL_KERR, POL_KERR):
+        raise AssertionError(f"Kerr map of shape {tuple(m.shape)}")
+    # the transport ODE as polarization_rays runs it, for its invariants
+    ys, xs = pixel_grid(POL_KERR, POL_KERR, device=dev)
+    o, d = generate_rays(cam, POL_KERR, POL_KERR, ys, xs)
+    x3, d3 = (o - scene.bh.loc).reshape(-1, 3), d.reshape(-1, 3)
+    n = plane_normal(x3, d3)
+    it = cfg.integrator
+    with torch.no_grad():
+        f_obs, d1, x1, diag = transport_polarization_ode(
+            kerr_ks_metric(scene.bh.mass, scene.bh.spin), x3, d3,
+            _unit(_cross(d3, n)), n_steps=it.n_steps, dt=it.dt,
+            r_stop=70.0, dt_boost=it.dt_boost, r_ref=it.dt_boost_r_ref)
+    # the finished rays are those that escaped, the map's angles; they are
+    # held away from b_c, where the schedule's long steps meet the photon
+    # orbits (those rays' drift, and that of the rays stopped at the
+    # capture radius by the horizon, are readings)
+    done = x1.norm(dim=-1) >= 0.99 * 70.0
+    kenv, ks0 = flagship_rays(scene, cam, cfg, dev, size=POL_KERR)
+    near = near_b_c(kenv, ks0).reshape(-1)
+    fk = masked_max(diag["fk_drift"], done & ~near)
+    nd = masked_max(diag["norm_drift"], done & ~near)
+    fk_near = masked_max(diag["fk_drift"], done & near)
+    fk_in = masked_max(diag["fk_drift"], ~done)
+    ang = torch.atan2(torch.sum(f_obs * n, -1),
+                      torch.sum(f_obs * _unit(_cross(d1, n)), -1))
+    ang = torch.where(done, ang, torch.nan)
+    flat_m = m.reshape(-1)
+    same = torch.equal(torch.isnan(ang), torch.isnan(flat_m)) and (
+        masked_max((ang - flat_m).abs(), ~torch.isnan(ang)) == 0.0)
+    log(f"# phase 31: Kerr map {POL_KERR}x{POL_KERR}: no kernel launched; "
+        f"{int(done.sum())} of {done.numel()} rays escaped, "
+        f"{int(diag['unfinished'].sum())} unfinished; on the "
+        f"{int((done & ~near).sum())} escaped away from b_c |f.k| <= "
+        f"{fk:.3e} (limit {FK_DRIFT:g}), |g(f,f) - g0| <= {nd:.3e} (limit "
+        f"{NORM_DRIFT:g}); |f.k| <= {fk_near:.3e} on the "
+        f"{int((done & near).sum())} escaped near b_c, {fk_in:.3e} on the "
+        "others; the ODE run alone gives the map "
+        + ("bit for bit" if same else "DIFFERENTLY"))
+    check(fk <= FK_DRIFT and nd <= NORM_DRIFT,
+          "the Kerr transport broke its invariants")
+    check(same, "polarization_map differs from its transport ODE")
+
+    # a seeded subset of the rays through the same function on the CPU
+    pick = torch.as_tensor(rng.choice(POL_KERR * POL_KERR, POL_SUBSET,
+                                      replace=False))
+    sub_y, sub_x = pick // POL_KERR, pick % POL_KERR
+    m_cpu, cpu_ms = once(no_grad(lambda: P.polarization_rays(
+        on_cpu(scene), on_cpu(cam), cfg, sub_y, sub_x)))
+    held, other = compare_maps(m.cpu()[sub_y, sub_x], m_cpu,
+                               ~near.cpu()[pick],
+                               f"Kerr map, {POL_SUBSET} rays card vs CPU",
+                               TOL_POL)
+    map_ms = timed(no_grad(lambda: P.polarization_map(scene, cam, cfg)),
+                   runs=3)
+    readings["polarization"] = dict(
+        kerr_map_ms=map_ms, kerr_subset_cpu_ms=cpu_ms, kerr_err=held,
+        kerr_err_near_b_c=other, christoffel_err=worst, fk_drift=fk,
+        norm_drift=nd, fk_drift_near_b_c=fk_near)
+    log(f"# phase 31: Kerr map {POL_KERR}x{POL_KERR} (the transport ODE, "
+        f"{it.n_steps} RK4 steps of PyTorch operations): median {map_ms:.3f}"
+        f" ms; {POL_SUBSET} of its rays on the CPU {cpu_ms:.3f} ms "
+        f"[{name_limit}]")
+    log(f"# phase 31: done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def stokes_scene(dev):
+    """bench.py bench_stokes's scene (:772-786): the flagship sky and the
+    events scene's disk (r 2-6, its 64x256 texture) with pol_frac 0.7."""
+    ev = events_scene(dev)
+    return P.Scene(bh=ev.bh, background=ev.background,
+                   disk=dataclasses.replace(ev.disk, pol_frac=torch.tensor(
+                       0.7, device=dev)))
+
+
+def phase_stokes(dev, name_limit, readings):
+    """bench_stokes's SIZE^2 frame through render_stokes: rk4_fwd's event
+    variant once and nothing else, rgb against the plain render, each
+    ray's final state as phase 11 holds them, Q and U on the rays whose
+    status agrees within TOL_STOKES; the flagship sky's SIZE^2
+    Schwarzschild polarization map through rk4_fwd against the plain map;
+    times."""
+    t_phase = time.perf_counter()
+    scene, cam = stokes_scene(dev), events_cam(dev)
+    cfg, plain = flagship_cfg(), flagship_cfg("torch")
+    reset_counts()
+    with torch.no_grad():
+        rgb, Q, U = P.render_stokes(scene, cam, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "Stokes frame", launches)
+    check(launches == only(rk4_fwd_events=1),
+          f"the Stokes frame launched {launches}, expected rk4_fwd_events "
+          "once")
+    if rgb.shape != (SIZE, SIZE, 3) or Q.shape != (SIZE, SIZE) or not (
+            bool(torch.isfinite(rgb).all() & torch.isfinite(Q).all()
+                 & torch.isfinite(U).all())):
+        raise AssertionError("the Stokes frame is not finite of its shape")
+    (rgb_p, Q_p, U_p), plain_ms = once(no_grad(
+        lambda: P.render_stokes(scene, cam, plain)))
+    image_rule(rgb, rgb_p, f"{SIZE}x{SIZE} Stokes rgb, kernel vs plain",
+               FLAGSHIP_MEAN, FLAGSHIP_FRAC)
+    fenv, s0 = flagship_rays(scene, cam, cfg, dev)
+    icfg = cfg.integrator
+    with torch.no_grad():
+        s = cuda_kernel.integrate_cuda(fenv, s0, icfg)
+        sp = cuda_kernel.integrate_plain(fenv, s0, icfg)
+    near = near_b_c(fenv, s0) | ulp_sensitive(fenv, icfg, s0, sp)
+    e, _, n_edge = compare_events(fenv, icfg, flat_state(s0), flat_state(s),
+                                  flat_state(sp), f"{SIZE}x{SIZE} Stokes",
+                                  near.reshape(-1))
+    same = s.status == sp.status
+    dq = torch.maximum((Q - Q_p).abs(), (U - U_p).abs())
+    dq_max = masked_max(dq, same)
+    pol = int((torch.hypot(Q_p, U_p) > 1e-4).sum())
+    log(f"# phase 32: Stokes Q/U on the {int(same.sum())} rays whose status "
+        f"agrees: max |d| {dq_max:.3e} (limit {TOL_STOKES:g}); {pol} "
+        f"polarized pixels; {n_edge} edge rays left out")
+    check(dq_max <= TOL_STOKES and pol > SIZE,
+          "the Stokes Q/U differ from the plain render's")
+    k1_frame("stokes", fenv, icfg, flat_state(s0), e, readings, name_limit)
+    stokes_ms = timed(no_grad(lambda: P.render_stokes(scene, cam, cfg)),
+                      runs=5)
+
+    # the Schwarzschild polarization map of the flagship frame
+    sky = P.Scene(bh=scene.bh, background=scene.background)
+    fcam = P.Camera.make(position=(0.0, 0.0, 25.0), fov=(0.8, 0.8),
+                         device=dev)
+    reset_counts()
+    with torch.no_grad():
+        m = P.polarization_map(sky, fcam, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "polarization map", launches)
+    check(launches == only(rk4_fwd=1),
+          f"the Schwarzschild map launched {launches}, expected rk4_fwd once")
+    mp, map_plain_ms = once(no_grad(lambda: P.polarization_map(sky, fcam,
+                                                              plain)))
+    menv, ms0 = flagship_rays(sky, fcam, cfg, dev)
+    held, other = compare_maps(m, mp, ~near_b_c(menv, ms0),
+                               f"{SIZE}x{SIZE} Schwarzschild map, kernel vs "
+                               "plain", TOL_DIR)
+    map_ms = timed(no_grad(lambda: P.polarization_map(sky, fcam, cfg)),
+                   runs=5)
+    readings.setdefault("polarization", {}).update(
+        stokes_ms=stokes_ms, stokes_plain_ms=plain_ms, stokes_err=dq_max,
+        schw_map_ms=map_ms, schw_map_plain_ms=map_plain_ms,
+        schw_map_err=held, schw_map_err_near_b_c=other)
+    log(f"# phase 32: render_stokes {SIZE}x{SIZE}: median {stokes_ms:.3f} ms"
+        f" (plain {plain_ms:.3f}); Schwarzschild polarization_map "
+        f"{SIZE}x{SIZE}: median {map_ms:.3f} ms (plain {map_plain_ms:.3f}) "
+        f"[{name_limit}]")
+    log(f"# phase 32: done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def bright_sky():
+    """bench.py _surrogate_image_compare's sky (:940-947): bright, so the
+    shadow's mask sees no dark sky texel."""
+    v, u = np.meshgrid(np.arange(128), np.arange(256), indexing="ij")
+    return np.stack([
+        0.65 + 0.35 * np.sin(2 * np.pi * u / 256) * np.sin(np.pi * v / 128),
+        0.5 + 0.3 * np.cos(6 * np.pi * u / 256),
+        0.6 + 0.4 * ((u // 16 + v // 16) % 2)], -1).astype(np.float32)
+
+
+def hybrid_kerr_frame(dev, spin=0.45):
+    """bench.py _surrogate_image_compare's Gen-1 frame (:925-948): a hole
+    of a = ``spin`` before the bright sky, camera (0, 0, 30), fov 0.35,
+    HYBRID^2, 512 RK4 steps of dt 0.05 grown up to 4x, lam_max 200, the
+    influence sphere at 20 without debug colours."""
+    scene = P.Scene(bh=P.BlackHole.make(mass=0.5, spin=spin, device=dev),
+                    background=torch.as_tensor(bright_sky(), device=dev))
+    cam = P.Camera.make(position=(0.0, 0.0, 30.0), fov=(0.35, 0.35),
+                        device=dev)
+    cfg = P.RenderConfig(width=HYBRID, height=HYBRID, lam_max=200.0,
+                         integrator=P.IntegratorConfig(n_steps=512, dt=0.05,
+                                                       dt_boost=4.0))
+    return scene, cam, cfg, P.LimitedConfig(approx=False,
+                                            debug_colors=False)
+
+
+def hybrid_events_frame(dev):
+    """A Schwarzschild Gen-1 frame with a disk, moons and debug colours:
+    the events scene's sky and disk, an emissive moon behind the hole at
+    (0, 0, -20) and a red Lambertian moon at (-10, 4, -8), both outside the
+    influence sphere of radius 10, lit by a lamp at (30, 0, 40); the
+    camera of tests/test_limited.py's disk frame, (0, 12, 38) tilted by
+    -0.3 rad, fov 0.6; the reference's 400 steps of 0.1, and an affine
+    budget of 24, a little over the influence sphere's diameter, so the
+    rays that circle the photon orbits end on it: RED debug pixels."""
+    ev = events_scene(dev)
+    moons = P.Spheres.make(
+        center=[[0.0, 0.0, -20.0], [-10.0, 4.0, -8.0]], radius=[1.5, 2.0],
+        texture=np.tile(np.float32([0.2, 1.0, 0.2]), (2, 8, 8, 1)),
+        emission=[1.0, 0.0], albedo=[[1.0, 1.0, 1.0], [1.0, 0.1, 0.1]],
+        device=dev)
+    scene = P.Scene(bh=ev.bh, background=ev.background, disk=ev.disk,
+                    spheres=moons,
+                    lights=P.Lights.make([[30.0, 0.0, 40.0]], device=dev))
+    cam = P.Camera.make(position=(0.0, 12.0, 38.0), euler=(-0.3, 0.0, 0.0),
+                        fov=(0.6, 0.6), device=dev)
+    cfg = P.RenderConfig(width=HYBRID, height=HYBRID, lam_max=24.0,
+                         integrator=P.IntegratorConfig(n_steps=400, dt=0.1))
+    return scene, cam, cfg, P.LimitedConfig(r_influence=10.0)
+
+
+def hybrid_state(scene, cam, cfg, lcfg, dev):
+    """The environment and flat initial state render_limited integrates
+    for ``scene`` from ``cam`` (render/limited.py geodesic_state)."""
+    ys, xs = pixel_grid(cfg.width, cfg.height, device=dev)
+    o, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
+    t1, _, enters = limited._flat_cast(scene, lcfg, o, d)
+    x1 = o + d * torch.where(torch.isfinite(t1), t1, 0.0)[..., None]
+    env, s0 = limited.geodesic_state(scene, cfg, lcfg,
+                                     (x1 - scene.bh.loc) * (1.0 - 1e-4), d,
+                                     enters)
+    return env, flat_state(s0)
+
+
+def preset_kept(env, cfg, s0, what):
+    """rk4_fwd on ``s0``: its pre-set (not ACTIVE) rays must come back
+    equal to their input bit for bit.  Returns (the kernel state, the
+    pre-set ESCAPED and INSIDE_HORIZON counts)."""
+    with torch.no_grad():
+        sk = cuda_kernel.integrate_cuda(env, s0, cfg)
+    pre = s0.status != states.ACTIVE
+    same = all(torch.equal(getattr(sk, k)[pre], getattr(s0, k)[pre])
+               for k in ("x", "p", "E", "lam", "status", "hit_obj"))
+    n_esc = int((s0.status == states.ESCAPED).sum())
+    n_in = int((s0.status == states.INSIDE_HORIZON).sum())
+    log(f"# phase 33: {what}: {n_esc} pre-set ESCAPED and {n_in} "
+        f"INSIDE_HORIZON rays come back from rk4_fwd "
+        + ("equal bit for bit" if same else "CHANGED"))
+    check(same, f"{what}: rk4_fwd changed pre-set rays")
+    return sk, n_esc, n_in
+
+
+def compare_hybrid(env, cfg, s0, a, b, what, near):
+    """A hybrid frame's rays, kernel state ``a`` against plain state ``b``:
+    a ray whose status or hit id differs must be in ``near`` or touch an
+    event's edge, at most MAX_EDGE of them; the other rays away from
+    ``near`` are held to the state tolerances (compare_states).  The rays
+    in ``near`` are held by their status alone: the frames' step budgets
+    leave rays circling the photon orbits ACTIVE at the end, on paths two
+    correct float32 loops part on (their largest |d lam| is a reading).
+    Returns (error, status flips)."""
+    flip = (a.status != b.status) | (a.hit_obj != b.hit_obj)
+    n = int(flip.sum())
+    if n > MAX_EDGE:
+        raise AssertionError(f"{what}: {n} statuses or hit ids differ")
+    far = flip & ~near
+    if bool(far.any()) and not float(event_margin(
+            env, cfg, rays(s0, far)).max()) <= EVENT_EPS:
+        raise AssertionError(f"{what}: a ray away from b_c and from any "
+                             "event's edge changed its status")
+    keep = ~flip & ~near
+    err, _ = compare_states(env, cfg, rays(a, keep), rays(b, keep),
+                            f"{what}, away from b_c")
+    band = ~flip & near
+    log(f"# parity [{what}, near b_c] n={int(band.sum())} statuses equal, "
+        f"{n} flips left out; max|dlam|="
+        f"{masked_max((a.lam - b.lam).abs(), band):.3e} (a reading)")
+    return err, n
+
+
+DEBUG_COLORS = {"RED": (1.0, 0.0, 0.0), "BLUE": (0.0, 0.0, 1.0),
+                "GREEN": (0.0, 1.0, 0.0)}
+
+
+def hybrid_pixels(img, ref, what):
+    """Image mean |d| against the plain render, the shadow (max channel <
+    1e-3) pixel counts within SHADOW_PX, and the pixels of each debug
+    colour equal but for MAX_EDGE.  Returns the debug colours' counts."""
+    image_rule(img, ref, what, HYBRID_MEAN, HYBRID_FRAC)
+    black = int((img[..., :3].amax(-1) < 1e-3).sum())
+    black_p = int((ref[..., :3].amax(-1) < 1e-3).sum())
+    counts, flips = {}, 0
+    for name, c in DEBUG_COLORS.items():
+        c = img.new_tensor(c)
+        mk, mp = ((x[..., :3] == c).all(-1) for x in (img, ref))
+        counts[name] = int(mp.sum())
+        flips += int((mk != mp).sum())
+    log(f"# phase 33: {what}: shadow {black} vs {black_p} pixels (limit "
+        f"{SHADOW_PX}); debug colours {counts}, {flips} pixels differ "
+        f"(at most {MAX_EDGE})")
+    check(abs(black - black_p) <= SHADOW_PX and flips <= MAX_EDGE,
+          f"{what}: shadow or debug colours differ from the plain render's")
+    return counts
+
+
+def phase_hybrid(dev, name_limit, readings):
+    """The Gen-1 hybrid (render_limited) at HYBRID^2: bench.py's Kerr frame
+    through rk4_fwd_kerr and a Schwarzschild frame with a disk, a lit moon
+    and debug colours through rk4_fwd_events, each against the plain
+    render and its rays against the plain loop; the pre-set ESCAPED and
+    INSIDE_HORIZON rays through rk4_fwd bit for bit; SurrogateTable.build
+    through rk4_fwd against the plain build on the CPU, and the approx
+    frame from its table; times."""
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, frame, kernel in (
+            ("hybrid Kerr frame", hybrid_kerr_frame, "rk4_fwd_kerr"),
+            ("hybrid frame", hybrid_events_frame, "rk4_fwd_events")):
+        scene, cam, cfg, lcfg = frame(dev)
+        plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
+            cfg.integrator, backend="torch"))
+        reset_counts()
+        with torch.no_grad():
+            img = P.render_limited(scene, cam, cfg, lcfg)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        count_path(readings, tag, launches)
+        check(launches == only(**{kernel: 1}),
+              f"{tag} launched {launches}, expected {kernel} once")
+        if img.shape != (HYBRID, HYBRID, 4) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"{tag} is not a finite image")
+        ref, plain_ms = once(no_grad(lambda: P.render_limited(
+            scene, cam, plain, lcfg)))
+        colours = hybrid_pixels(img, ref, f"{tag} {HYBRID}x{HYBRID}, kernel "
+                                "vs plain")
+        env, s0 = hybrid_state(scene, cam, cfg, lcfg, dev)
+        sk, n_esc, _ = preset_kept(env, cfg.integrator, s0, tag)
+        with torch.no_grad():
+            sp = cuda_kernel.integrate_plain(env, s0, cfg.integrator)
+        near = (near_b_c(env, s0)
+                | ulp_sensitive(env, cfg.integrator, s0, sp))
+        err, n_flip = compare_hybrid(env, cfg.integrator, s0, sk, sp,
+                                     f"{tag}, rays", near)
+        # an influence sphere inside the capture radius: every entering ray
+        # starts INSIDE_HORIZON, every other ESCAPED
+        tenv, ts0 = hybrid_state(scene, cam, cfg, dataclasses.replace(
+            lcfg, r_influence=0.5), dev)
+        _, _, n_in = preset_kept(tenv, cfg.integrator, ts0,
+                                 f"{tag}, influence sphere 0.5")
+        check(n_in > 0, f"{tag}: no ray started INSIDE_HORIZON")
+        k1_frame(tag, env, cfg.integrator, s0, err, readings, name_limit)
+        ms = timed(no_grad(lambda: P.render_limited(scene, cam, cfg, lcfg)),
+                   runs=5)
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, preset_escaped=n_esc,
+                        status_flips=n_flip, **colours)
+        log(f"# phase 33: {tag} {HYBRID}x{HYBRID}: median {ms:.3f} ms "
+            f"(plain {plain_ms:.3f}) [{name_limit}]")
+
+    # the approx path: SurrogateTable.build through rk4_fwd, then a frame
+    lcfg = P.LimitedConfig(approx=True, debug_colors=False)
+    reset_counts()
+    table, build_ms = once(no_grad(lambda: P.SurrogateTable.build(
+        mass=0.5, r_influence=lcfg.r_influence,
+        exit_tolerance=lcfg.exit_tolerance, device=dev)))
+    launches = read_counts()
+    count_path(readings, "surrogate table", launches)
+    check(launches == only(rk4_fwd=1),
+          f"SurrogateTable.build launched {launches}, expected rk4_fwd once")
+    tp, build_plain_ms = once(no_grad(lambda: P.SurrogateTable.build(
+        mass=0.5, r_influence=lcfg.r_influence,
+        exit_tolerance=lcfg.exit_tolerance, device="cpu")))
+    cap_equal = torch.equal(table.captured.cpu(), tp.captured)
+    calm = ~tp.captured & ((tp.b - 1.5 * np.sqrt(3.0)).abs() > TABLE_BAND)
+    chord = (table.end_dir.cpu() - tp.end_dir).norm(dim=-1).double()
+    dang = 2.0 * torch.asin((0.5 * chord).clamp(max=1.0))
+    dloc = (table.end_loc.cpu() - tp.end_loc).abs().amax(-1)
+    d_calm = masked_max(dang, calm)
+    d_band = masked_max(dang, ~tp.captured & ~calm)
+    log(f"# phase 33: SurrogateTable.build (512 rays, 4000 steps) through "
+        f"rk4_fwd against the plain build on the CPU: captured "
+        + ("equal" if cap_equal else "DIFFERS")
+        + f"; exit directions within {d_calm:.3e} rad on the "
+        f"{int(calm.sum())} escaping rays {TABLE_BAND:g} or more from b_c "
+        f"(limit {TOL_DIR:g}; {d_band:.3e} nearer), exit points within "
+        f"{masked_max(dloc, calm):.3e}")
+    check(cap_equal and d_calm <= TOL_DIR,
+          "SurrogateTable.build differs from the plain build")
+    R = lcfg.r_influence
+    tenv = GeodesicEnv(mass=torch.tensor(0.5, device=dev),
+                       r_capture=torch.tensor(1.0, device=dev),
+                       r_escape=torch.tensor(R * 1.1, device=dev),
+                       lam_max=torch.tensor(200.0, device=dev))
+    bs = torch.linspace(0.0, R * 0.999, 512, device=dev)
+    x0 = torch.stack([-torch.sqrt((R * R - bs * bs).clamp_min(0.0)), bs,
+                      torch.zeros_like(bs)], -1) * (1.0 - 1e-4)
+    ts0 = states.init_state(x0, *null_init(x0, torch.tensor(
+        [1.0, 0.0, 0.0], device=dev).expand(512, 3), tenv.mass))
+    k1_frame("surrogate table", tenv, P.IntegratorConfig(
+        n_steps=4000, dt=0.05, dt_boost=1.0), ts0, d_calm, readings,
+        name_limit)
+
+    scene, cam, cfg, _ = hybrid_kerr_frame(dev, spin=None)
+    with torch.no_grad():
+        exact = P.render_limited(scene, cam, cfg, dataclasses.replace(
+            lcfg, approx=False))
+        reset_counts()
+        approx = P.render_limited(scene, cam, cfg, lcfg, table=table)
+        launches = read_counts()
+    sh_e = exact[..., :3].amax(-1) < 1e-3
+    sh_a = approx[..., :3].amax(-1) < 1e-3
+    sh_off = float((sh_e != sh_a).float().mean())
+    med = float((exact[..., :3] - approx[..., :3]).abs().median())
+    log(f"# phase 33: approx frame {HYBRID}x{HYBRID} from that table "
+        f"(launches {launches}): shadow pixels differ from the exact "
+        f"frame's on {sh_off:.4f} (limit 0.02), median |d| {med:.3e} "
+        "(limit 0.02)")
+    check(launches == {} and bool(torch.isfinite(approx).all())
+          and sh_off < 0.02 and med < 0.02,
+          "the approx frame differs from the exact frame")
+    approx_ms = timed(no_grad(lambda: P.render_limited(
+        scene, cam, cfg, lcfg, table=table)), runs=5)
+    out["surrogate table"] = dict(build_ms=build_ms,
+                                  build_plain_cpu_ms=build_plain_ms,
+                                  approx_frame_ms=approx_ms)
+    readings["hybrid"] = out
+    log(f"# phase 33: SurrogateTable.build {build_ms:.3f} ms (plain on the "
+        f"CPU {build_plain_ms:.3f}); approx frame {HYBRID}x{HYBRID} median "
+        f"{approx_ms:.3f} ms [{name_limit}]")
+    log(f"# phase 33: done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # --- phase 0: the card -----------------------------------------------
     if not torch.cuda.is_available():
@@ -4848,6 +5445,12 @@ def main() -> int:
           readings)
     phase("phase 30 (timelike fan)", phase_timelike, dev, name_limit,
           readings)
+    phase("phase 31 (metrics, Kerr polarization map)",
+          phase_polarization_kerr, dev, name_limit, readings)
+    phase("phase 32 (Stokes frame, Schwarzschild polarization map)",
+          phase_stokes, dev, name_limit, readings)
+    phase("phase 33 (Gen-1 hybrid)", phase_hybrid, dev, name_limit,
+          readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
@@ -4890,6 +5493,19 @@ def main() -> int:
         f"{v['step_plain_ms']:.3f} ms), device busy "
         f"{100 * v['device_busy']:.1f}%; K2 checkpoints "
         f"{v['ckpt_bytes'] / 2**20:.1f} MiB per step [{name_limit}]")
+    v = readings.pop("polarization")
+    log(f"# polarization: Kerr map {POL_KERR}x{POL_KERR} (transport ODE) "
+        f"{v['kerr_map_ms']:.3f} ms; Stokes frame {SIZE}x{SIZE} "
+        f"{v['stokes_ms']:.3f} ms (plain {v['stokes_plain_ms']:.3f} ms); "
+        f"Schwarzschild map {SIZE}x{SIZE} {v['schw_map_ms']:.3f} ms (plain "
+        f"{v['schw_map_plain_ms']:.3f} ms) [{name_limit}]")
+    v = readings.pop("hybrid")
+    t = v.pop("surrogate table")
+    log(f"# Gen-1 hybrid {HYBRID}x{HYBRID}: "
+        + ", ".join(f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms)"
+                    for k, r in v.items())
+        + f"; SurrogateTable.build {t['build_ms']:.3f} ms, approx frame "
+        f"{t['approx_frame_ms']:.3f} ms [{name_limit}]")
     # a variant's launches: its earlier main path's and this slice's
     for name in KERNELS:
         r = readings[name]

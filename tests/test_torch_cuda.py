@@ -2,7 +2,9 @@
 rk4_fwd, rk4_ckpt and rk4_bwd, and the adaptive Dormand-Prince dopri_fwd,
 dopri_ckpt and dopri_bwd, event-free and with disk and sphere events,
 Schwarzschild and Kerr, photons and massive particles, and renders --
-multisampled and progressive too -- and their gradients through them.
+multisampled and progressive too -- and their gradients through them;
+the Stokes frame, the Schwarzschild polarization map, the Gen-1 hybrid
+(its pre-set rays through rk4_fwd bit for bit) and its surrogate table.
 
 Needs a CUDA device and nvcc, and skips without them (decided in a fixture
 when each test runs, never at import).  This file imports
@@ -1172,3 +1174,128 @@ def test_progressive_bands_equal_the_frame():
         img3 = P.render_image(scene, cam, cfg3)
         last = list(P.render_progressive(scene, cam, cfg3))[-1][1]
         assert float((last - img3).abs().max()) <= 1e-5
+
+
+def hybrid_scene(spin=None):
+    """A Gen-1 scene: the small events scene (a disk and four moons at
+    radius 7) with a lamp lighting non-emissive moons."""
+    scene = anim_scene()
+    spheres = dataclasses.replace(
+        scene.spheres, emission=torch.tensor([0.0, 1.0, 0.0, 1.0],
+                                             device=DEV))
+    return dataclasses.replace(
+        scene, bh=P.BlackHole.make(mass=0.5, spin=spin, device=DEV),
+        spheres=spheres,
+        lights=P.Lights.make([[30.0, 0.0, 40.0]], device=DEV))
+
+
+@pytest.mark.parametrize("spin", [None, 0.45])
+def test_hybrid_preset_statuses_come_back_unchanged(spin):
+    """The Gen-1 hybrid's initial state: rays that miss the influence
+    sphere start ESCAPED and, with the sphere inside the capture radius,
+    the entering rays INSIDE_HORIZON; rk4_fwd returns both equal to their
+    input bit for bit and the entering rays as the plain loop does."""
+    from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
+        generate_rays, pixel_grid)
+    from blackhole_geodesic_calculator_tpu_torch.render import limited
+
+    scene = hybrid_scene(spin)
+    cam = P.Camera.make((0.0, 12.0, 38.0), euler=(-0.3, 0.0, 0.0),
+                        fov=(1.2, 1.2), device=DEV)
+    cfg = P.RenderConfig(width=96, height=96, lam_max=200.0,
+                         integrator=P.IntegratorConfig(n_steps=400, dt=0.1))
+    ys, xs = pixel_grid(96, 96, device=DEV)
+    o, d = generate_rays(cam, 96, 96, ys, xs)
+    for r_influence, preset_status in ((10.0, states.ESCAPED),
+                                       (0.5, states.INSIDE_HORIZON)):
+        lcfg = P.LimitedConfig(r_influence=r_influence)
+        t1, _, enters = limited._flat_cast(scene, lcfg, o, d)
+        x1 = o + d * torch.where(torch.isfinite(t1), t1, 0.0)[..., None]
+        env, s0 = limited.geodesic_state(scene, cfg, lcfg,
+                                         (x1 - scene.bh.loc) * (1 - 1e-4), d,
+                                         enters)
+        preset = s0.status != states.ACTIVE
+        assert bool((s0.status == preset_status).any())
+        before = counts()
+        sk = tint.integrate(env, s0, cfg.integrator)
+        assert launched(before) == {cuda_kernel.variant(
+            "rk4_fwd", spin is not None, True): 1}
+        for name in ("x", "p", "lam", "status", "hit_obj"):
+            assert torch.equal(getattr(sk, name)[preset],
+                               getattr(s0, name)[preset]), name
+        sp = tint.integrate(env, s0, dataclasses.replace(cfg.integrator,
+                                                         backend="torch"))
+        assert int((sk.status != sp.status).sum()) <= 8
+
+
+def test_stokes_and_polarization_map_match_plain():
+    """render_stokes at 128^2 (the disk with pol_frac 0.7) launches
+    rk4_fwd's event variant once and agrees with the plain render; the
+    Schwarzschild polarization map launches rk4_fwd once and agrees with
+    the plain map (NaN patterns and angles, but a few escape-edge rays)."""
+    scene = anim_scene()
+    scene = dataclasses.replace(scene, spheres=None, disk=dataclasses.replace(
+        scene.disk, pol_frac=torch.tensor(0.7, device=DEV)))
+    cam = P.Camera.make((0.0, 0.0, 25.0), euler=(0.25, 0.0, 0.0),
+                        fov=(0.8, 0.8), device=DEV)
+    cfg = P.RenderConfig(width=128, height=128, lam_max=100.0,
+                         integrator=P.IntegratorConfig(**FLAGSHIP))
+    plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch"))
+    before = counts()
+    rgb, Q, U = P.render_stokes(scene, cam, cfg)
+    assert launched(before) == {"rk4_fwd_events": 1}
+    rgb_p, Q_p, U_p = P.render_stokes(scene, cam, plain)
+    assert float((rgb - rgb_p).abs().mean()) < 1e-4
+    assert float((torch.hypot(Q_p, U_p) > 1e-4).sum()) > 500
+    dq = torch.maximum((Q - Q_p).abs(), (U - U_p).abs())
+    assert int((dq > 1e-3).sum()) <= 8
+
+    sky = dataclasses.replace(scene, disk=None)
+    before = counts()
+    m = P.polarization_map(sky, cam, cfg)
+    assert launched(before) == {"rk4_fwd": 1}
+    mp = P.polarization_map(sky, cam, plain)
+    assert int((torch.isnan(m) != torch.isnan(mp)).sum()) <= 8
+    both = ~torch.isnan(m) & ~torch.isnan(mp)
+    wrapped = torch.remainder(m - mp + np.pi, 2 * np.pi) - np.pi
+    assert int((wrapped[both].abs() > 1e-3).sum()) <= 8
+
+
+@pytest.mark.parametrize("spin", [None, 0.45])
+def test_hybrid_render_matches_plain(spin):
+    """render_limited at 128^2 with the disk, a lit moon and debug colours
+    launches rk4_fwd's event variant (Kerr's for a spin) once and agrees
+    with the plain render: image mean |d| < 1e-3, the shadow pixel count
+    within 4."""
+    scene = hybrid_scene(spin)
+    cam = P.Camera.make((0.0, 12.0, 38.0), euler=(-0.3, 0.0, 0.0),
+                        fov=(0.6, 0.6), device=DEV)
+    cfg = P.RenderConfig(width=128, height=128, lam_max=200.0,
+                         integrator=P.IntegratorConfig(n_steps=400, dt=0.1))
+    lcfg = P.LimitedConfig(r_influence=10.0)
+    plain = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, backend="torch"))
+    before = counts()
+    img = P.render_limited(scene, cam, cfg, lcfg)
+    assert launched(before) == {cuda_kernel.variant(
+        "rk4_fwd", spin is not None, True): 1}
+    ref = P.render_limited(scene, cam, plain, lcfg)
+    assert float((img - ref).abs().mean()) < 1e-3
+    black = (img[..., :3].amax(-1) < 1e-3).sum()
+    black_p = (ref[..., :3].amax(-1) < 1e-3).sum()
+    assert abs(int(black) - int(black_p)) <= 4
+
+
+def test_surrogate_table_build_matches_plain():
+    """SurrogateTable.build through rk4_fwd on the card against the plain
+    build on the CPU: captured equal, exit directions within 1e-4 rad away
+    from the critical impact parameter."""
+    before = counts()
+    tk = P.SurrogateTable.build(mass=0.5, r_influence=10.0, device=DEV)
+    assert launched(before) == {"rk4_fwd": 1}
+    tp = P.SurrogateTable.build(mass=0.5, r_influence=10.0, device="cpu")
+    assert torch.equal(tk.captured.cpu(), tp.captured)
+    calm = ~tp.captured & ((tp.b - 1.5 * 3 ** 0.5).abs() > 0.25)
+    chord = (tk.end_dir.cpu() - tp.end_dir).norm(dim=-1)[calm]
+    assert float(chord.max()) <= 1e-4
