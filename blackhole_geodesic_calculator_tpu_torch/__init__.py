@@ -16,11 +16,20 @@ and U of a polarized disk (``render_stokes``), maps the rotation of the
 polarization along each ray (``polarization_map``: the closed form for
 Schwarzschild, the parallel-transport ODE of the ``models`` metrics for
 Kerr), and renders with the Gen-1 hybrid (``render_limited``: curved
-space only inside a sphere of influence, or a ``SurrogateTable``).
+space only inside a sphere of influence, through a ``SurrogateTable`` or
+a ``NeuralSurrogate``, the MLP ``train_surrogate`` fits to the live
+integrator).  ``parallel`` splits renders over the ranks of a
+torch.distributed group and fits scene parameters to target images
+(``Trainer``), and ``io_`` checkpoints a training run.
 """
 
+# models before ops: the surrogate imports the integrator, whose modules
+# import models.kerr
+from .models.surrogate import (NeuralSurrogate, SurrogateConfig,
+                               train_surrogate)
 from .camera.pinhole import Camera
 from .ops.integrate import GeodesicEnv, IntegratorConfig, launch
+from .parallel import Trainer, render_image_sharded
 from .render.limited import LimitedConfig, SurrogateTable, render_limited
 from .render.renderer import (RenderConfig, polarization_map,
                               polarization_rays, render_image,
@@ -30,8 +39,9 @@ from .scene.scene import BlackHole, Disk, Lights, Scene, Spheres
 
 __all__ = [
     "BlackHole", "Camera", "Disk", "GeodesicEnv", "IntegratorConfig",
-    "LimitedConfig", "Lights", "RenderConfig", "Scene", "Spheres",
-    "SurrogateTable", "launch", "polarization_map", "polarization_rays",
-    "render_image", "render_image_u8", "render_limited",
-    "render_progressive", "render_stokes", "stokes_rays",
+    "LimitedConfig", "Lights", "NeuralSurrogate", "RenderConfig", "Scene",
+    "Spheres", "SurrogateConfig", "SurrogateTable", "Trainer", "launch",
+    "polarization_map", "polarization_rays", "render_image",
+    "render_image_sharded", "render_image_u8", "render_limited",
+    "render_progressive", "render_stokes", "stokes_rays", "train_surrogate",
 ]

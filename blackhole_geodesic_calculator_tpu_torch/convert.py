@@ -7,7 +7,8 @@ twin: every array leaf is copied into a float32 numpy array and then goes
 through ``torch.as_tensor(..., device=device)`` -- the card unless the
 caller passes ``device="cpu"`` -- and ``None`` stays ``None``.  A metric
 holds closures, so it is rebuilt by its name from its parameters; a
-surrogate table keeps its ``captured`` flags boolean.  numpy reads a JAX
+surrogate table keeps its ``captured`` flags boolean; a learned surrogate
+keeps its precision.  numpy reads a JAX
 array without importing JAX, so this module never imports it.
 """
 
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from .camera.pinhole import Camera
-from .models import (Metric, flat_metric, kerr_ks_metric,
+from .models import (Metric, NeuralSurrogate, flat_metric, kerr_ks_metric,
                      schwarzschild_cartesian_metric, schwarzschild_ks_metric)
 from .ops.integrate import IntegratorConfig
 from .render.limited import LimitedConfig, SurrogateTable
@@ -105,3 +106,16 @@ def surrogate_table_from_reference(obj, device=None) -> SurrogateTable:
         end_dir=_tree(obj.end_dir, device),
         captured=torch.as_tensor(np.array(obj.captured, dtype=bool),
                                  device=device))
+
+
+def surrogate_from_reference(obj, device=None) -> NeuralSurrogate:
+    """The learned surrogate on ``device`` (the card unless the caller
+    names another): its (W, b) pairs, mass, spin, influence and exit radii
+    (1.1 R where the reference's is None) float32, its precision kept."""
+    device = on_device(device)
+    return NeuralSurrogate(
+        [(_tree(w, device), _tree(b, device)) for w, b in obj.params],
+        mass=_tree(obj.mass, device), spin=_tree(obj.spin, device),
+        r_influence=_tree(obj.r_influence, device),
+        r_exit=None if obj.r_exit is None else _tree(obj.r_exit, device),
+        precision=obj.precision)

@@ -331,9 +331,13 @@ def integrate_fixed_fast(env: GeodesicEnv, s0: RayState,
 
 def _steps(env, cfg, n, x, p, E, lam, status, hit_obj):
     """``n`` steps from the given state, as a function of tensors (the unit
-    ``torch.utils.checkpoint`` recomputes)."""
+    ``torch.utils.checkpoint`` recomputes).  Once no ray is ACTIVE every
+    later step is the identity, values and gradients alike, and is not
+    run."""
     s = RayState(x=x, p=p, E=E, lam=lam, status=status, hit_obj=hit_obj)
     for _ in range(n):
+        if not bool(s.active.any()):
+            break
         s = _fixed_step(env, cfg, s)
     return s.x, s.p, s.E, s.lam, s.status, s.hit_obj
 
@@ -356,9 +360,10 @@ def _segmented(run, n_steps: int, seg: int, carry):
 def integrate_fixed(env: GeodesicEnv, s0: RayState,
                     cfg: IntegratorConfig) -> RayState:
     """RK4 step loop for autograd, checkpointed in segments of
-    ``cfg.remat_segment`` or sqrt(n_steps) steps (``_segmented``).  The
-    forward equals ``integrate_fixed_fast``: a frozen ray is an identity
-    under the step."""
+    ``cfg.remat_segment`` or sqrt(n_steps) steps (``_segmented``; a
+    segment longer than n_steps checkpoints nothing).  The forward equals
+    ``integrate_fixed_fast``: a frozen ray is an identity under the step,
+    and steps after the last ray froze are skipped (``_steps``)."""
     seg = cfg.remat_segment or max(1, int(cfg.n_steps ** 0.5))
     x, p, E, lam, st, obj = _segmented(
         functools.partial(_steps, env, cfg), cfg.n_steps, seg,

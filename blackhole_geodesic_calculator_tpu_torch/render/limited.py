@@ -6,8 +6,9 @@ A camera ray is cast in flat space against the scene's spheres and the
 influence sphere; a ray that enters the influence sphere is integrated
 from its entry point (``integrate``: the CUDA kernel rk4_fwd on the card,
 the plain loop on the CPU) with escape at the sphere's edge, or traced
-through a ``SurrogateTable``; its exit ray is cast in flat space again;
-then everything is shaded:
+through a surrogate (a ``SurrogateTable``, or for a spinning hole a
+learned ``models.surrogate.NeuralSurrogate``); its exit ray is cast in
+flat space again; then everything is shaded:
 
   * a disk crossing inside the sphere -> the disk's colour (no sky);
   * horizon capture -> black;
@@ -57,7 +58,7 @@ class LimitedConfig:
     exit_tolerance: float = 0.1    # escape at r_influence (1 + this)
     test_output: bool = False      # the direction-gradient background
     debug_colors: bool = True      # RED / BLUE / GREEN rogue rays
-    approx: bool = False           # a SurrogateTable instead of the ODE
+    approx: bool = False           # a surrogate instead of the ODE
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -238,7 +239,7 @@ def geodesic_state(scene: Scene, cfg: RenderConfig, lcfg: LimitedConfig,
 def render_limited_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
                         lcfg: LimitedConfig, ys, xs,
                         jitter: torch.Tensor | None = None,
-                        table: SurrogateTable | None = None) -> torch.Tensor:
+                        table=None) -> torch.Tensor:
     """The Gen-1 colour of the rays through pixels (ys, xs), jittered by
     ``jitter`` or through the pixel centres: ys.shape + (3,)."""
     o, d = generate_rays(cam, cfg.width, cfg.height, ys, xs, jitter)
@@ -312,31 +313,28 @@ def render_limited_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
 def render_limited(scene: Scene, cam: Camera, cfg: RenderConfig,
                    lcfg: LimitedConfig | None = None,
                    draws: torch.Tensor | None = None,
-                   table: SurrogateTable | None = None) -> torch.Tensor:
+                   table=None) -> torch.Tensor:
     """The Gen-1 frame -> (H, W, 4) RGBA, white outside the crop window.
     ``cfg.samples`` > 1 averages jittered samples as ``render_image`` does
-    (``sample_draws``).  With ``lcfg.approx`` a ``SurrogateTable`` replaces
-    the integration: ``table``, or one built for the scene's hole on its
-    device (Schwarzschild only: a spinning hole needs a learned surrogate,
-    which is not ported yet)."""
+    (``sample_draws``).  With ``lcfg.approx`` a surrogate replaces the
+    integration: ``table`` -- anything with ``.trace(entry, d)``, a
+    ``SurrogateTable`` or a trained ``models.surrogate.NeuralSurrogate``,
+    on the rays' device -- or a ``SurrogateTable`` built for the scene's
+    hole on its device, for Schwarzschild only: the 1-D table is exact only
+    under spherical symmetry, so a spinning hole needs a learned
+    surrogate."""
     if lcfg is None:
         lcfg = LimitedConfig()
-    if lcfg.approx:
-        if table is None:
-            if scene.bh.spin is not None:
-                raise ValueError(
-                    "approx mode for a spinning hole needs a learned "
-                    "surrogate (the 1D table is exact only under spherical "
-                    "symmetry); pass one as `table=`")
-            table = SurrogateTable.build(
-                mass=float(scene.bh.mass), r_influence=lcfg.r_influence,
-                exit_tolerance=lcfg.exit_tolerance,
-                device=scene.bh.mass.device)
-        elif not isinstance(table, SurrogateTable):
-            raise TypeError(
-                f"render_limited takes a SurrogateTable as `table=`, got "
-                f"{type(table).__name__}: the learned surrogate "
-                "(models/surrogate.py NeuralSurrogate) is not ported yet")
+    if lcfg.approx and table is None:
+        if scene.bh.spin is not None:
+            raise ValueError(
+                "approx mode for a spinning hole needs a learned surrogate "
+                "(the 1D table is exact only under spherical symmetry): "
+                "train one with models.surrogate.train_surrogate and pass "
+                "it as `table=`")
+        table = SurrogateTable.build(
+            mass=float(scene.bh.mass), r_influence=lcfg.r_influence,
+            exit_tolerance=lcfg.exit_tolerance, device=scene.bh.mass.device)
     device = cam.position.device
     x0, x1, y0, y1 = cfg.crop()
     ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1, device=device)

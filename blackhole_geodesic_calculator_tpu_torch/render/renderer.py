@@ -392,16 +392,16 @@ def polarization_map(scene: Scene, cam: Camera, cfg: RenderConfig
     """The per-pixel polarization rotation (radians) over the crop window,
     (Hc, Wc): the closed form for Schwarzschild, the transport ODE (frame
     dragging included) for Kerr; NaN where the ray did not escape.  Warns
-    above 256^2 Kerr pixels."""
+    above 256^2 Kerr pixels (``parallel.polarization_map_sharded`` spreads
+    a map over ranks)."""
     x0, x1, y0, y1 = cfg.crop()
     n_pix = (x1 - x0) * (y1 - y0)
     if scene.bh.spin is not None and n_pix > _KERR_POLARIZATION_WARN_PIXELS:
         warnings.warn(
             f"Kerr polarization map over {n_pix} pixels on one device: the "
             "parallel-transport ODE is ~40x the render path's flops. Use a "
-            "mark_* crop window (the JAX package's "
-            "parallel.polarization_map_sharded is not ported yet).",
-            stacklevel=2)
+            "mark_* crop window, or spread the map over several ranks with "
+            "parallel.polarization_map_sharded.", stacklevel=2)
     ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1,
                         device=cam.position.device)
     return polarization_rays(scene, cam, cfg, ys, xs)

@@ -8,8 +8,9 @@ rk4_bwd, the adaptive Dormand-Prince render and gradient through
 dopri_fwd, dopri_ckpt and dopri_bwd, BASELINE config 4's multisampled
 animation frame and massive particles through all six, the polarized
 (Stokes) frame, the polarization maps and the Gen-1 hybrid renderer
-through rk4_fwd -- and fails (non-zero exit, no result line) if anything
-is off:
+through rk4_fwd, the learned surrogate trained on rk4_fwd's labels, the
+sharded renders and the Trainer through rk4_ckpt and rk4_bwd -- and fails
+(non-zero exit, no result line) if anything is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
   1. builds the kernels from the checkout's sources (build/kernels/), one
@@ -201,14 +202,55 @@ is off:
      SurrogateTable.build through rk4_fwd against the plain build on the
      CPU (captured equal, exit directions within TOL_DIR away from b_c)
      and renders the approx frame from its table; K1's times and bound on
-     each frame and the table; times.
+     each frame and the table; times;
+ 34. renders the two full-size goldens of tests/test_golden_baseline.py
+     that phase 23's ring leaves out, each one launch of render_image:
+     disk_four_moons_1024 (BASELINE config 3, RK4 400 steps) through
+     rk4_fwd_events and kerr_a09_512 (a/M = 0.9, the camera edge-on to the
+     spin axis) through rk4_fwd_kerr, held to the file's rule (the image
+     4x pooled in float16: mean drift, cells moved by > 0.05) and oracles
+     (the orange disk above the shadow; > 1,000 dark pixels, top/bottom
+     asymmetry > 0.05), each reading on its own line; never writes one;
+ 35. builds the learned surrogate at full width (256 x 5) from
+     init_params and holds its f32 trace of SUR_RAYS entries on the card
+     to the same model's on the CPU, its bf16 trace to f32 by the JAX
+     test's bars; times both; the equivariance residual;
+ 36. trains the surrogate (train_surrogate, a = 0.45, SUR_STEPS steps of
+     SUR_BATCH rays), each step's labels one rk4_fwd_kerr launch: the loss
+     falls, evaluate_surrogate on SUR_EVAL rays meets the JAX CPU test's
+     bars, K1's labels of a batch equal the plain loop's (statuses but
+     MAX_EDGE near b_c; the state tolerances elsewhere); ms a step, K1's
+     device ms and bound on the batch; bench.py _surrogate_image_compare's
+     HYBRID^2 Kerr frame exact and through the model (PSNR, shadow-edge
+     displacement: readings); save and load trace the same bits;
+ 37. renders through parallel.render_image_sharded on the one-rank mesh
+     (the round-robin deal and its layout inverse, no collective): the
+     flagship frame equal to render_image bit for bit, at ANIM_SAMPLES
+     samples on the same draws (one rk4_fwd launch for all) within
+     SHARDED_MEAN; render_stokes_sharded and polarization_map_sharded
+     equal to their unsharded forms; times;
+ 38. the Trainer (bench.py bench_sharded): one step at 512^2 with
+     mask_critical 0.25, rk4_ckpt and rk4_bwd once each, its gradients to
+     the mass, camera and sky against the plain path's within
+     TOL_TRAINER_GRAD; the 1024^2 step's time, loss, device busy share
+     and K2/K3 device ms and bounds; test_trainer_recovers_mass's fit,
+     the mass within 0.05;
+ 39. saves and loads the fit's training state after three steps
+     (torch.save and npz): the fourth step equals an uninterrupted run's
+     bit for bit.
+
+The two-rank paths (the sample group's all_reduce, the ray group's
+all_gather, the gradient average) need two ranks; two NCCL ranks cannot
+share one card, so tests/test_torch_distributed.py holds them on the CPU
+with gloo.
 
 Every check of a phase is recorded; after the last phase the run fails if
-any check failed.  The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launch count on the main paths (``launches_by_path`` when more
-than one runs it), error, times and bound, and for the variants of phases
-28, 30, 32 and 33 their readings there.  Imports nothing of JAX.
+any check failed.  Each phase's seconds are logged.  The last line of
+standard output is ``{"ok": true, "device": {...}}``; the line before it
+lists each kernel with its launch count on the main paths
+(``launches_by_path`` when more than one runs it), error, times and
+bound, and for the variants of phases 28, 30, 32, 33, 36 and 38 their
+readings there.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -233,9 +275,15 @@ import torch
 import blackhole_geodesic_calculator_tpu_torch as P
 from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
     generate_rays, pixel_grid)
-from blackhole_geodesic_calculator_tpu_torch.io_ import write_png
+from blackhole_geodesic_calculator_tpu_torch.io_ import (
+    load_train_state, save_train_state, write_png)
 from blackhole_geodesic_calculator_tpu_torch.models.kerr import (
     horizon_radius, kerr_ks_metric)
+from blackhole_geodesic_calculator_tpu_torch.models import surrogate
+from blackhole_geodesic_calculator_tpu_torch.models.surrogate import (
+    NeuralSurrogate, SurrogateConfig, _label_env, _straight_exit,
+    canonicalize, evaluate_surrogate, init_params, label_rays,
+    load_surrogate, sample_entries, save_surrogate, train_surrogate)
 from blackhole_geodesic_calculator_tpu_torch.ops import (
     _build, adjoint, cuda_kernel, states)
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import (
@@ -247,6 +295,8 @@ from blackhole_geodesic_calculator_tpu_torch.ops.integrate import (
 from blackhole_geodesic_calculator_tpu_torch.ops.polarization import (
     _cross, _unit, ks_directional_christoffel, plane_normal,
     transport_polarization_ode)
+from blackhole_geodesic_calculator_tpu_torch.parallel import (
+    polarization_map_sharded, render_stokes_sharded)
 from blackhole_geodesic_calculator_tpu_torch.render import (
     debug_rays, format_debug_string, limited, render_progressive,
     render_sample, render_stats, sample_draws)
@@ -460,6 +510,33 @@ HYBRID_MEAN = 1e-4
 HYBRID_FRAC = 1e-4
 SHADOW_PX = 4
 TABLE_BAND = 0.25
+# Phases 34-39 (the training half).  The full-size goldens of
+# tests/test_golden_baseline.py by its own rule (_check_golden :50-62): the
+# image 4x mean-pooled in float16, mean drift below GOLDEN_DRIFT and fewer
+# than GOLDEN_MOVED of the cells moved by more than 0.05.  The learned
+# surrogate at full width (256 x 5): its f32 trace on the card against the
+# CPU's over SUR_RAYS rays (bench.py bench_surrogate's batch) within TOL_SUR
+# (directions; exit points relative to the exit shell's radius on the rays
+# whose point before the projection onto the shell lies R/2 or more from
+# the centre: an untrained network puts some near it, where the
+# projection's division multiplies a rounding by up to the shell's radius
+# over that distance -- H100: 4.4e-6 there, 1.8e-4 on all; TF32 would read
+# ~1e-3), trained SUR_STEPS steps (train_surrogate's default; bench.py's
+# 15,000 are the bench's) of SUR_BATCH rays, evaluated on SUR_EVAL.  The
+# sharded multisampled frame within SHARDED_MEAN mean |d| of render_image
+# on the same draws.  The Trainer's gradients within TOL_TRAINER_GRAD of
+# the plain path's (bench.py bench_sharded's gate, :690-699); the mass fit
+# FIT_STEPS Adam steps (tests/test_parallel.py).
+GOLDEN_DRIFT = 1e-3
+GOLDEN_MOVED = 0.005
+SUR_RAYS = 1 << 21
+SUR_STEPS = 2000
+SUR_BATCH = 8192
+SUR_EVAL = 1 << 17
+TOL_SUR = 1e-5
+SHARDED_MEAN = 1e-6
+TOL_TRAINER_GRAD = 1e-2
+FIT_STEPS = 60
 # The card's peak rates for the bound of each kernel (NVIDIA's data sheet
 # for the H100 SXM at 700 W, float32 outside the tensor cores).
 PEAK_FLOPS = 67e12
@@ -493,12 +570,15 @@ def check(ok: bool, msg: str) -> None:
 
 def phase(name: str, fn, *args):
     """Run one phase; an AssertionError inside it is recorded as a failed
-    check and the phase returns None."""
+    check and the phase returns None.  Logs the phase's seconds."""
+    t0 = time.perf_counter()
     try:
         return fn(*args)
     except AssertionError as e:
         check(False, f"{name}: {e}")
         return None
+    finally:
+        log(f"# [{name}] {time.perf_counter() - t0:.1f} s")
 
 
 def card() -> str:
@@ -5368,6 +5448,645 @@ def phase_hybrid(dev, name_limit, readings):
     log(f"# phase 33: done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# =============================================================================
+# Phases 34-39: the full-size goldens, the learned surrogate, the sharded
+# renders, the Trainer and its checkpoints.
+# =============================================================================
+def baseline_sky(dev):
+    """tests/test_golden_baseline.py's sky: 64x128, 8-pixel checks."""
+    return torch.as_tensor(make_sky(64, 128, check=8), dtype=torch.float32,
+                           device=dev)
+
+
+def baseline_integrator():
+    """The goldens' RK4 schedule (test_golden_baseline.py:108-111)."""
+    return P.IntegratorConfig(n_steps=400, dt=0.06, dt_boost=48.0,
+                              dt_boost_r_ref=1.6, dt_power=1.5)
+
+
+def golden_frames(dev):
+    """(name, scene, camera, config, the K1 variant it launches, its
+    oracles) of test_golden_1024_disk_and_four_moons (:94-123) and
+    test_golden_512_kerr_a09 (:154-182), built from the same arrays."""
+    moons = np.zeros((4, 8, 8, 3), np.float32)
+    for k in range(4):
+        moons[k, ..., k % 3] = 1.0
+    disk_scene = P.Scene(
+        bh=P.BlackHole.make(mass=0.5, device=dev), background=baseline_sky(
+            dev),
+        disk=P.Disk.make(r_in=2.0, r_out=6.0, device=dev, texture=np.tile(
+            np.float32([1.0, 0.6, 0.2]), (8, 32, 1))),
+        spheres=P.Spheres.make(
+            center=[[6.0, 2.0, 6.0], [-5.0, -2.0, -8.0], [0.0, 4.0, -10.0],
+                    [8.0, -1.0, -3.0]],
+            radius=[0.8, 0.8, 0.6, 0.5], texture=moons, device=dev))
+
+    def disk_oracles(img):
+        upper = img[300:450, 400:624, :3].reshape(-1, 3)
+        orange = (upper[:, 0] > 0.3) & (upper[:, 0] > upper[:, 2] * 1.5)
+        share = float(orange.float().mean())
+        return {"orange share above the shadow": share}, share > 0.05
+
+    def kerr_oracles(img):
+        dark = img[..., :3].amax(-1) < 0.02
+        top, bottom = int(dark[:256].sum()), int(dark[256:].sum())
+        asym = abs(top - bottom) / max(top + bottom, 1)
+        return ({"dark pixels": top + bottom, "top/bottom asymmetry": asym},
+                top + bottom > 1000 and asym > 0.05)
+
+    yield ("disk_four_moons_1024", disk_scene,
+           P.Camera.make(position=(0.0, 6.0, 19.0), euler=(-0.3, 0.0, 0.0),
+                         fov=(0.9, 0.9), device=dev),
+           P.RenderConfig(width=1024, height=1024, lam_max=120.0,
+                          integrator=baseline_integrator()),
+           "rk4_fwd_events", disk_oracles)
+    yield ("kerr_a09_512",
+           P.Scene(bh=P.BlackHole.make(mass=0.5, spin=0.45, device=dev),
+                   background=baseline_sky(dev)),
+           P.Camera.make(position=(20.0, 0.0, 0.0),
+                         euler=(0.0, np.pi / 2, 0.0), fov=(0.9, 0.9),
+                         device=dev),
+           P.RenderConfig(width=512, height=512, lam_max=120.0,
+                          integrator=baseline_integrator()),
+           "rk4_fwd_kerr", kerr_oracles)
+
+
+def golden_drift(name, img):
+    """tests/test_golden_baseline.py _check_golden (:50-62): the image 4x
+    mean-pooled and cast to float16 against the checked-in golden: (mean
+    drift, share of cells moved by more than 0.05).  Never writes one."""
+    ref = np.load(ROOT / "tests" / "golden" / f"{name}.npz")["img"].astype(
+        np.float32)
+    small = pool4(img.cpu().numpy()).astype(np.float16).astype(np.float32)
+    diff = np.abs(small - ref)
+    return float(diff.mean()), float((diff > 0.05).mean())
+
+
+def phase_goldens(dev, readings):
+    """The two full-size goldens only the JAX package was held to:
+    BASELINE config 3 at 1024^2 (a disk and four moons, RK4 400 steps)
+    through rk4_fwd_events and the a/M = 0.9 Kerr frame at 512^2, camera
+    edge-on to the spin axis, through rk4_fwd_kerr, each one launch of
+    render_image, held to the file's rule (mean drift < GOLDEN_DRIFT, <
+    GOLDEN_MOVED of the cells moved by > 0.05) and its oracles."""
+    for name, scene, cam, cfg, kernel, oracles in golden_frames(dev):
+        reset_counts()
+        with torch.no_grad():
+            img = P.render_image(scene, cam, cfg)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        count_path(readings, f"golden {name}", launches)
+        check(launches == only(**{kernel: 1}),
+              f"golden {name} launched {launches}, expected {kernel} once")
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"golden {name}: the image is not finite")
+        drift, moved = golden_drift(name, img)
+        values, ok = oracles(img)
+        log(f"# phase 34: golden [{name}, {kernel}] mean drift {drift:.3e} "
+            f"(limit {GOLDEN_DRIFT:g})")
+        log(f"# phase 34: golden [{name}, {kernel}] {moved:.3e} of the cells "
+            f"moved by > 0.05 (limit {GOLDEN_MOVED:g})")
+        for k, v in values.items():
+            log(f"# phase 34: golden [{name}] oracle {k}: {v:.6g}")
+        check(drift < GOLDEN_DRIFT and moved < GOLDEN_MOVED and ok,
+              f"golden {name}: the rule or an oracle failed")
+        readings.setdefault("goldens", {})[name] = dict(
+            drift=drift, moved=moved, **values)
+
+
+def generator(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def in_chunks(fn, *args, chunk=1 << 18):
+    """``fn`` over ``args`` split along the first axis, the outputs
+    concatenated: bounds the host memory of the CPU trace."""
+    outs = [fn(*(a[i:i + chunk] for a in args))
+            for i in range(0, args[0].shape[0], chunk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def unprojected_exit(sur, entry, d):
+    """The exit point ``NeuralSurrogate.trace`` projects onto the exit
+    shell, in the canonical frame: (the chord's exit + the network's
+    residual) R."""
+    dn = d / d.norm(dim=-1, keepdim=True)
+    entry_c, d_c, _, _ = canonicalize(entry, dn)
+    out, _, _ = sur.raw(entry, dn)
+    R = sur.r_influence
+    return (_straight_exit(entry_c, d_c, R) + out[..., 3:6]) * R
+
+
+def phase_surrogate_infer(dev, name_limit, readings):
+    """A full-width (256 x 5) NeuralSurrogate from init_params on the
+    card: its f32 trace of SUR_RAYS entries against the same model's on
+    the CPU (directions within TOL_SUR, exit points within TOL_SUR of the
+    exit radius where the point before its projection onto the shell
+    lies R/2 or more from the centre; captures equal but MAX_EDGE), its
+    bf16 trace by the JAX
+    test's bars (directions within 0.1 of f32, captures agreeing on more
+    than 95%, other bits), each precision's time, and the equivariance
+    residual under a rotation about the spin axis and the reflection."""
+    cfg = SurrogateConfig()
+    sur = NeuralSurrogate(init_params(generator(dev, 0), cfg), mass=0.5,
+                          spin=0.45, r_influence=cfg.r_influence)
+    host = NeuralSurrogate([(w.cpu(), b.cpu()) for w, b in sur.params],
+                           mass=0.5, spin=0.45, r_influence=cfg.r_influence)
+    entry, d = sample_entries(generator(dev, 1), SUR_RAYS, cfg, 0.5)
+    reset_counts()
+    with torch.no_grad():
+        loc, dir_, cap = sur.trace(entry, d)
+        calm = (unprojected_exit(sur, entry, d).norm(dim=-1)
+                >= 0.5 * sur.r_influence).cpu()
+        hloc, hdir, hcap = in_chunks(host.trace, entry.cpu(), d.cpu())
+    check(read_counts() == {}, "the surrogate's trace launched a kernel")
+    r_exit = float(sur.r_exit)
+    dl = (loc.cpu() - hloc).abs().amax(-1) / r_exit
+    dloc, dloc_all = masked_max(dl, calm), float(dl.max())
+    ddir = float((dir_.cpu() - hdir).abs().max())
+    flips = int((cap.cpu() != hcap).sum())
+    log(f"# phase 35: trace f32, card vs CPU, {SUR_RAYS} rays: max |d dir| "
+        f"{ddir:.3e}; exit points max |d| / r_exit {dloc:.3e} on the "
+        f"{int(calm.sum())} rays whose point before the shell projection "
+        f"lies >= R/2 from the centre ({dloc_all:.3e} on all: the "
+        f"projection divides by that distance) (limits {TOL_SUR:g}); "
+        f"{flips} captures differ (at most {MAX_EDGE}); {int(cap.sum())} "
+        "captured")
+    check(ddir <= TOL_SUR and dloc <= TOL_SUR and flips <= MAX_EDGE,
+          "the surrogate's f32 trace on the card differs from the CPU's")
+
+    sur.precision = "bf16"
+    with torch.no_grad():
+        bloc, bdir, bcap = sur.trace(entry, d)
+    b_dir = float((bdir - dir_).abs().max())
+    agree = float((bcap == cap).float().mean())
+    differs = not torch.equal(bloc, loc)
+    log(f"# phase 35: trace bf16 against f32: max |d dir| {b_dir:.3e} "
+        f"(limit 0.1), captures agree on {agree:.5f} (limit 0.95), bits "
+        + ("differ" if differs else "IDENTICAL"))
+    check(b_dir < 0.1 and agree > 0.95 and differs,
+          "the bf16 trace is not f32's to bf16 rounding")
+
+    times = {}
+    for prec in ("f32", "bf16"):
+        sur.precision = prec
+        times[prec] = timed(no_grad(lambda: sur.trace(entry, d)), runs=5)
+        log(f"# phase 35: trace {prec} {SUR_RAYS} rays: median "
+            f"{times[prec]:.3f} ms, {SUR_RAYS / times[prec] * 1e3:.4e} "
+            f"rays/s [{name_limit}]")
+    sur.precision = "f32"
+
+    # equivariance: a rotation about the spin axis, then the reflection
+    c, s = np.cos(1.234), np.sin(1.234)
+    rot = torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, -1.0]],
+                       dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        rloc, rdir, rcap = sur.trace(entry @ rot.T, d @ rot.T)
+    eq_loc = float((rloc - loc @ rot.T).abs().max())
+    eq_dir = float((rdir - dir_ @ rot.T).abs().max())
+    eq_cap = int((rcap != cap).sum())
+    log(f"# phase 35: equivariance residual (rotation by 1.234 rad about "
+        f"z and z -> -z): max |d loc| {eq_loc:.3e}, max |d dir| "
+        f"{eq_dir:.3e}, {eq_cap} captures differ (a reading)")
+    readings.setdefault("surrogate", {}).update(
+        trace_f32_ms=times["f32"], trace_bf16_ms=times["bf16"],
+        card_vs_cpu_dir=ddir, card_vs_cpu_loc=dloc,
+        card_vs_cpu_loc_all=dloc_all,
+        capture_flips=flips,
+        bf16_dir=b_dir, bf16_capture_agree=agree, equivariance_loc=eq_loc,
+        equivariance_dir=eq_dir, equivariance_captures=eq_cap)
+
+
+def shadow_edges(img, n_ang=720):
+    """bench.py _surrogate_image_compare's edge_radii: along 720 spokes
+    from the image centre, the first radius outside the shadow (mean < 0.02)."""
+    size = img.shape[0]
+    mask = img.mean(-1) < 0.02
+    cy = cx = (size - 1) / 2.0
+    ang = np.linspace(0, 2 * np.pi, n_ang, endpoint=False)
+    rr = np.arange(0, size // 2 - 2, 0.5)
+    ys = np.clip((cy + rr[None, :] * np.sin(ang)[:, None]).round()
+                 .astype(int), 0, size - 1)
+    xs = np.clip((cx + rr[None, :] * np.cos(ang)[:, None]).round()
+                 .astype(int), 0, size - 1)
+    return rr[np.argmin(mask[ys, xs], axis=1)]
+
+
+def phase_surrogate_train(dev, name_limit, readings):
+    """train_surrogate at full width (256 x 5, a = 0.45, batch SUR_BATCH,
+    SUR_STEPS steps): one rk4_fwd_kerr launch a step labels the batch;
+    the loss falls to 0.6 of its first reading, evaluate_surrogate on
+    SUR_EVAL rays reads capture accuracy > 0.9 and median direction error
+    < 0.5 rad (the JAX CPU test's bars); K1's labels of one batch against
+    the plain loop's (statuses equal but MAX_EDGE rays near b_c, the rest
+    to the state tolerances); K1's time and bound on the batch; the
+    hybrid frame of bench.py _surrogate_image_compare exact and through
+    the model (PSNR and shadow-edge displacement, readings); save and load
+    give the same trace bits."""
+    cfg = SurrogateConfig()
+    reset_counts()
+    (sur, hist), train_ms = once(lambda: train_surrogate(
+        generator(dev, 0), mass=0.5, spin=0.45, cfg=cfg, steps=SUR_STEPS,
+        batch=SUR_BATCH, log_every=SUR_STEPS // 10))
+    launches = read_counts()
+    count_path(readings, "surrogate training", launches)
+    check(launches == only(rk4_fwd_kerr=SUR_STEPS),
+          f"training launched {launches}, expected rk4_fwd_kerr "
+          f"{SUR_STEPS} times")
+    ms_step = train_ms / SUR_STEPS
+    log(f"# phase 36: train_surrogate 256x5, {SUR_STEPS} steps of "
+        f"{SUR_BATCH} Kerr rays: {train_ms / 1e3:.3f} s, {ms_step:.3f} ms a "
+        f"step [{name_limit}]")
+    log("# phase 36: loss " + " ".join(f"{v:.4f}" for v in hist["loss"]))
+    check(hist["loss"][-1] <= 0.6 * hist["loss"][0],
+          "the surrogate's loss did not fall to 0.6 of its first reading")
+    reset_counts()
+    m = evaluate_surrogate(generator(dev, 2), sur, cfg, n=SUR_EVAL)
+    count_path(readings, "surrogate evaluation", read_counts())
+    log(f"# phase 36: evaluate_surrogate on {SUR_EVAL} rays: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in m.items())
+        + " (limits: capture_acc > 0.9, dir_err_median_rad < 0.5)")
+    check(m["capture_acc"] > 0.9 and m["dir_err_median_rad"] < 0.5,
+          "the trained surrogate misses the JAX test's bars")
+
+    # where a step's time goes: the loop's body on the trained weights
+    env = _label_env(0.5, 0.45, cfg, dev)
+    R = torch.tensor(cfg.r_influence, device=dev)
+    params = [(w.detach().clone().requires_grad_(True),
+               b.detach().clone().requires_grad_(True))
+              for w, b in sur.params]
+    opt, sched = surrogate._optimizer([t for pair in params for t in pair],
+                                      3e-3, SUR_STEPS)
+    gen = generator(dev, 4)
+    entry, d = sample_entries(gen, SUR_BATCH, cfg, 0.5)
+
+    def one_step():
+        e, v = sample_entries(gen, SUR_BATCH, cfg, 0.5)
+        with torch.no_grad():
+            labels = label_rays(env, cfg, e, v)
+        loss, _ = surrogate.surrogate_loss(params, cfg, R, e, v, *labels)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sched.step()
+
+    step_ms = timed(one_step, runs=20)
+    label_ms = timed(no_grad(lambda: label_rays(env, cfg, entry, d)),
+                     runs=20)
+    busy_ms, busy = step_profile(one_step, step_ms, "phase 36: a training "
+                                 "step", name_limit)
+    log(f"# phase 36: a training step: median {step_ms:.3f} ms, of which "
+        f"label_rays {label_ms:.3f} ms; device busy {100 * busy:.1f}% "
+        f"[{name_limit}]")
+
+    # K1's labels of one batch against the plain loop's
+    icfg = P.IntegratorConfig(n_steps=cfg.n_steps, dt=cfg.dt,
+                              dt_boost=cfg.dt_boost)
+    entry, d = sample_entries(generator(dev, 3), SUR_BATCH, cfg, 0.5)
+    with torch.no_grad():
+        lab_k = label_rays(env, cfg, entry, d)
+        lab_p = label_rays(env, dataclasses.replace(cfg, backend="torch"),
+                           entry, d)
+        s0 = flat_state(initial_state(env, entry * (1.0 - 1e-4), d))
+        sk = cuda_kernel.integrate_cuda(env, s0, icfg)
+        sp = cuda_kernel.integrate_plain(env, s0, icfg)
+    near = near_b_c(env, s0) | ulp_sensitive(env, icfg, s0, sp)
+    flip = sk.status != sp.status
+    label_flips = int(((lab_k[0] != lab_p[0]) | (lab_k[3] != lab_p[3]))
+                      .sum())
+    log(f"# phase 36: labels, K1 vs plain, {SUR_BATCH} rays: "
+        f"{int(flip.sum())} statuses differ ({int((flip & ~near).sum())} "
+        f"away from b_c), {label_flips} captured/escaped labels differ (at "
+        f"most {MAX_EDGE}, near b_c)")
+    check(int(flip.sum()) <= MAX_EDGE and not bool((flip & ~near).any())
+          and label_flips <= MAX_EDGE,
+          "K1's labels differ from the plain loop's away from b_c")
+    keep = ~flip & ~near
+    err, _ = compare_states(env, icfg, rays(sk, keep), rays(sp, keep),
+                            f"surrogate labels {SUR_BATCH}, away from b_c")
+    k1_frame("surrogate labels", env, icfg, s0, err, readings, name_limit)
+
+    # bench.py _surrogate_image_compare: exact against the trained model
+    scene, cam, hcfg, lcfg = hybrid_kerr_frame(dev)
+    reset_counts()
+    with torch.no_grad():
+        exact = P.render_limited(scene, cam, hcfg, lcfg)[..., :3]
+        approx = P.render_limited(scene, cam, hcfg, dataclasses.replace(
+            lcfg, approx=True), table=sur)[..., :3]
+    launches = read_counts()
+    count_path(readings, "surrogate image", launches)
+    check(launches == only(rk4_fwd_kerr=1) and bool(
+        torch.isfinite(approx).all()),
+          f"the surrogate image launched {launches} or is not finite")
+    mse = float(((exact - approx) ** 2).mean())
+    psnr = 10.0 * np.log10(1.0 / max(mse, 1e-12))
+    re_, ra_ = (shadow_edges(x.cpu().numpy()) for x in (exact, approx))
+    edge = np.abs(re_ - ra_)
+    log(f"# phase 36: {HYBRID}x{HYBRID} Kerr hybrid frame, trained model vs "
+        f"the integrator: PSNR {psnr:.3f} dB, shadow-edge displacement "
+        f"median {np.median(edge):.3f} px, p95 {np.percentile(edge, 95):.3f}"
+        f" px, max {edge.max():.3f} px, shadow radius ~"
+        f"{np.median(re_):.1f} px (readings)")
+
+    # save and load: the same trace bits
+    path = ROOT / "build" / "chip_smoke" / "surrogate.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_surrogate(path, sur)
+    back = load_surrogate(path, device=dev)
+    ev_e, ev_d = sample_entries(generator(dev, 2), SUR_EVAL, cfg, 0.5)
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in zip(
+            sur.trace(ev_e, ev_d), back.trace(ev_e, ev_d)))
+    log("# phase 36: save_surrogate/load_surrogate: the trace of "
+        f"{SUR_EVAL} rays " + ("equal bit for bit" if same else "DIFFERS"))
+    check(same, "the reloaded surrogate traces other bits")
+    readings.setdefault("surrogate", {}).update(
+        train_s=train_ms / 1e3, ms_per_step=ms_step, steps=SUR_STEPS,
+        step_ms=step_ms, label_ms=label_ms, step_device_busy=busy,
+        loss_first=hist["loss"][0], loss_last=hist["loss"][-1], **m,
+        label_status_flips=int(flip.sum()), psnr_db=psnr,
+        edge_median_px=float(np.median(edge)),
+        edge_p95_px=float(np.percentile(edge, 95)))
+
+
+def phase_sharded(scene, cam, dev, name_limit, readings):
+    """render_image_sharded on the one-rank mesh: the SIZE^2 flagship frame
+    at one sample equals render_image bit for bit (rk4_fwd once); at five
+    samples on the same draws (one rk4_fwd launch for the five) within
+    SHARDED_MEAN mean |d|; render_stokes_sharded of phase 32's Stokes frame
+    and polarization_map_sharded of the flagship's Schwarzschild map equal
+    their unsharded forms; times."""
+    cfg = flagship_cfg()
+    reset_counts()
+    with torch.no_grad():
+        img = P.render_image_sharded(scene, cam, cfg)
+    launches = read_counts()
+    count_path(readings, "sharded frame", launches)
+    check(launches == only(rk4_fwd=1),
+          f"the sharded frame launched {launches}, expected rk4_fwd once")
+    with torch.no_grad():
+        ref = P.render_image(scene, cam, cfg)
+    same = torch.equal(img, ref)
+    cfg5 = dataclasses.replace(cfg, samples=ANIM_SAMPLES)
+    draws = sample_draws(cfg5, dev)
+    reset_counts()
+    with torch.no_grad():
+        img5 = P.render_image_sharded(scene, cam, cfg5, draws=draws)
+    launches = read_counts()
+    count_path(readings, "sharded frame, 5 samples", launches)
+    with torch.no_grad():
+        ref5 = P.render_image(scene, cam, cfg5, draws)
+    d5 = (img5 - ref5).abs()
+    log(f"# phase 37: render_image_sharded {SIZE}x{SIZE}: 1 sample "
+        + ("equal to render_image bit for bit" if same else "DIFFERS")
+        + f"; {ANIM_SAMPLES} samples on the same draws (launches "
+        f"{launches}): mean |d| {float(d5.mean()):.3e}, max "
+        f"{float(d5.max()):.3e} (limit {SHARDED_MEAN:g} mean)")
+    check(same and float(d5.mean()) < SHARDED_MEAN
+          and launches == only(rk4_fwd=1),
+          "the sharded frame differs from render_image")
+
+    sscene, scam = stokes_scene(dev), events_cam(dev)
+    reset_counts()
+    with torch.no_grad():
+        got = render_stokes_sharded(sscene, scam, cfg)
+        count_path(readings, "sharded Stokes frame", read_counts())
+        want = P.render_stokes(sscene, scam, cfg)
+        m = polarization_map_sharded(scene, cam, cfg)
+        mref = P.polarization_map(scene, cam, cfg)
+    st_same = all(torch.equal(a, b) for a, b in zip(got, want))
+    m_same = torch.equal(torch.isnan(m), torch.isnan(mref)) and torch.equal(
+        torch.nan_to_num(m), torch.nan_to_num(mref))
+    log(f"# phase 37: render_stokes_sharded {SIZE}x{SIZE} "
+        + ("equal to render_stokes bit for bit" if st_same else "DIFFERS")
+        + f"; polarization_map_sharded {SIZE}x{SIZE} "
+        + ("equal to polarization_map bit for bit" if m_same else "DIFFERS"))
+    check(st_same and m_same, "a sharded Stokes frame or map differs")
+    ms = timed(no_grad(lambda: P.render_image_sharded(scene, cam, cfg)),
+               runs=5)
+    ms5 = timed(no_grad(lambda: P.render_image_sharded(scene, cam, cfg5,
+                                                       draws=draws)), runs=5)
+    ms5_ref = timed(no_grad(lambda: P.render_image(scene, cam, cfg5,
+                                                   draws)), runs=5)
+    log(f"# phase 37: render_image_sharded {SIZE}x{SIZE}: median {ms:.3f} "
+        f"ms; {ANIM_SAMPLES} samples {ms5:.3f} ms (render_image, one launch "
+        f"a sample: {ms5_ref:.3f} ms) [{name_limit}]")
+    readings.setdefault("trainer", {}).update(
+        sharded_ms=ms, sharded_5spp_ms=ms5, render_5spp_ms=ms5_ref,
+        sharded_5spp_mean_err=float(d5.mean()))
+
+
+def trainer_scene(dev):
+    """bench.py bench_sharded's scene (make_scene('sky')): the flagship sky
+    around a hole of mass 0.5, camera (0, 0, 25), fov 0.8."""
+    return (P.Scene(bh=P.BlackHole.make(mass=0.5, device=dev),
+                    background=torch.as_tensor(make_sky(),
+                                               dtype=torch.float32,
+                                               device=dev)),
+            P.Camera.make(position=(0.0, 0.0, 25.0), fov=(0.8, 0.8),
+                          device=dev))
+
+
+def sky_trainer(cfg, scene0, cam, mask=None, lr=0.0):
+    """bench_sharded's make_trainer: SGD at ``lr`` on the mass, the camera
+    position and the sky."""
+    def param_fn(p):
+        return (dataclasses.replace(
+            scene0, bh=dataclasses.replace(scene0.bh, mass=p["mass"]),
+            background=p["background"]),
+            dataclasses.replace(cam, position=p["cam_pos"]))
+
+    return P.Trainer(cfg=cfg, param_fn=param_fn,
+                     optimizer=lambda ps: torch.optim.SGD(ps, lr=lr),
+                     mask_critical=mask)
+
+
+def sky_params(scene0, cam):
+    return {"mass": torch.tensor(0.45, device=cam.position.device)
+            .requires_grad_(True),
+            "cam_pos": cam.position.detach().clone().requires_grad_(True),
+            "background": scene0.background.detach().clone()
+            .requires_grad_(True)}
+
+
+def fit_scene(dev):
+    """tests/test_parallel.py's sky (16x32) and camera (0, 0, 20), fov
+    0.6."""
+    h, w = 16, 32
+    v = np.linspace(0.0, 1.0, h)[:, None]
+    u = np.linspace(0.0, 1.0, w, endpoint=False)[None, :]
+    uc = 0.5 + 0.5 * np.sin(2.0 * np.pi * u) * np.sin(np.pi * v)
+    sky = torch.as_tensor(np.stack([
+        np.broadcast_to(uc, (h, w)), np.broadcast_to(v, (h, w)),
+        0.5 * np.ones((h, w))], -1), dtype=torch.float32, device=dev)
+    cam = P.Camera.make(position=(0.0, 0.0, 20.0), fov=(0.6, 0.6),
+                        device=dev)
+    cfg = P.RenderConfig(width=16, height=12, samples=8, lam_max=60.0,
+                         integrator=P.IntegratorConfig(n_steps=300, dt=0.1))
+
+    def scene_of(mass):
+        s = P.Scene(bh=P.BlackHole.make(mass=0.0, device=dev),
+                    background=sky)
+        return dataclasses.replace(s, bh=dataclasses.replace(s.bh,
+                                                             mass=mass))
+
+    trainer = P.Trainer(
+        cfg=cfg, param_fn=lambda p: (scene_of(p["mass"]), cam),
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=2e-2), clip_norm=1.0)
+    target = P.render_image(scene_of(torch.tensor(0.5, device=dev)), cam,
+                            cfg)[..., :3]
+    return trainer, target
+
+
+def phase_trainer(dev, name_limit, readings):
+    """The Trainer at full width (bench.py bench_sharded): one step at
+    512^2 with mask_critical 0.25, the gradients to the mass, the camera
+    position and the sky on the kernel path (rk4_ckpt and rk4_bwd once
+    each) against the plain path, worst relative difference <
+    TOL_TRAINER_GRAD (bench.py's gate); the 1024^2 step's time, loss,
+    device busy share and K2/K3 device ms and bounds; and
+    test_trainer_recovers_mass's fit (16x12, 8 samples, 60 Adam steps,
+    clip 1) to within 0.05 of the mass."""
+    scene0, cam = trainer_scene(dev)
+    cfg = dataclasses.replace(flagship_cfg(), width=512, height=512)
+    with torch.no_grad():
+        target = P.render_image(scene0, cam, cfg)[..., :3]
+    grads = {}
+    for path, c in (("kernel", cfg), ("plain", plain(cfg))):
+        tr = sky_trainer(c, scene0, cam, mask=0.25, lr=1.0)
+        tf, ys, xs = tr.shard_target(target)
+        p = sky_params(scene0, cam)
+        p0 = {k: v.detach().clone() for k, v in p.items()}
+        reset_counts()
+        p, _, loss = tr.step(p, tr.init(p), tf, ys, xs)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if path == "kernel":
+            count_path(readings, "Trainer step 512", launches)
+            check(launches == only(rk4_ckpt=1, rk4_bwd=1),
+                  f"the Trainer step launched {launches}, expected rk4_ckpt "
+                  "and rk4_bwd once each")
+        grads[path] = {k: p0[k] - p[k].detach() for k in p0}
+        log(f"# phase 38: Trainer.step 512x512, mask_critical 0.25, {path} "
+            f"path: loss {float(loss):.6e}")
+    errs = {k: rel_err(grads["kernel"][k], grads["plain"][k])
+            for k in grads["kernel"]}
+    worst = max(errs.values())
+    log("# phase 38: Trainer gradient parity, kernel vs plain, 512x512: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; worst {worst:.3e} (limit {TOL_TRAINER_GRAD:g})")
+    check(worst < TOL_TRAINER_GRAD,
+          "the Trainer's gradients differ from the plain path's")
+
+    # the 1024^2 step: time, loss, device busy share, K2 and K3
+    cfg = flagship_cfg()
+    with torch.no_grad():
+        target = P.render_image(scene0, cam, cfg)[..., :3]
+    tr = sky_trainer(cfg, scene0, cam)
+    tf, ys, xs = tr.shard_target(target)
+    p = sky_params(scene0, cam)
+    st = tr.init(p)
+    reset_counts()
+    _, _, loss = tr.step(p, st, tf, ys, xs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    count_path(readings, "Trainer step 1024", launches)
+    step = lambda: tr.step(p, st, tf, ys, xs)  # noqa: E731
+    wall = timed(step, runs=5)
+    busy_ms, busy = step_profile(step, wall, f"phase 38: Trainer.step "
+                                 f"{SIZE}x{SIZE}", name_limit)
+    log(f"# phase 38: Trainer.step {SIZE}x{SIZE} (mass, camera, sky; SGD): "
+        f"median {wall:.3f} ms, {SIZE * SIZE / wall * 1e3:.4e} rays/s, loss "
+        f"{float(loss):.6e}, device busy {100 * busy:.1f}%, launches "
+        f"{launches} [{name_limit}]")
+    fenv, s0 = flagship_rays(scene0, cam, cfg, dev)
+    s0 = flat_state(s0)
+    icfg, seg = cfg.integrator, cuda_kernel.segment(cfg.integrator.n_steps)
+    scal = cuda_kernel._scalars(fenv, icfg, dev)
+    args = (scal, s0.x, s0.p, s0.E, s0.lam, s0.status)
+    ckpt = no_grad(lambda: cuda_kernel.rk4_ckpt(*args, icfg.n_steps, seg,
+                                                icfg.dt_power))
+    ck = ckpt()[-1]
+    g = torch.ones_like(s0.x)
+    bwd = no_grad(lambda: cuda_kernel.rk4_bwd(scal, ck, s0.E, g, g,
+                                              icfg.n_steps, seg,
+                                              icfg.dt_power))
+    ops, nbytes, (steps, _, _), _ = rk4_bound(fenv, icfg, s0)
+    kernel_plain = plain_kernel_ms(fenv, s0, icfg)
+    for kind, call in (("ckpt", ckpt), ("bwd", bwd)):
+        r = dict(ms=timed(call), device_ms=device_ms(call),
+                 plain_ms=kernel_plain[kind], rays=s0.E.numel(),
+                 ray_steps=steps, **bound(ops[kind], nbytes[kind]))
+        readings[f"rk4_{kind}"]["Trainer step"] = r
+        log(f"# phase 38: rk4_{kind} on the Trainer step's {r['rays']} "
+            f"rays: call {r['ms']:.3f} ms, device {r['device_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.3f} ms [{name_limit}]")
+    del ck
+
+    # test_trainer_recovers_mass on the card
+    tr, target = fit_scene(dev)
+    reset_counts()
+    (params, losses), fit_ms = once(lambda: tr.fit({"mass": 0.35}, target,
+                                                   n_steps=FIT_STEPS))
+    launches = read_counts()
+    count_path(readings, "mass fit", launches)
+    mass = float(params["mass"])
+    log(f"# phase 38: test_trainer_recovers_mass's fit on the card: mass "
+        f"0.35 -> {mass:.6f} (limit |m - 0.5| < 0.05), loss "
+        f"{losses[0]:.4e} -> min {min(losses):.4e} in {FIT_STEPS} steps, "
+        f"{fit_ms:.3f} ms, launches {launches} [{name_limit}]")
+    check(abs(mass - 0.5) < 0.05 and min(losses) < 0.5 * losses[0]
+          and launches == only(rk4_ckpt=FIT_STEPS, rk4_bwd=FIT_STEPS),
+          "the mass fit did not recover the mass")
+    readings.setdefault("trainer", {}).update(
+        grad_parity=worst, step_ms=wall, step_loss=float(loss),
+        device_busy_ms=busy_ms, device_busy=busy, fit_mass=mass,
+        fit_ms=fit_ms)
+
+
+def phase_checkpoint(dev, readings):
+    """save_train_state and load_train_state mid-fit: the fit's Trainer
+    three steps, a save, a load into a fresh optimizer, the fourth step;
+    its params equal an uninterrupted run's fourth bit for bit, through
+    torch.save and through npz."""
+    tr, target = fit_scene(dev)
+    tf, ys, xs = tr.shard_target(target)
+    gen = generator(dev, 5)
+    draws = [tr._draws(gen, dev) for _ in range(4)]
+
+    def fresh():
+        p = {"mass": torch.tensor(0.35, device=dev).requires_grad_(True)}
+        return p, tr.init(p)
+
+    p, st = fresh()
+    for k in range(4):
+        p, st, _ = tr.step(p, st, tf, ys, xs, draws[k])
+    ref = p["mass"].detach().clone()
+    base = ROOT / "build" / "chip_smoke"
+    base.mkdir(parents=True, exist_ok=True)
+    for suffix in (".pt", ".npz"):
+        p, st = fresh()
+        for k in range(3):
+            p, st, _ = tr.step(p, st, tf, ys, xs, draws[k])
+        path = str(base / f"train_state{suffix}")
+        save_train_state(path, p, st, 3)
+        p2, s2, step = load_train_state(path, like=(p, st))
+        p = {k: v.clone().requires_grad_(True) for k, v in p2.items()}
+        st = tr.init(p)
+        st.load_state_dict(s2)
+        p, st, _ = tr.step(p, st, tf, ys, xs, draws[3])
+        same = torch.equal(p["mass"].detach(), ref) and step == 3
+        log(f"# phase 39: checkpoint ({suffix}) after 3 of 4 steps, resumed:"
+            f" the 4th step's mass {float(p['mass'].detach()):.9g} against "
+            f"{float(ref):.9g} uninterrupted, "
+            + ("equal bit for bit" if same else "DIFFERENT"))
+        check(same, f"the resumed fit ({suffix}) differs from the "
+              "uninterrupted one")
+
+
 def main() -> int:
     # --- phase 0: the card -----------------------------------------------
     if not torch.cuda.is_available():
@@ -5451,6 +6170,15 @@ def main() -> int:
           phase_stokes, dev, name_limit, readings)
     phase("phase 33 (Gen-1 hybrid)", phase_hybrid, dev, name_limit,
           readings)
+    phase("phase 34 (full-size goldens)", phase_goldens, dev, readings)
+    phase("phase 35 (surrogate inference)", phase_surrogate_infer, dev,
+          name_limit, readings)
+    phase("phase 36 (surrogate training)", phase_surrogate_train, dev,
+          name_limit, readings)
+    phase("phase 37 (sharded renders)", phase_sharded, scene, cam, dev,
+          name_limit, readings)
+    phase("phase 38 (Trainer)", phase_trainer, dev, name_limit, readings)
+    phase("phase 39 (checkpoint)", phase_checkpoint, dev, readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
@@ -5506,6 +6234,9 @@ def main() -> int:
                     for k, r in v.items())
         + f"; SurrogateTable.build {t['build_ms']:.3f} ms, approx frame "
         f"{t['approx_frame_ms']:.3f} ms [{name_limit}]")
+    for key in ("goldens", "surrogate", "trainer"):
+        for k, v in readings.pop(key, {}).items():
+            log(f"# {key}: {k} = {v} [{name_limit}]")
     # a variant's launches: its earlier main path's and this slice's
     for name in KERNELS:
         r = readings[name]

@@ -31,6 +31,7 @@ from blackhole_geodesic_calculator_tpu.scene import (  # noqa: E402
     Scene as JScene, Spheres as JSpheres)
 import blackhole_geodesic_calculator_tpu_torch as P  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch import convert  # noqa: E402
+from blackhole_geodesic_calculator_tpu_torch.models.surrogate import init_params  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.render import limited as TL  # noqa: E402
 
 
@@ -291,16 +292,22 @@ def test_ray_spheres_ties_and_misses_match_jax():
 
 
 def test_approx_needs_a_table_for_a_spinning_hole():
-    """approx for a Kerr hole raises ValueError without a table, and a
-    table that is not a SurrogateTable (the learned surrogate, not ported
-    yet) raises TypeError."""
+    """approx for a Kerr hole raises ValueError without a table, and takes
+    a learned NeuralSurrogate as its table: the Kerr approx frame is
+    finite."""
     scene, cam, cfg, lcfg = port(
         JScene(bh=JBlackHole.make(mass=0.5, spin=0.45), background=sky()),
         JCAM, JCFG, dataclasses.replace(JLCFG, approx=True))
     with pytest.raises(ValueError, match="learned surrogate"):
         P.render_limited(scene, cam, cfg, lcfg)
-    with pytest.raises(TypeError, match="NeuralSurrogate"):
-        P.render_limited(scene, cam, cfg, lcfg, table=object())
+    gen = torch.Generator("cpu")
+    gen.manual_seed(0)
+    scfg = P.SurrogateConfig(width=32, depth=2, r_influence=lcfg.r_influence)
+    sur = P.NeuralSurrogate(init_params(gen, scfg), mass=0.5, spin=0.45,
+                            r_influence=scfg.r_influence)
+    img = P.render_limited(scene, cam, cfg, lcfg, table=sur)
+    assert img.shape == (cfg.height, cfg.width, 4)
+    assert bool(torch.isfinite(img).all())
 
 
 def test_convert_limited_config_and_table():
