@@ -20,7 +20,12 @@ space only inside a sphere of influence, through a ``SurrogateTable`` or
 a ``NeuralSurrogate``, the MLP ``train_surrogate`` fits to the live
 integrator).  ``parallel`` splits renders over the ranks of a
 torch.distributed group and fits scene parameters to target images
-(``Trainer``), and ``io_`` checkpoints a training run.
+(``Trainer``), and ``io_`` checkpoints a training run.  The host
+surfaces: ``io_.config`` builds scenes from the JSON configs of
+examples/, ``scene.textures`` names the textures, ``native`` is the C++
+runtime (the float64 oracle, PNG/PFM IO, the async ``FrameWriter``),
+``compat`` the curvedpy-compatible API and ``cli`` the ``bhgc-torch``
+command line.
 """
 
 # models before ops: the surrogate imports the integrator, whose modules

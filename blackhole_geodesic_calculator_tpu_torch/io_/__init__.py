@@ -1,7 +1,12 @@
-"""IO: PNG out, images in, the HDR tonemap, and training checkpoints."""
+"""IO: images (PNG out, images in, the HDR tonemap), scene configs and
+training checkpoints."""
 
-from .checkpoint import load_train_state, save_train_state
-from .image import read_image, tonemap, write_png
+from .image import write_png, read_image, tonemap
+from .config import SceneConfig, load_config, build_scene
+from .checkpoint import save_train_state, load_train_state
 
-__all__ = ["load_train_state", "read_image", "save_train_state", "tonemap",
-           "write_png"]
+__all__ = [
+    "write_png", "read_image", "tonemap",
+    "SceneConfig", "load_config", "build_scene",
+    "save_train_state", "load_train_state",
+]

@@ -2,8 +2,12 @@
 may not import).
 
 PNG out through a pure-zlib encoder, so writing frames needs no dependency
-beyond numpy; images in through PIL; and a Reinhard tonemap for the disk's
-HDR intensities.  The JAX package's native C++ encoder is not copied here.
+beyond numpy.  Unlike the JAX package, ``write_png`` never takes the native
+C++ encoder: on the card's host that encoder writes a 1024^2 frame slower
+than zlib (PERF.md §5), and the native library's gain is its threads, which
+``native.FrameWriter`` gives ``cli animate``.  Images in through PIL, else
+through the native PNG decoder, and ``.pfm`` maps through the native PFM
+decoder; and a Reinhard tonemap for the disk's HDR intensities.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ def write_png(path: str, img, clip: bool = True) -> str:
     to the host first (render_image_u8's frame is a quarter of the float
     frame's bytes).
 
-    Writes atomically (tmp file + rename): a reader never sees a truncated
-    file after a crash mid-write.
+    Writes atomically (tmp file + rename): a reader -- ``cli animate
+    --resume``'s existence check among them -- never sees a truncated file
+    after a crash mid-write.
     """
     if isinstance(img, torch.Tensor):
         img = img.detach().cpu().numpy()
@@ -67,11 +72,21 @@ def write_png(path: str, img, clip: bool = True) -> str:
 
 
 def read_image(path: str) -> np.ndarray:
-    """Image file -> (H, W, 3) float32 in [0, 1] (the sky-map loader).
-    Needs PIL (the ``pillow`` package); without it, raises ImportError."""
+    """Image file -> (H, W, 3) float32 in [0, 1] (the sky-map loader):
+    a ``.pfm`` map through the native PFM decoder, clipped to [0, 1];
+    anything else through PIL, or without PIL an 8-bit PNG through the
+    native decoder."""
+    from .. import native
+
+    if path.lower().endswith(".pfm"):
+        return np.clip(native.read_pfm(path), 0.0, 1.0)
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError("read_image needs PIL (the pillow package), "
-                          "which is not installed") from e
+        if not native.available():
+            raise ImportError("read_image needs PIL (the pillow package) "
+                              "or the native library, and has neither"
+                              ) from e
+        arr = native.read_png(path)
+        return np.asarray(arr[..., :3], np.float32) / 255.0
     return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0

@@ -25,9 +25,10 @@ from .schwarzschild import outer
 
 
 def ks_radius(x3: torch.Tensor, a) -> torch.Tensor:
-    """Kerr-Schild radius r(x, y, z); equals |x3| when a = 0.  No floor:
-    the integrator kernels floor r^2 at 1e-12, the plain path does not,
-    as in the JAX package."""
+    """Kerr-Schild radius r(x, y, z); equals |x3| when a = 0.  No floor
+    here: the integrator kernels floor r^2 at 1e-12, the plain integrator
+    floors r at 1e-6 (ops/geodesic.ks_fields), and the metric and the
+    polarization transport take it unfloored, as in the JAX package."""
     rho2 = torch.sum(x3 * x3, dim=-1)
     z2 = x3[..., 2] * x3[..., 2]
     b = rho2 - a * a
@@ -35,9 +36,12 @@ def ks_radius(x3: torch.Tensor, a) -> torch.Tensor:
     return torch.sqrt(r2)
 
 
-def ks_scalars(x3: torch.Tensor, mass, a):
-    """(H, l3): the Kerr-Schild potential and the spatial null covector."""
-    r = ks_radius(x3, a)
+def ks_scalars(x3: torch.Tensor, mass, a, r=None):
+    """(H, l3): the Kerr-Schild potential and the spatial null covector;
+    ``r`` is the radius where the caller has it (floored), else
+    ``ks_radius(x3, a)``."""
+    if r is None:
+        r = ks_radius(x3, a)
     x, y, z = x3[..., 0], x3[..., 1], x3[..., 2]
     r2a2 = r * r + a * a
     lx = (r * x + a * y) / r2a2

@@ -32,11 +32,16 @@ def _schwarzschild_scalars(x3, mass):
 
 
 def ks_fields(x3, mass, a):
-    """(q, l3, r) with q = 2H for the Kerr-Schild family; a may be None."""
+    """(q, l3, r) with q = 2H for the Kerr-Schild family; a may be None.
+
+    The Kerr radius is floored as the Schwarzschild r^2 is: a captured ray
+    frozen on the ring's disk (z = 0, rho < |a|, where r = 0) keeps a
+    finite velocity and direction; elsewhere the floor changes no bit."""
     if a is None:
         return _schwarzschild_scalars(x3, mass)
-    H, l3 = ks_scalars(x3, mass, a)
-    return 2.0 * H, l3, ks_radius(x3, a)
+    r = torch.clamp_min(ks_radius(x3, a), _R2_FLOOR ** 0.5)
+    H, l3 = ks_scalars(x3, mass, a, r=r)
+    return 2.0 * H, l3, r
 
 
 def null_init(x3: torch.Tensor, d: torch.Tensor, mass,

@@ -9,8 +9,10 @@ dopri_fwd, dopri_ckpt and dopri_bwd, BASELINE config 4's multisampled
 animation frame and massive particles through all six, the polarized
 (Stokes) frame, the polarization maps and the Gen-1 hybrid renderer
 through rk4_fwd, the learned surrogate trained on rk4_fwd's labels, the
-sharded renders and the Trainer through rk4_ckpt and rk4_bwd -- and fails
-(non-zero exit, no result line) if anything is off:
+sharded renders and the Trainer through rk4_ckpt and rk4_bwd, and the
+host surfaces: the native runtime, the CLI's render of every example and
+its animation, the compat API -- and fails (non-zero exit, no result
+line) if anything is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
   1. builds the kernels from the checkout's sources (build/kernels/), one
@@ -237,7 +239,33 @@ sharded renders and the Trainer through rk4_ckpt and rk4_bwd -- and fails
      the mass within 0.05;
  39. saves and loads the fit's training state after three steps
      (torch.save and npz): the fourth step equals an uninterrupted run's
-     bit for bit.
+     bit for bit;
+ 40. builds the native runtime (the C++ oracle, PNG/PFM IO and the async
+     FrameWriter) from the port's copy of its sources into build/native/
+     and fails with the compiler's message if it does not build; its
+     status codes equal ops/states.py's; the FrameWriter writes config
+     4's SIZE^2 uint8 frame (examples/orbit_animation.json), which decodes
+     back equal; the native encoder's ms against the pure-zlib encoder's;
+ 41. ``cli render`` of every examples/*.json at its own size, in this
+     process: the kernel variant of its path (K1's, or K4 for the
+     Dormand-Prince ring), once per row band or sample, and no plain loop;
+     the decoded PNG equal to the host quantization of the port's own
+     render of build_scene(cfg) bit for bit; that render against the
+     plain render by phase 27's image rule (phase 23's for the ring, 33's
+     for the hybrid, 32's for the Stokes frame, its Q/U bound away from
+     b_c and the ulp-sensitive rays); the Stokes example's _stokes.npz
+     equal to render_stokes's planes; wall ms per example;
+ 42. ``cli animate examples/orbit_animation.json`` at SIZE^2 x
+     ANIM_SAMPLES spp, ANIM_FRAMES frames through the native FrameWriter:
+     every frame equal to render_image_u8 of its orbit camera, then the
+     last frame deleted and ``--resume`` making every file byte-identical;
+     frames/s and the device's busy share over the command;
+ 43. ``precompute-camera`` at 124^2 through one rk4_fwd launch, held to
+     the plain path on the card, its npz round trip; compat's native
+     backend against the torch one; ``train-surrogate`` (200 steps at
+     limited_hybrid.json's mass, ratio and exit tolerance) and that config
+     rendered through the npz, another ratio refused; ``profile-train``'s
+     op table with rk4_ckpt and rk4_bwd and a collective share of 0.
 
 The two-rank paths (the sample group's all_reduce, the ray group's
 all_gather, the gradient average) need two ranks; two NCCL ranks cannot
@@ -250,7 +278,8 @@ standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launch count on the main paths
 (``launches_by_path`` when more than one runs it), error, times and
 bound, and for the variants of phases 28, 30, 32, 33, 36 and 38 their
-readings there.  Imports nothing of JAX.
+readings there; phases 41-43 add the CLI's paths to ``launches_by_path``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -260,7 +289,9 @@ import concurrent.futures
 import dataclasses
 import functools
 import json
+import math
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -273,10 +304,14 @@ import numpy as np
 import torch
 
 import blackhole_geodesic_calculator_tpu_torch as P
+from blackhole_geodesic_calculator_tpu_torch import cli, compat, native
 from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
     generate_rays, pixel_grid)
 from blackhole_geodesic_calculator_tpu_torch.io_ import (
-    load_train_state, save_train_state, write_png)
+    build_scene, load_config, load_train_state, save_train_state, tonemap,
+    write_png)
+from blackhole_geodesic_calculator_tpu_torch.io_.config import build_limited
+from blackhole_geodesic_calculator_tpu_torch.io_.image import _png_bytes
 from blackhole_geodesic_calculator_tpu_torch.models.kerr import (
     horizon_radius, kerr_ks_metric)
 from blackhole_geodesic_calculator_tpu_torch.models import surrogate
@@ -552,6 +587,8 @@ NO_GUARD = ("BHGC_SPHERE_GUARD=0",)
 IEEE = ("BHGC_IEEE_RECIPROCALS=1",)
 
 FAILURES: list[str] = []
+# phase 1's build of the native runtime: whether it built, and its seconds
+NATIVE_BUILD: dict = {}
 # The readings each kernel's entry in the kernels line must carry.
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -937,14 +974,27 @@ def step_profile(step, wall, what, name_limit, runs=5):
 # =============================================================================
 # Phases.
 # =============================================================================
+def timed_native_build():
+    """(native.available(), seconds): the native runtime's build (make,
+    g++ and zlib) and load."""
+    t0 = time.perf_counter()
+    return native.available(), time.perf_counter() - t0
+
+
 def phase_build():
     t0 = time.perf_counter()
-    # the shipped library and the witness builds, all at once
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    # the shipped library and the witness builds, all at once, and beside
+    # them the native runtime (phase 40 fails if it did not build)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        built = pool.submit(timed_native_build)
         lib_path, *_ = pool.map(_build.build, [(), NO_GUARD, IEEE])
+        NATIVE_BUILD.update(zip(("ok", "s"), built.result()))
     _build.load()
     log(f"# phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
-        f"-> {lib_path.relative_to(ROOT)}")
+        f"-> {lib_path.relative_to(ROOT)}; the native runtime "
+        + (f"built in {NATIVE_BUILD['s']:.1f} s -> "
+           f"{native._LIB_PATH.relative_to(ROOT)}" if NATIVE_BUILD["ok"]
+           else f"FAILED to build: {native.load_error()}"))
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "error" in line):
@@ -4176,9 +4226,10 @@ def count_path(readings, path, launches):
 
 
 def read_png(path):
-    """An 8-bit RGB(A) PNG whose rows all have filter 0 (the port's
-    encoder) as a (H, W, C) uint8 array, with zlib alone.  Checks each
-    chunk's CRC."""
+    """An 8-bit RGB(A) PNG whose rows have filter 0 (the pure-zlib
+    encoder), 1 (Sub) or 2 (Up) -- the native encoder Sub-filters the
+    first row and Up-filters the rest -- as a (H, W, C) uint8 array, with
+    zlib and numpy alone.  Checks each chunk's CRC."""
     data = Path(path).read_bytes()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise AssertionError(f"{path} is not a PNG")
@@ -4197,9 +4248,18 @@ def read_png(path):
         pos += 12 + n
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
         shape[0], 1 + shape[1] * shape[2])
-    if not (raw[:, 0] == 0).all():
-        raise AssertionError(f"{path}: a row with a filter other than 0")
-    return raw[:, 1:].reshape(shape)
+    if not np.isin(raw[:, 0], (0, 1, 2)).all():
+        raise AssertionError(f"{path}: a row with a filter other than 0-2")
+    rows = raw[:, 1:].reshape(shape).astype(np.int64)
+    prev = np.zeros(shape[1:], np.int64)
+    for y in range(shape[0]):
+        if raw[y, 0] == 1:
+            rows[y] = np.cumsum(rows[y], axis=0)
+        elif raw[y, 0] == 2:
+            rows[y] += prev
+        rows[y] %= 256
+        prev = rows[y]
+    return rows.astype(np.uint8)
 
 
 def plain_kernel_ms(env, s0, cfg):
@@ -6087,6 +6147,468 @@ def phase_checkpoint(dev, readings):
               "uninterrupted one")
 
 
+# =============================================================================
+# The host surfaces: the native runtime, the CLI, the config, compat.
+# =============================================================================
+EXAMPLES = ROOT / "examples"
+# (config, CLI flags, the launches of its render: one per row band of
+# render_progressive at one sample a pixel, one per sample otherwise)
+EXAMPLE_RENDERS = (
+    ("disk_moons", ("--tonemap",), {"rk4_fwd_events": 16}),
+    ("orbit_animation", ("--tonemap",), {"rk4_fwd_events": ANIM_SAMPLES}),
+    ("kerr_disk", ("--tonemap",), {"rk4_fwd_kerr_events": 16}),
+    ("einstein_ring_dopri", (), {"dopri_fwd_events": 16}),
+    ("limited_hybrid", (), {"rk4_fwd": 1}),
+    ("quickstart", (), {"rk4_fwd": 16}),
+    ("stokes_polarization", ("--stokes",), {"rk4_fwd_events": 1}),
+)
+STATUS_NAMES = ("ACTIVE", "CAPTURED", "ESCAPED", "BUDGET", "DISK", "OBJECT",
+                "INSIDE_HORIZON", "ERROR")
+
+
+def quantize(img):
+    """The host's quantization of a float frame, io_.write_png's."""
+    return (np.clip(np.asarray(img, np.float32), 0.0, 1.0) * 255.0
+            + 0.5).astype(np.uint8)
+
+
+class PlainCalls:
+    """Counts the calls of the plain integrator (cuda_kernel.
+    integrate_plain) inside the block: a path that should run the kernels
+    calls it never."""
+
+    def __enter__(self):
+        self.n, self._orig = 0, cuda_kernel.integrate_plain
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self._orig(*args, **kw)
+
+        cuda_kernel.integrate_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        cuda_kernel.integrate_plain = self._orig
+
+
+def run_cli(*argv):
+    """``cli.main`` in this process on the card, its standard output
+    captured; (its return value, the output, host ms)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(["--device", DEVICE, *argv])
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def frame_rays(scene, cam, cfg, dev):
+    """A frame's environment and initial state over its whole (height,
+    width) window, as render_image builds them."""
+    ys, xs = pixel_grid(cfg.width, cfg.height, device=dev)
+    o, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
+    fenv = scene_env(scene, cfg, cam)
+    return fenv, initial_state(fenv, o - scene.bh.loc, d)
+
+
+def phase_native(dev, name_limit, readings):
+    """The native runtime on the card's host: the library builds from the
+    port's copy of the sources (or the phase fails with the compiler's
+    message), its status codes are ops/states.py's, and the FrameWriter
+    writes config 4's SIZE^2 uint8 frame (examples/orbit_animation.json,
+    frame 1 of ANIM_FRAMES) so that it decodes back equal; the native
+    encoder's ms against the pure-zlib encoder's on that frame."""
+    if not NATIVE_BUILD:
+        NATIVE_BUILD.update(zip(("ok", "s"), timed_native_build()))
+    if not NATIVE_BUILD["ok"]:
+        raise AssertionError(f"the native library did not build: "
+                             f"{native.load_error()}")
+    build_s = NATIVE_BUILD["s"]
+    log(f"# phase 40: native library built and loaded in {build_s:.1f} s -> "
+        f"{native._LIB_PATH.relative_to(ROOT)}")
+    for name in STATUS_NAMES:
+        check(getattr(native, name) == getattr(states, name),
+              f"native.{name} differs from ops/states.py")
+    cfg = load_config(str(EXAMPLES / "orbit_animation.json"))
+    scene, cam, rcfg = build_scene(cfg, device=dev)
+    r = float(np.linalg.norm(np.subtract(cfg.camera_location, cfg.bh_loc)))
+    u8 = P.render_image_u8(scene, cli.orbit_camera(
+        cam, cfg.bh_loc, r, 2 * np.pi / ANIM_FRAMES), rcfg).cpu().numpy()
+    out = ROOT / "build" / "chip_smoke" / "native"
+    out.mkdir(parents=True, exist_ok=True)
+    path = str(out / "frame.png")
+    with native.FrameWriter(threads=4) as fw:
+        fw.submit(path, u8)
+    same = (np.array_equal(read_png(path), u8)
+            and np.array_equal(native.read_png(path), u8))
+    log(f"# phase 40: FrameWriter wrote the {u8.shape} uint8 frame of "
+        f"config 4 ({Path(path).stat().st_size / 1e6:.2f} MB); it decodes "
+        + ("back equal" if same else "DIFFERENTLY"))
+    check(same, "the FrameWriter's PNG does not decode to the frame")
+    zpath = out / "zlib.png"
+    ms = {"native": timed(lambda: native.write_png(path, u8), runs=5),
+          "zlib": timed(lambda: zpath.write_bytes(_png_bytes(u8)), runs=5),
+          "native, level 1": timed(lambda: native.write_png(
+              str(out / "level1.png"), u8, compress_level=1), runs=5)}
+    sizes = {k: Path(q).stat().st_size / 1e6 for k, q in (
+        ("native", path), ("zlib", zpath), ("native, level 1",
+                                            out / "level1.png"))}
+    log(f"# phase 40: PNG encode+write of the {u8.shape} uint8 frame "
+        "(median of 5): " + ", ".join(
+            f"{k} {v:.3f} ms ({sizes[k]:.3f} MB)" for k, v in ms.items())
+        + f" [{name_limit}]")
+    readings["host"] = {"native_build_s": build_s,
+                        "native_png_ms": ms["native"],
+                        "zlib_png_ms": ms["zlib"],
+                        "native_level1_png_ms": ms["native, level 1"]}
+
+
+def example_reference(name, scene, cam, rcfg, cfg, dev):
+    """(float image, plain image) of an example as the CLI renders it:
+    render_stokes's rgb in the white frame (and its Q, U) for the Stokes
+    example, render_limited for the hybrid, render_image for the rest; the
+    plain one on the plain path."""
+    if name == "stokes_polarization":
+        out = [no_grad(lambda c=c: P.render_stokes(scene, cam, c))()
+               for c in (rcfg, plain(rcfg))]
+        return out
+    if cfg.engine == "limited":
+        lcfg, table = build_limited(cfg, device=dev)
+        return [no_grad(lambda c=c: P.render_limited(
+            scene, cam, c, lcfg, table=table))() for c in (rcfg, plain(rcfg))]
+    return [no_grad(lambda c=c: P.render_image(scene, cam, c))()
+            for c in (rcfg, plain(rcfg))]
+
+
+def phase_examples(dev, name_limit, readings):
+    """``cli render`` of every examples/*.json at its own size, in this
+    process on the card: the kernel variant its path takes (K1 in its
+    variant, or K4 for the Dormand-Prince ring) and no plain loop; the
+    decoded PNG equal to the host quantization of the port's own render of
+    build_scene(cfg) bit for bit; that render against the plain render by
+    phase 27's image rule (disk_moons, orbit_animation, kerr_disk,
+    quickstart), phase 23's (the ring), phase 33's (the hybrid) and phase
+    32's (the Stokes frame: rgb, and Q and U where the statuses agree
+    away from b_c and the ulp-sensitive rays, more than a row polarized);
+    the Stokes example's _stokes.npz equal to render_stokes's planes; wall
+    ms of each command."""
+    out = ROOT / "build" / "chip_smoke" / "examples"
+    out.mkdir(parents=True, exist_ok=True)
+    walls = {}
+    for name, flags, want in EXAMPLE_RENDERS:
+        path = str(EXAMPLES / f"{name}.json")
+        png = str(out / f"{name}.png")
+        reset_counts()
+        with PlainCalls() as pc:
+            _, _, wall = run_cli("render", path, "-o", png, *flags)
+        launches = read_counts()
+        count_path(readings, f"cli render {name}", launches)
+        walls[name] = wall
+        check(launches == only(**want) and pc.n == 0,
+              f"cli render {name} launched {launches} and the plain loop "
+              f"{pc.n} times, expected {want}")
+        cfg = load_config(path)
+        scene, cam, rcfg = build_scene(cfg, device=dev)
+        ref, ref_p = example_reference(name, scene, cam, rcfg, cfg, dev)
+        if name == "stokes_polarization":
+            (rgb, Q, U), (rgb_p, Q_p, U_p) = ref, ref_p
+            img = torch.ones((rcfg.height, rcfg.width, 4), device=dev)
+            img[..., :3] = rgb
+            image_rule(rgb, rgb_p, f"{name} rgb, kernel vs plain",
+                       FLAGSHIP_MEAN, FLAGSHIP_FRAC)
+            # the frame's rays as phase 32 holds the Stokes frame's: final
+            # states against the plain loop's (rays near b_c and those one
+            # ulp moves held to lam within half a step), then Q and U within
+            # TOL_STOKES on the rays whose status agrees, and more than a
+            # row of polarized pixels.  Unlike phase 32, the rays near b_c
+            # and the ulp-sensitive ones are left out of the Q/U bound
+            # (their states are held above): on this frame a near-b_c disk
+            # ray reads 1.123e-03, as far as two correct float32 paths part
+            # there.  Their reading is logged.
+            fenv, s0 = frame_rays(scene, cam, rcfg, dev)
+            icfg = rcfg.integrator
+            with torch.no_grad():
+                s = cuda_kernel.integrate_cuda(fenv, s0, icfg)
+                sp = cuda_kernel.integrate_plain(fenv, s0, icfg)
+            near = near_b_c(fenv, s0) | ulp_sensitive(fenv, icfg, s0, sp)
+            compare_events(fenv, icfg, flat_state(s0), flat_state(s),
+                           flat_state(sp), f"{name} {rcfg.width}x"
+                           f"{rcfg.height}", near.reshape(-1))
+            same = s.status == sp.status
+            dqu = torch.maximum((Q - Q_p).abs(), (U - U_p).abs())
+            dq = masked_max(dqu, same & ~near)
+            pol = int((torch.hypot(Q_p, U_p) > 1e-4).sum())
+            log(f"# phase 41: {name}: Q/U on the {int((same & ~near).sum())} "
+                f"rays whose status agrees away from b_c: max |d| {dq:.3e} "
+                f"(limit {TOL_STOKES:g}); on the {int((same & near).sum())} "
+                f"near it {masked_max(dqu, same & near):.3e} (a reading); "
+                f"{pol} polarized pixels")
+            check(dq <= TOL_STOKES and pol > rcfg.width,
+                  f"{name}: Q/U differ from the plain render's")
+            # the CLI's Stokes planes are the port's own render_stokes's
+            npz = np.load(str(out / f"{name}_stokes.npz"))
+            same_npz = all(np.array_equal(npz[k], v.cpu().numpy())
+                           for k, v in (("rgb", rgb), ("Q", Q), ("U", U)))
+            log(f"# phase 41: {name}: the CLI's _stokes.npz rgb/Q/U "
+                + ("equal" if same_npz else "DIFFER from")
+                + " render_stokes's")
+            check(same_npz, f"cli render {name}: the _stokes.npz is not the "
+                  "port's own render_stokes")
+        else:
+            img = ref
+            if cfg.engine == "limited":
+                hybrid_pixels(img, ref_p, f"{name}, kernel vs plain")
+            elif cfg.method == "dopri":
+                image_rule(img, ref_p, f"{name}, kernel vs plain",
+                           GOLDEN_MEAN, GOLDEN_FRAC)
+            else:
+                image_rule(img, ref_p, f"{name}, kernel vs plain",
+                           FLAGSHIP_MEAN, FLAGSHIP_FRAC)
+        host = img.cpu().numpy()
+        if "--tonemap" in flags:
+            host = np.concatenate([tonemap(host[..., :3]), host[..., 3:]], -1)
+        got = read_png(png)
+        same_png = got.shape == host.shape and np.array_equal(got,
+                                                              quantize(host))
+        log(f"# phase 41: cli render {name} {rcfg.width}x{rcfg.height} x "
+            f"{rcfg.samples} spp {' '.join(flags)}: {wall:.3f} ms, launches "
+            f"{launches}; the PNG "
+            + ("equals" if same_png else "DIFFERS from")
+            + f" the host quantization of render(build_scene(cfg)) "
+            f"[{name_limit}]")
+        check(same_png, f"cli render {name}: the PNG is not the port's own "
+              "render")
+    readings.setdefault("host", {})["cli_render_ms"] = walls
+
+
+def busy_share(fn):
+    """(device busy ms, wall ms) of one call of ``fn`` under the
+    profiler: the sum of the device kernels' and copies' times against
+    the call's host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+    return busy, wall
+
+
+def phase_animate(dev, name_limit, readings):
+    """``cli animate examples/orbit_animation.json`` at full width
+    (BASELINE config 4: SIZE^2, ANIM_SAMPLES samples, ANIM_FRAMES frames)
+    through the native FrameWriter: rk4_fwd_events ANIM_SAMPLES times a
+    frame and nothing else; every frame decodes equal to render_image_u8
+    of that frame's orbit camera; the last frame deleted and the command
+    rerun with --resume, every file comes back byte-identical (the twin of
+    tests/test_golden_baseline.py::test_animation_resume_bit_identical);
+    frames/s (against phase 27's loop through the synchronous write) and
+    the device's busy share over the command."""
+    path = str(EXAMPLES / "orbit_animation.json")
+    out = ROOT / "build" / "chip_smoke" / "animate"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pat = str(out / "f_{frame:04d}.png")
+    args = ("animate", path, "--frames", str(ANIM_FRAMES), "--out-pattern",
+            pat)
+    reset_counts()
+    with PlainCalls() as pc:
+        _, _, wall = run_cli(*args)
+    launches = read_counts()
+    count_path(readings, "cli animate", launches)
+    check(launches == only(rk4_fwd_events=ANIM_SAMPLES * ANIM_FRAMES)
+          and pc.n == 0,
+          f"cli animate launched {launches} and the plain loop {pc.n} "
+          f"times, expected rk4_fwd_events {ANIM_SAMPLES * ANIM_FRAMES}")
+    files = [pat.format(frame=f) for f in range(ANIM_FRAMES)]
+    data = [Path(p).read_bytes() for p in files]
+    cfg = load_config(path)
+    scene, cam, rcfg = build_scene(cfg, device=dev)
+    r = float(np.linalg.norm(np.subtract(cfg.camera_location, cfg.bh_loc)))
+    bad = []
+    for f, p in enumerate(files):
+        phi = 2 * np.pi * f / ANIM_FRAMES
+        fcam = P.Camera.make(
+            position=tuple(np.asarray(cfg.bh_loc) + r * np.asarray(
+                [np.sin(phi), 0.0, np.cos(phi)])), euler=(0.0, phi, 0.0),
+            fov=(cfg.field_of_view_x, cfg.field_of_view_y), device=dev)
+        if not np.array_equal(read_png(p), P.render_image_u8(
+                scene, fcam, rcfg).cpu().numpy()):
+            bad.append(f)
+    log(f"# phase 42: cli animate {ANIM_FRAMES} frames {rcfg.width}x"
+        f"{rcfg.height} x {rcfg.samples} spp through the native FrameWriter "
+        f"in {wall:.3f} "
+        f"ms: {ANIM_FRAMES / wall * 1e3:.3f} frames/s (the command, scene "
+        f"build included; phase 27's loop through the synchronous write "
+        f"{readings.get('animation', {}).get('frames_per_s', math.nan):.3f})"
+        f" [{name_limit}]; "
+        f"frames not equal to render_image_u8 of their camera: {bad}")
+    check(not bad, f"cli animate frames {bad} differ from render_image_u8")
+
+    Path(files[-1]).unlink()
+    reset_counts()
+    run_cli(*args, "--resume")
+    launches = read_counts()
+    same = [Path(p).read_bytes() == d for p, d in zip(files, data)]
+    log(f"# phase 42: the last frame deleted, --resume rendered it again "
+        f"(launches {launches}): "
+        + ("every file byte-identical" if all(same) else
+           f"frames {[f for f, s in enumerate(same) if not s]} DIFFER"))
+    check(all(same) and launches == only(rk4_fwd_events=ANIM_SAMPLES),
+          "animate --resume is not byte-identical")
+
+    shutil.rmtree(out)
+    out.mkdir()
+    busy, pwall = busy_share(lambda: run_cli(*args))
+    log(f"# phase 42: cli animate under the profiler: device busy "
+        f"{busy:.3f} ms of {pwall:.3f} ms wall, {100 * busy / pwall:.1f}% "
+        f"[{name_limit}]")
+    readings.setdefault("host", {}).update(
+        animate_ms=wall, animate_frames_per_s=ANIM_FRAMES / wall * 1e3,
+        animate_busy=busy / pwall)
+
+
+def phase_compat(dev, name_limit, readings):
+    """compat and the other subcommands: ``precompute-camera`` at its
+    default 124^2 (one rk4_fwd launch), its ray_blackhole_hit and ray_end
+    against the plain path on the card (hits equal but near b_c, exit
+    points within TOL_X and directions within TOL_DIR away from it), its
+    npz's save/load round trip; GeodesicIntegratorSchwarzschild's native
+    backend against the torch one on a short fan (captures equal, as
+    tests/test_native.py::test_compat_native_backend); ``train-surrogate``
+    at limited_hybrid.json's mass, ratio and exit tolerance (200 steps,
+    a = 0), a copy of that config with approx and the npz rendering
+    through it and one with another ratio refused; ``profile-train --size
+    256``: rk4_ckpt and rk4_bwd in its op table, a collective share of 0."""
+    out = ROOT / "build" / "chip_smoke" / "compat"
+    out.mkdir(parents=True, exist_ok=True)
+    npz = str(out / "camera.npz")
+    reset_counts()
+    _, _, pre_ms = run_cli("precompute-camera", "-o", npz)
+    launches = read_counts()
+    count_path(readings, "cli precompute-camera", launches)
+    check(launches == only(rk4_fwd=1),
+          f"precompute-camera launched {launches}, expected rk4_fwd once")
+    # the CLI's file is RelativisticCamera.run's launch on the card; that
+    # launch's rays against the plain path's as phase 3 holds the
+    # flagship's (statuses equal, the state tolerances away from b_c,
+    # rays a step apart at a boundary aligned)
+    rc = compat.RelativisticCamera(device=dev)
+    env, o, d, icfg = rc.setup()
+    s0 = flat_state(initial_state(env, o, d))
+    with torch.no_grad():
+        sk = cuda_kernel.integrate_cuda(env, s0, icfg)
+        sp = cuda_kernel.integrate_plain(env, s0, icfg)
+        dk = final_direction(env, sk)
+    h, w = rc.resolution
+    hit_k = ((sk.status == states.CAPTURED)
+             | (sk.status == states.INSIDE_HORIZON)).reshape(h, w)
+    with np.load(npz) as z:
+        same = (np.array_equal(z["ray_blackhole_hit"],
+                               hit_k.cpu().numpy().astype(np.int8))
+                and np.array_equal(z["ray_end"], torch.cat(
+                    [sk.x, dk], -1).reshape(h, w, 6).cpu().numpy()))
+    e, n_al, lam_band = compare_flagship(env, icfg, s0, sk, sp,
+                                         f"precompute-camera {h}x{w}")
+    log(f"# phase 43: precompute-camera {h}x{w} in {pre_ms:.3f} ms: "
+        f"{int(hit_k.sum())} captures; the npz "
+        + ("equals" if same else "DIFFERS from")
+        + f" rk4_fwd's launch of its rays; against the plain path error "
+        f"{e:.3e}, {n_al} rays aligned a step apart [{name_limit}]")
+    check(same, "precompute-camera's npz is not its rays' rk4_fwd launch")
+    back = compat.RelativisticCamera().load(npz)
+    rc.run()
+    saved = rc.save(str(out / "again.npz"))
+    again = compat.RelativisticCamera().load(saved)
+    same = (np.array_equal(back.ray_end, rc.ray_end)
+            and np.array_equal(back.ray_blackhole_hit, rc.ray_blackhole_hit)
+            and np.array_equal(again.ray_end, rc.ray_end)
+            and back.resolution == again.resolution == (h, w))
+    check(same, "the camera npz does not round-trip")
+
+    b = np.asarray([1.0, 2.0, 2.4, 2.8, 3.5, 6.0])
+    x0 = np.stack([b, np.zeros_like(b), np.full_like(b, 30.0)], -1)
+    d0 = np.tile([0.0, 0.0, -1.0], (len(b), 1))
+    res = {be: compat.GeodesicIntegratorSchwarzschild(
+        mass=0.5, backend=be, device=dev).calc_trajectory(
+            d0, x0, max_step=0.1 if be == "native" else 0.05,
+            curve_end=300.0)[2] for be in ("native", "torch")}
+    agree = np.array_equal(res["native"]["hit_blackhole"],
+                           res["torch"]["hit_blackhole"])
+    log(f"# phase 43: compat native vs torch backends on the b = {b.tolist()}"
+        f" fan: captures {res['native']['hit_blackhole'].tolist()} and "
+        f"{res['torch']['hit_blackhole'].tolist()}")
+    check(agree, "the native and torch compat backends capture different "
+          "rays")
+
+    sur = str(out / "surrogate.npz")
+    reset_counts()
+    _, text, train_ms = run_cli("train-surrogate", "--steps", "200", "--a", "0",
+                            "--mass", "0.5", "--ratio", "12",
+                            "--exit-tolerance", "0.1", "-o", sur)
+    launches = read_counts()
+    count_path(readings, "cli train-surrogate", launches)
+    log(f"# phase 43: train-surrogate 200 steps in {train_ms:.3f} ms, launches "
+        f"{launches}: " + " ".join(text.split()))
+    check(set(launches) == {"rk4_fwd"} and Path(sur).exists(),
+          f"train-surrogate launched {launches}")
+    base = json.loads((EXAMPLES / "limited_hybrid.json").read_text())
+    good = out / "hybrid_approx.json"
+    good.write_text(json.dumps(dict(base, approx=True, surrogate_path=sur)))
+    png = str(out / "hybrid_approx.png")
+    reset_counts()
+    run_cli("render", str(good), "-o", png)
+    launches = read_counts()
+    count_path(readings, "cli render hybrid approx", launches)
+    cfg = load_config(str(good))
+    scene, cam, rcfg = build_scene(cfg, device=dev)
+    lcfg, table = build_limited(cfg, device=dev)
+    ref = no_grad(lambda: P.render_limited(scene, cam, rcfg, lcfg,
+                                           table=table))().cpu().numpy()
+    same = np.array_equal(read_png(png), quantize(ref))
+    log(f"# phase 43: limited_hybrid.json with approx and the surrogate: "
+        f"rendered through it (launches {launches}), the PNG "
+        + ("equals" if same else "DIFFERS from") + " render_limited's")
+    check(same and np.isfinite(ref).all(), "the approx render through the "
+          "trained surrogate is not render_limited's")
+    bad = out / "hybrid_bad.json"
+    bad.write_text(json.dumps(dict(base, approx=True, surrogate_path=sur,
+                                   ratio_obj_to_blackhole=20.0)))
+    try:
+        run_cli("render", str(bad), "-o", str(out / "bad.png"))
+        refused = False
+    except ValueError as e:
+        refused = "ratio_obj_to_blackhole" in str(e)
+    check(refused, "a surrogate for another ratio was not refused")
+
+    reset_counts()
+    rep, text, prof_ms = run_cli("profile-train", "--size", "256")
+    launches = read_counts()
+    count_path(readings, "cli profile-train", launches)
+    op_text = text.split("(top 15):")[-1].split("collectives:")[0]
+    log(f"# phase 43: profile-train --size 256 in {prof_ms:.3f} ms, launches "
+        f"{launches} [{name_limit}]:")
+    for line in text.strip().splitlines():
+        log(f"#   {line}")
+    check("rk4_bwd" in op_text and "rk4_ckpt" in op_text
+          and rep["collective_share"] == 0,
+          "profile-train's table lacks rk4_bwd or rk4_ckpt, or has "
+          "collectives on one rank")
+    readings.setdefault("host", {}).update(
+        precompute_ms=pre_ms, train_surrogate_ms=train_ms,
+        profile_train_ms=prof_ms)
+
+
 def main() -> int:
     # --- phase 0: the card -----------------------------------------------
     if not torch.cuda.is_available():
@@ -6179,6 +6701,13 @@ def main() -> int:
           name_limit, readings)
     phase("phase 38 (Trainer)", phase_trainer, dev, name_limit, readings)
     phase("phase 39 (checkpoint)", phase_checkpoint, dev, readings)
+    phase("phase 40 (native runtime)", phase_native, dev, name_limit,
+          readings)
+    phase("phase 41 (cli render of the examples)", phase_examples, dev,
+          name_limit, readings)
+    phase("phase 42 (cli animate)", phase_animate, dev, name_limit, readings)
+    phase("phase 43 (compat and the other subcommands)", phase_compat, dev,
+          name_limit, readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
@@ -6234,7 +6763,7 @@ def main() -> int:
                     for k, r in v.items())
         + f"; SurrogateTable.build {t['build_ms']:.3f} ms, approx frame "
         f"{t['approx_frame_ms']:.3f} ms [{name_limit}]")
-    for key in ("goldens", "surrogate", "trainer"):
+    for key in ("goldens", "surrogate", "trainer", "host"):
         for k, v in readings.pop(key, {}).items():
             log(f"# {key}: {k} = {v} [{name_limit}]")
     # a variant's launches: its earlier main path's and this slice's

@@ -316,8 +316,11 @@ def read_png_filter0(path):
 def test_write_png_zlib_round_trip(tmp_path, monkeypatch, channels):
     """write_png needs no PIL: the file decodes byte for byte to the
     frame (a uint8 tensor), and no temporary file is left; read_image
-    without PIL names the package."""
+    without PIL and without the native library names the package."""
+    from blackhole_geodesic_calculator_tpu_torch import native
+
     monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setattr(native, "available", lambda: False)
     rng = np.random.default_rng(5)
     img = torch.as_tensor(rng.integers(0, 256, (9, 13, channels),
                                        dtype=np.uint8))
