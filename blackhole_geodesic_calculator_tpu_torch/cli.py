@@ -24,8 +24,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -249,91 +250,6 @@ def _cmd_train_surrogate(args):
     print(f"wrote {args.out}")
 
 
-COLLECTIVE_KEYS = ("nccl", "gloo", "all_reduce", "all_gather")
-
-
-def kernel_name(name: str) -> str:
-    """A device kernel's name without its return type, namespaces of no
-    interest, template arguments and parameters:
-    "void (anonymous namespace)::rk4_bwd_kernel<1, false, 0>(float
-    const*, ...)" -> "rk4_bwd_kernel"."""
-    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
-    for stop in "<(":
-        name = name.split(stop, 1)[0]
-    return name.strip()
-
-
-def op_rows(prof, on_cuda: bool, repeats: int):
-    """(name, ms a step, calls a step) of every op, largest first: on the
-    card the device kernels (and copies) by ``kernel_name``, on the CPU
-    the ops' self time."""
-    from torch.autograd import DeviceType
-
-    rows: dict[str, list[float]] = {}
-    if on_cuda:
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                r = rows.setdefault(kernel_name(e.name), [0.0, 0])
-                r[0] += e.time_range.elapsed_us()
-                r[1] += 1
-    else:
-        for e in prof.key_averages():
-            if e.self_cpu_time_total > 0:
-                rows[e.key] = [float(e.self_cpu_time_total), e.count]
-    return sorted(((k, us / 1e3 / repeats, n / repeats)
-                   for k, (us, n) in rows.items()), key=lambda r: -r[1])
-
-
-def collective_report(prof, on_cuda: bool, repeats: int) -> dict:
-    """The collectives' share of the step's device time -- events whose
-    names hold nccl, gloo, all_reduce or all_gather -- and the fraction of
-    their time during which other work ran beside them (NaN without
-    collectives)."""
-    from torch.autograd import DeviceType
-
-    kind = DeviceType.CUDA if on_cuda else DeviceType.CPU
-    events = [e for e in prof.events() if e.device_type == kind]
-
-    def is_coll(e):
-        return any(k in e.name.lower() for k in COLLECTIVE_KEYS)
-
-    def self_us(e):
-        if on_cuda:
-            return e.time_range.elapsed_us()
-        return e.self_cpu_time_total
-
-    coll = [e for e in events if is_coll(e)]
-    rest = [e for e in events if not is_coll(e)]
-    coll_ms = sum(self_us(e) for e in coll) / 1e3 / repeats
-    comp_ms = sum(self_us(e) for e in rest) / 1e3 / repeats
-    overlap = math.nan
-    if coll:
-        covered = total = 0.0
-        for c in coll:
-            t0, t1 = c.time_range.start, c.time_range.end
-            spans = sorted((max(t0, e.time_range.start),
-                            min(t1, e.time_range.end)) for e in rest
-                           if e.thread != c.thread
-                           and e.time_range.end > t0
-                           and e.time_range.start < t1)
-            end = t0
-            for a, b in spans:
-                a = max(a, end)
-                if b > a:
-                    covered += b - a
-                    end = b
-            total += t1 - t0
-        overlap = covered / total if total else math.nan
-    by_name: dict[str, float] = {}
-    for e in coll:
-        by_name[e.name] = by_name.get(e.name, 0.0) + self_us(e) / 1e3 / repeats
-    return {"collective_ms": coll_ms, "compute_ms": comp_ms,
-            "collective_share": (coll_ms / (coll_ms + comp_ms)
-                                 if coll_ms + comp_ms else 0.0),
-            "overlap_fraction": overlap,
-            "top_collectives": sorted(by_name.items(), key=lambda kv: -kv[1])}
-
-
 def _cmd_profile_train(args):
     """Profile ONE training step of parallel.Trainer (the BASELINE
     config-5 shape: the render's rays over the mesh's ranks, the
@@ -342,13 +258,13 @@ def _cmd_profile_train(args):
     device time and their overlap with compute.  On the card the step is
     rk4_ckpt forward and rk4_bwd backward; on one rank there is no
     collective (share 0)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from .camera import Camera
     from .ops.integrate import IntegratorConfig
     from .parallel import Trainer, make_mesh
     from .render import RenderConfig, render_image
     from .scene import BlackHole, Scene
+    from .utils.profiling import (collective_report, format_op_table,
+                                  op_table, trace)
 
     dev = torch.device(args.device)
     on_cuda = dev.type == "cuda"
@@ -399,20 +315,21 @@ def _cmd_profile_train(args):
 
     step()          # warm: builds the kernels on first use
     sync()
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if on_cuda else [])
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        for _ in range(args.repeats):
-            step()
-        sync()
-    wall = (time.perf_counter() - t0) / args.repeats
-    print(f"\nwall per step: {wall * 1e3:.1f} ms")
-    print("\nper-op device time (top 15):")
-    print(f"{'device ms/step':>14s} {'calls/step':>10s}  op")
-    for name, ms, calls in op_rows(prof, on_cuda, args.repeats)[:15]:
-        print(f"{ms:14.3f} {calls:10.1f}  {name[:90]}")
-    rep = collective_report(prof, on_cuda, args.repeats)
+    logdir = tempfile.mkdtemp(prefix="bgc_train_prof_")
+    try:
+        t0 = time.perf_counter()
+        with trace(logdir):
+            for _ in range(args.repeats):
+                step()
+            sync()
+            wall = (time.perf_counter() - t0) / args.repeats
+        print(f"\nwall per step: {wall * 1e3:.1f} ms")
+        print("\nper-op device time (top 15):")
+        print(format_op_table(op_table(logdir, top=15,
+                                       repeats=args.repeats)))
+        rep = collective_report(logdir, repeats=args.repeats)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
     print(f"\ncollectives: {rep['collective_ms']:.3f} ms/step of "
           f"{rep['compute_ms'] + rep['collective_ms']:.3f} ms total device "
           f"time = {rep['collective_share'] * 100:.2f}% share; "

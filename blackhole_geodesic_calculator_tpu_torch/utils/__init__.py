@@ -1,7 +1,8 @@
-"""Utilities: timing.  (The JAX package's ``trace``, ``annotate`` and
-``device_memory_stats`` come from its XProf parser, utils/profiling.py,
-which is not ported; ``torch.profiler`` takes its place.)"""
+"""Utilities: timing, profiling, observability."""
 
 from .timing import PhaseTimers, benchmark, timed
+from .profiling import (trace, annotate, device_memory_stats,
+                        profile_steps, op_table, format_op_table)
 
-__all__ = ["PhaseTimers", "timed", "benchmark"]
+__all__ = ["PhaseTimers", "timed", "benchmark", "trace", "annotate",
+           "device_memory_stats"]

@@ -11,7 +11,8 @@ animation frame and massive particles through all six, the polarized
 through rk4_fwd, the learned surrogate trained on rk4_fwd's labels, the
 sharded renders and the Trainer through rk4_ckpt and rk4_bwd, and the
 host surfaces: the native runtime, the CLI's render of every example and
-its animation, the compat API -- and fails (non-zero exit, no result
+its animation, the compat API, utils.profiling and the four example
+programs -- and fails (non-zero exit, no result
 line) if anything is off:
 
   0. needs a CUDA device; prints the card's name and power limit;
@@ -265,7 +266,23 @@ line) if anything is off:
      backend against the torch one; ``train-surrogate`` (200 steps at
      limited_hybrid.json's mass, ratio and exit tolerance) and that config
      rendered through the npz, another ratio refused; ``profile-train``'s
-     op table with rk4_ckpt and rk4_bwd and a collective share of 0.
+     op table with rk4_ckpt and rk4_bwd and a collective share of 0;
+ 44. utils.profiling: ``profile_steps`` over phase 3's SIZE^2 forward, its
+     op table naming the rk4_fwd kernel at phase 7's CUDA-event time
+     within PROFILE_AGREE; ``device_memory_stats`` (0 < peak <= limit);
+     ``profile_collectives`` on one rank (share 0, overlap NaN);
+ 45-48. the example programs (``examples.parameter_study``,
+     ``kerr_faraday``, ``fit_orbit``, ``tutorial``) at their default
+     arguments, each ``main`` in this process on the card: exit code 0,
+     which is each script's own physics checks (Bardeen's shadow edges
+     within 1%, the deflection series, beaming; the Faraday signatures;
+     mass, phase and roll recovered within 1%); the kernel variants each
+     launches and no plain loop; parameter_study's deflection angles
+     against the CPU plain loop within TOL_DEFLECTION, kerr_faraday's a
+     = 0 map against the CPU's within TOL_POL away from b_c; each
+     example's wall seconds, launches and the device's busy share (a
+     second run traced through utils.profiling; for kerr_faraday
+     FARADAY_BUSY_STAGES transport stages).
 
 The two-rank paths (the sample group's all_reduce, the ray group's
 all_gather, the gradient average) need two ranks; two NCCL ranks cannot
@@ -278,7 +295,8 @@ standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launch count on the main paths
 (``launches_by_path`` when more than one runs it), error, times and
 bound, and for the variants of phases 28, 30, 32, 33, 36 and 38 their
-readings there; phases 41-43 add the CLI's paths to ``launches_by_path``.
+readings there; phases 41-43 add the CLI's paths to ``launches_by_path``,
+phases 44-48 utils.profiling's and the example programs'.
 Imports nothing of JAX.
 """
 
@@ -307,6 +325,8 @@ import blackhole_geodesic_calculator_tpu_torch as P
 from blackhole_geodesic_calculator_tpu_torch import cli, compat, native
 from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
     generate_rays, pixel_grid)
+from blackhole_geodesic_calculator_tpu_torch.examples import (
+    fit_orbit, kerr_faraday, parameter_study, tutorial)
 from blackhole_geodesic_calculator_tpu_torch.io_ import (
     build_scene, load_config, load_train_state, save_train_state, tonemap,
     write_png)
@@ -340,6 +360,7 @@ from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
     disk_uv, shade)
 from blackhole_geodesic_calculator_tpu_torch.scene.texture import equirect_uv
+from blackhole_geodesic_calculator_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent
 PKG = "blackhole_geodesic_calculator_tpu_torch"
@@ -6386,21 +6407,20 @@ def phase_examples(dev, name_limit, readings):
 
 
 def busy_share(fn):
-    """(device busy ms, wall ms) of one call of ``fn`` under the
-    profiler: the sum of the device kernels' and copies' times against
-    the call's host wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof_ctx
-
+    """(device busy ms, wall ms) of one call of ``fn`` traced through
+    utils.profiling: the trace's kernels, memcpys and memsets summed
+    against the call's host wall time (under the profiler)."""
+    logdir = ROOT / "build" / "chip_smoke" / "busy_trace"
+    shutil.rmtree(logdir, ignore_errors=True)
     torch.cuda.synchronize()
-    with prof_ctx(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(str(logdir)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(dur for *_, dur in profiling._device_complete_events(
+        profiling._load_trace_events(str(logdir)))) / 1e3
+    shutil.rmtree(logdir, ignore_errors=True)
     return busy, wall
 
 
@@ -6609,6 +6629,235 @@ def phase_compat(dev, name_limit, readings):
         profile_train_ms=prof_ms)
 
 
+# =============================================================================
+# The last slice: utils.profiling and the example programs.
+# =============================================================================
+# profile_steps' rk4_fwd device ms a step against phase 7's CUDA events
+PROFILE_AGREE = 0.2
+# parameter_study's deflection angles, card against the CPU plain loop
+TOL_DEFLECTION = 1e-4
+# the example programs' arguments besides --device: their defaults
+EXAMPLE_ARGV = {"parameter_study": (), "kerr_faraday": (), "fit_orbit": (),
+                "tutorial": ()}
+# transport stages kerr_faraday's busy share is profiled over
+FARADAY_BUSY_STAGES = 20
+
+
+def phase_profiling(scene, cam, dev, name_limit, readings):
+    """utils.profiling on the card: ``profile_steps`` over the flagship
+    SIZE^2 forward render (one warm-up, 10 traced), its op table naming
+    the rk4_fwd kernel at a device ms a step within PROFILE_AGREE of phase
+    7's CUDA-event time; ``device_memory_stats`` with 0 < peak <= limit;
+    ``profile_collectives`` of the same render on one rank: share 0,
+    overlap NaN.  (``profile-train``'s table, read by the same module,
+    names rk4_ckpt and rk4_bwd in phase 43.)"""
+    cfg = flagship_cfg()
+    fwd = no_grad(lambda: P.render_image(scene, cam, cfg))
+    reset_counts()
+    rows = profiling.profile_steps(fwd, repeats=10, top=12)
+    rep = profiling.profile_collectives(fwd, repeats=3)
+    launches = read_counts()
+    count_path(readings, "utils.profiling", launches)
+    log(f"# phase 44: profile_steps, flagship forward {SIZE}x{SIZE}, 10 "
+        f"steps; launches {launches} [{name_limit}]:")
+    for line in profiling.format_op_table(rows).splitlines():
+        log(f"#   {line}")
+    prof_ms = sum(ms for name, ms, _ in rows if "rk4_fwd" in name)
+    event_ms = readings["rk4_fwd"].get("device_ms", math.nan)
+    rel = abs(prof_ms / event_ms - 1.0)
+    log(f"# phase 44: rk4_fwd {prof_ms:.3f} ms a step in the op table, "
+        f"{event_ms:.3f} ms by CUDA events (phase 7): {100 * rel:.1f}% apart"
+        f" (limit {100 * PROFILE_AGREE:g}%) [{name_limit}]")
+    check(launches == only(rk4_fwd=15), f"profiling launched {launches}")
+    check(prof_ms > 0 and rel <= PROFILE_AGREE,
+          "the op table's rk4_fwd time is not phase 7's")
+    stats = profiling.device_memory_stats()
+    mem = stats.get(str(dev))
+    log(f"# phase 44: device_memory_stats {json.dumps(stats)}")
+    check(mem is not None and 0 < mem["peak_bytes_in_use"]
+          <= mem["bytes_limit"], "device_memory_stats: not 0 < peak <= "
+          "limit")
+    log(f"# phase 44: profile_collectives on one rank: "
+        f"{json.dumps(rep)}")
+    check(rep["collective_share"] == 0 and math.isnan(
+        rep["overlap_fraction"]), "collectives reported on one rank")
+    readings.setdefault("examples", {})["profile_rk4_fwd_ms"] = prof_ms
+
+
+def example_argv(name):
+    """The example's arguments on the card: EXAMPLE_ARGV[name], its outputs
+    under build/chip_smoke/<name>/."""
+    return [*EXAMPLE_ARGV[name], "--outdir",
+            str(ROOT / "build" / "chip_smoke" / name), "--device", DEVICE]
+
+
+def run_example(name, mod, readings, name_limit):
+    """``mod.main`` on the card (example_argv), in this process, its output
+    logged: (wall s, launches).  The launches go to the kernels line's
+    ``launches_by_path``; the example must exit 0 and not call the plain
+    loop."""
+    import contextlib
+    import io
+
+    argv = example_argv(name)
+    buf = io.StringIO()
+    reset_counts()
+    with PlainCalls() as pc, contextlib.redirect_stdout(buf):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    count_path(readings, f"example {name}", launches)
+    log(f"# example {name} {' '.join(argv)}: exit {rc} in {wall:.3f} s, "
+        f"launches {launches} [{name_limit}]")
+    for line in buf.getvalue().splitlines():
+        log(f"#   {line}")
+    check(rc == 0, f"example {name} exited with {rc}")
+    check(pc.n == 0, f"example {name} called the plain loop {pc.n} times")
+    return wall, launches
+
+
+def example_busy(name, fn, wall, launches, name_limit, readings):
+    """Log and record the device's busy share of ``fn`` (busy_share)
+    beside the example's unprofiled wall seconds and launches."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        busy_ms, prof_ms = busy_share(fn)
+    share = busy_ms / prof_ms
+    log(f"# example {name}: {wall:.3f} s, launches {launches}; device busy "
+        f"{busy_ms:.3f} ms of {prof_ms:.3f} ms = {100 * share:.1f}% "
+        f"(profiler) [{name_limit}]")
+    readings.setdefault("examples", {})[name] = {
+        "wall_s": wall, "busy_share": share,
+        "launches": sum(launches.values())}
+
+
+def quiet_main(name, mod):
+    """A run of the example as run_example's, its launches not counted."""
+    return lambda: mod.main(example_argv(name))
+
+
+def phase_example_study(dev, name_limit, readings):
+    """examples.parameter_study on the card: one rk4_fwd (a = 0) or
+    rk4_fwd_kerr launch of one ray a bisection step, one rk4_fwd of the
+    deflection fan, one rk4_fwd_events a disk frame, no plain loop; its
+    Bardeen (< 1%), deflection-series and beaming checks inside the
+    script; the deflection angles against the CPU plain loop's on the same
+    impact parameters within TOL_DEFLECTION rad; the device's busy
+    share."""
+    name = "parameter_study"
+    wall, launches = run_example(name, parameter_study, readings,
+                                    name_limit)
+    check(set(launches) == {"rk4_fwd", "rk4_fwd_kerr", "rk4_fwd_events"},
+          f"{name} launched {launches}")
+    with open(ROOT / "build" / "chip_smoke" / name /
+              "parameter_study.json") as f:
+        rep = json.load(f)
+    worst = max(max(r["rel_err"]) for r in rep["shadow_edges"])
+    m = rep["mass"]
+    bs = np.asarray([r["b_over_M"] for r in rep["deflection"]]) * m
+    n_steps = 6000 if "--quick" in EXAMPLE_ARGV[name] else 8000
+    card = np.asarray([r["measured_rad"] for r in rep["deflection"]])
+    cpu = parameter_study.measure_deflection(m, bs, n_steps=n_steps,
+                                             device="cpu")
+    err = float(np.abs(card - cpu).max())
+    log(f"# phase 45: shadow edges against Bardeen: worst {worst:.3e} "
+        f"(limit 0.01); deflection of {len(bs)} rays, card against the CPU "
+        f"plain loop: max |d| {err:.3e} rad (limit {TOL_DEFLECTION:g})")
+    check(worst < 0.01, f"{name}: shadow edges off Bardeen's")
+    check(err <= TOL_DEFLECTION, f"{name}: deflection differs from the "
+          "plain loop's")
+    example_busy(name, quiet_main(name, parameter_study), wall, launches,
+                 name_limit, readings)
+    readings["examples"][name].update(bardeen_worst=worst,
+                                      deflection_err=err)
+
+
+def phase_example_faraday(dev, name_limit, readings):
+    """examples.kerr_faraday on the card (the transport ODE: no kernel);
+    its three signatures inside the script; its a = 0 map (the npz's)
+    against the same map on the CPU by compare_maps within TOL_POL on the
+    escaped rays away from b_c; the busy share of FARADAY_BUSY_STAGES
+    transport stages at the example's size and a = 0.45."""
+    name = "kerr_faraday"
+    wall, launches = run_example(name, kerr_faraday, readings,
+                                    name_limit)
+    check(launches == {}, f"{name} launched {launches}")
+    size, n_steps = 96, 600
+    argv = EXAMPLE_ARGV[name]
+    if "--size" in argv:
+        size = int(argv[argv.index("--size") + 1])
+    if "--n-steps" in argv:
+        n_steps = int(argv[argv.index("--n-steps") + 1])
+    card = np.load(str(ROOT / "build" / "chip_smoke" / name /
+                        "kerr_faraday.npz"))["excess_a0"]
+    cpu, cpu_ms = once(lambda: kerr_faraday.excess_map(0.0, size, n_steps,
+                                                       "cpu"))
+    o3, d3, _ = kerr_faraday.equatorial_rays(size, "cpu")
+    f = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    env = GeodesicEnv(mass=f(0.5), r_capture=f(1.0),
+                      r_escape=f(2 * kerr_faraday.D), lam_max=f(1e9))
+    near = near_b_c(env, initial_state(env, o3, d3)).reshape(size, size)
+    held, other = compare_maps(torch.from_numpy(card), torch.from_numpy(cpu),
+                               ~near, f"{name} a = 0, card vs CPU", TOL_POL)
+    log(f"# phase 46: {name} a = 0 map {size}x{size}: card vs CPU {held:.3e}"
+        f" rad away from b_c, {other:.3e} near it; the CPU map "
+        f"{cpu_ms:.3f} ms [{name_limit}]")
+
+    o3, d3, f0 = kerr_faraday.equatorial_rays(size, dev)
+    stages = no_grad(lambda: transport_polarization_ode(
+        kerr_ks_metric(0.5, 0.45), o3, d3, f0, n_steps=FARADAY_BUSY_STAGES,
+        dt=0.08, r_stop=2 * kerr_faraday.D, dt_boost=16.0, r_ref=1.6))
+    stages()
+    example_busy(name, stages, wall, launches, name_limit, readings)
+    readings["examples"][name].update(map_err=held, cpu_map_ms=cpu_ms)
+
+
+def phase_example_fit(dev, name_limit, readings):
+    """examples.fit_orbit on the card: the targets through rk4_fwd (one
+    launch a frame for all its samples), each fit step one rk4_ckpt and
+    one rk4_bwd, no plain loop; its exit code is the script's < 1%
+    recovery of mass, orbit phase and roll; the busy share."""
+    name = "fit_orbit"
+    wall, launches = run_example(name, fit_orbit, readings, name_limit)
+    with open(ROOT / "build" / "chip_smoke" / name /
+              "fit_orbit_result.json") as f:
+        rep = json.load(f)
+    steps = len(rep["losses"])
+    check(launches == only(rk4_fwd=rep["config"]["frames"], rk4_ckpt=steps,
+                           rk4_bwd=steps), f"{name} launched {launches}")
+    log(f"# phase 47: {name}: loss {rep['loss_first']:.4e} -> "
+        f"{rep['loss_last']:.4e} in {steps} steps, errors "
+        f"{json.dumps(rep['errors'])}, fit {rep['fit_seconds']:.3f} s "
+        f"[{name_limit}]")
+    example_busy(name, quiet_main(name, fit_orbit), wall, launches,
+                 name_limit, readings)
+    readings["examples"][name].update(errors=rep["errors"],
+                                      fit_s=rep["fit_seconds"])
+
+
+def phase_example_tutorial(dev, name_limit, readings):
+    """examples.tutorial on the card: rk4_fwd (the fan, the hybrid frame,
+    the table's build, the surrogate's labels and evaluation),
+    rk4_fwd_events (the scene, its sharded and Stokes renders), the mass
+    gradient through rk4_ckpt_events and rk4_bwd_events, no plain loop;
+    its three PNGs; the busy share."""
+    name = "tutorial"
+    wall, launches = run_example(name, tutorial, readings, name_limit)
+    check(set(launches) == {"rk4_fwd", "rk4_fwd_events", "rk4_ckpt_events",
+                            "rk4_bwd_events"}, f"{name} launched {launches}")
+    out = ROOT / "build" / "chip_smoke" / name
+    for png in ("tutorial_disk.png", "tutorial_limited_mlp.png",
+                "tutorial_polfrac.png"):
+        check((out / png).exists(), f"{name} wrote no {png}")
+    example_busy(name, quiet_main(name, tutorial), wall, launches,
+                 name_limit, readings)
+
+
 def main() -> int:
     # --- phase 0: the card -----------------------------------------------
     if not torch.cuda.is_available():
@@ -6708,6 +6957,16 @@ def main() -> int:
     phase("phase 42 (cli animate)", phase_animate, dev, name_limit, readings)
     phase("phase 43 (compat and the other subcommands)", phase_compat, dev,
           name_limit, readings)
+    phase("phase 44 (utils.profiling)", phase_profiling, scene, cam, dev,
+          name_limit, readings)
+    phase("phase 45 (example parameter_study)", phase_example_study, dev,
+          name_limit, readings)
+    phase("phase 46 (example kerr_faraday)", phase_example_faraday, dev,
+          name_limit, readings)
+    phase("phase 47 (example fit_orbit)", phase_example_fit, dev,
+          name_limit, readings)
+    phase("phase 48 (example tutorial)", phase_example_tutorial, dev,
+          name_limit, readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 
@@ -6763,7 +7022,7 @@ def main() -> int:
                     for k, r in v.items())
         + f"; SurrogateTable.build {t['build_ms']:.3f} ms, approx frame "
         f"{t['approx_frame_ms']:.3f} ms [{name_limit}]")
-    for key in ("goldens", "surrogate", "trainer", "host"):
+    for key in ("goldens", "surrogate", "trainer", "host", "examples"):
         for k, v in readings.pop(key, {}).items():
             log(f"# {key}: {k} = {v} [{name_limit}]")
     # a variant's launches: its earlier main path's and this slice's

@@ -274,16 +274,29 @@ def test_cli_train_surrogate_roundtrip(tmp_path, capsys, monkeypatch):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
 
 
-def test_cli_profile_train_one_rank(capsys):
+def test_cli_profile_train_one_rank(capsys, monkeypatch):
     """profile-train on one rank: the op table, and a collective share of
     0 with no overlap to measure (the twin of
-    test_collective_report_no_collectives)."""
+    test_collective_report_no_collectives), both read from the trace by
+    utils.profiling, the port's one profiler reader."""
+    from blackhole_geodesic_calculator_tpu_torch.utils import profiling
+
+    seen = []
+    for name in ("trace", "op_table", "collective_report"):
+        real = getattr(profiling, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            seen.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(profiling, name, spy)
     rep = run("profile-train", "--size", "12", "--steps", "12",
               "--repeats", "1")
     text = capsys.readouterr().out
+    assert seen == ["trace", "op_table", "collective_report"]
     assert "per-op device time (top 15)" in text
     assert "wall per step" in text and "0.00% share" in text
     table = text.split("(top 15):")[1].split("collectives:")[0]
+    assert profiling.format_op_table([]) in table
     assert len([ln for ln in table.splitlines() if ln.strip()]) >= 5
     assert rep["collective_ms"] == 0 and rep["collective_share"] == 0
     assert math.isnan(rep["overlap_fraction"])

@@ -2,9 +2,9 @@
 ``utils/timing.py``.
 
 Each subpackage the host surfaces reach (``scene``, ``camera``, ``io_``,
-``utils``) exports the JAX package's names, less the XProf parser's
-(``trace``, ``annotate``, ``device_memory_stats``: utils/profiling.py is
-not ported); the CLI and compat export the JAX modules' public names.
+``utils``) exports the JAX package's names (``utils``' profiler names
+from utils/profiling.py on torch.profiler); the CLI and compat export the
+JAX modules' public names.
 """
 
 import importlib
@@ -18,15 +18,12 @@ from blackhole_geodesic_calculator_tpu_torch.utils import (  # noqa: E402
     PhaseTimers, benchmark, timed)
 from blackhole_geodesic_calculator_tpu_torch.utils import timing  # noqa: E402
 
-PROFILING = {"trace", "annotate", "device_memory_stats"}
-
-
 @pytest.mark.parametrize("sub", ["scene", "camera", "io_", "utils"])
 def test_subpackage_exports_match_jax(sub):
     jmod = importlib.import_module(f"blackhole_geodesic_calculator_tpu.{sub}")
     pmod = importlib.import_module(
         f"blackhole_geodesic_calculator_tpu_torch.{sub}")
-    assert sorted(pmod.__all__) == sorted(set(jmod.__all__) - PROFILING)
+    assert sorted(pmod.__all__) == sorted(jmod.__all__)
     for name in pmod.__all__:
         assert getattr(pmod, name) is not None
 
