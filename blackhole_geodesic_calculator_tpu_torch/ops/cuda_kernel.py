@@ -105,6 +105,7 @@ import dataclasses
 
 import torch
 
+from ..utils.profiling import annotate
 from . import _build
 from .adjoint import NSCAL, Controller
 from .integrate import (
@@ -406,7 +407,8 @@ class RK4Adjoint(torch.autograd.Function):
     lam, status and hit_obj are not differentiable; the scalar cotangent
     has zeros for r_capture, r_escape, lam_max, r_in and r_out, which enter
     the step only through comparisons, and for Kerr the spin's at entry 9;
-    ``sph`` (the (K, 4) sphere table) gets the sphere cotangent."""
+    ``sph`` (the (K, 4) sphere table) gets the sphere cotangent.  The
+    backward runs in the profiler span ``bhgc.integrate.backward``."""
 
     @staticmethod
     def forward(ctx, x, p, E, scal, sph, lam, st, obj, has_disk, kerr,
@@ -423,14 +425,15 @@ class RK4Adjoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx, gp, _glam, _gst, _gobj):
-        scal, sph, E, *ckpts = ctx.saved_tensors
-        n = E.numel()
-        gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
-        gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
-        bx, bp, bE, gscal, gsph = rk4_bwd(scal, ckpts, E, gx, gp,
-                                          *ctx.schedule, sph=sph,
-                                          **ctx.variant)
-        return (bx, bp, bE, gscal, gsph) + (None,) * 9
+        with annotate("bhgc.integrate.backward"):
+            scal, sph, E, *ckpts = ctx.saved_tensors
+            n = E.numel()
+            gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
+            gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
+            bx, bp, bE, gscal, gsph = rk4_bwd(scal, ckpts, E, gx, gp,
+                                              *ctx.schedule, sph=sph,
+                                              **ctx.variant)
+            return (bx, bp, bE, gscal, gsph) + (None,) * 9
 
 
 def controller(cfg: IntegratorConfig) -> Controller:
@@ -547,7 +550,8 @@ class DopriAdjoint(torch.autograd.Function):
     dopri_ckpt, with dopri_bwd as the backward: the custom VJP of
     ``_build_dopri_grad`` (pallas_kernel.py:995-1021).  The per-ray
     initial step ``h`` is an input without a gradient (a constant of the
-    configuration); lam, status and hit_obj are not differentiable."""
+    configuration); lam, status and hit_obj are not differentiable.  The
+    backward runs in the profiler span ``bhgc.integrate.backward``."""
 
     @staticmethod
     def forward(ctx, x, p, E, scal, sph, h, lam, st, obj, has_disk, kerr,
@@ -564,14 +568,15 @@ class DopriAdjoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx, gp, _glam, _gst, _gobj):
-        scal, sph, E, *ckpts = ctx.saved_tensors
-        n = E.numel()
-        gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
-        gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
-        bx, bp, bE, gscal, gsph = dopri_bwd(scal, ckpts, E, gx, gp,
-                                            *ctx.schedule, sph=sph,
-                                            **ctx.variant)
-        return (bx, bp, bE, gscal, gsph) + (None,) * 10
+        with annotate("bhgc.integrate.backward"):
+            scal, sph, E, *ckpts = ctx.saved_tensors
+            n = E.numel()
+            gx = E.new_zeros((n, 3)) if gx is None else gx.contiguous()
+            gp = E.new_zeros((n, 3)) if gp is None else gp.contiguous()
+            bx, bp, bE, gscal, gsph = dopri_bwd(scal, ckpts, E, gx, gp,
+                                                *ctx.schedule, sph=sph,
+                                                **ctx.variant)
+            return (bx, bp, bE, gscal, gsph) + (None,) * 10
 
 
 def integrate_cuda(env: GeodesicEnv, s0: RayState,

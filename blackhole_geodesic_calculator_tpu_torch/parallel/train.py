@@ -26,6 +26,7 @@ from ..camera.pinhole import Camera, generate_rays
 from ..ops.geodesic import null_init
 from ..render.renderer import RenderConfig, render_rays, sample_draws
 from ..scene.scene import Scene
+from ..utils.profiling import annotate
 from .mesh import Mesh, make_mesh
 from .render import (local_samples, local_slots, render_samples,
                      slot_jitter)
@@ -134,41 +135,49 @@ class Trainer:
         """This rank's render and loss, the gradients of its loss, their
         average and the loss's over the mesh, the clip, then the update.
         ``build(p)`` makes the frame's (scene, camera) from the learned
-        tensors."""
+        tensors.  The step and each of its phases run in a profiler span
+        (``bhgc.step`` and ``bhgc.step.*``)."""
         cfg = self.cfg
-        scene, cam = build(params)
-        if cfg.samples == 1:
-            rgb = render_rays(scene, cam, cfg, ys, xs)
-        else:
-            mine = local_samples(cfg, self.mesh)
-            rgb = render_samples(scene, cam, cfg, ys, xs, slot_jitter(
-                cfg, draws, ys, xs)[mine.start:mine.stop])
-        if self.mask_critical is not None:
-            w = self._critical_weights(scene, cam, ys, xs)[..., None]
-            loss = torch.sum(w * (rgb - target_flat) ** 2) / (
-                torch.clamp_min(torch.sum(w), 1.0) * rgb.shape[-1])
-        else:
-            loss = self.loss_fn(rgb, target_flat)
+        with annotate("bhgc.step"):
+            with annotate("bhgc.step.scene"):
+                scene, cam = build(params)
+            with annotate("bhgc.step.render"):
+                if cfg.samples == 1:
+                    rgb = render_rays(scene, cam, cfg, ys, xs)
+                else:
+                    mine = local_samples(cfg, self.mesh)
+                    rgb = render_samples(scene, cam, cfg, ys, xs, slot_jitter(
+                        cfg, draws, ys, xs)[mine.start:mine.stop])
+            with annotate("bhgc.step.loss"):
+                if self.mask_critical is not None:
+                    w = self._critical_weights(scene, cam, ys, xs)[..., None]
+                    loss = torch.sum(w * (rgb - target_flat) ** 2) / (
+                        torch.clamp_min(torch.sum(w), 1.0) * rgb.shape[-1])
+                else:
+                    loss = self.loss_fn(rgb, target_flat)
 
-        leaves = list(params.values())
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        loss = loss.detach()
-        if self.mesh.size > 1:
-            for t in grads + [loss]:
-                dist.all_reduce(t)
-                t.div_(self.mesh.size)
-        if self.clip_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            grads = [torch.where(norm < self.clip_norm, g,
-                                 g / norm * self.clip_norm) for g in grads]
-        for p, g in zip(leaves, grads):
-            p.grad = g
-        opt_state.optimizer.step()
-        opt_state.optimizer.zero_grad(set_to_none=True)
-        if opt_state.scheduler is not None:
-            opt_state.scheduler.step()
+            leaves = list(params.values())
+            with annotate("bhgc.step.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+            with annotate("bhgc.step.update"):
+                loss = loss.detach()
+                if self.mesh.size > 1:
+                    for t in grads + [loss]:
+                        dist.all_reduce(t)
+                        t.div_(self.mesh.size)
+                if self.clip_norm is not None:
+                    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                    grads = [torch.where(norm < self.clip_norm, g,
+                                         g / norm * self.clip_norm)
+                             for g in grads]
+                for p, g in zip(leaves, grads):
+                    p.grad = g
+                opt_state.optimizer.step()
+                opt_state.optimizer.zero_grad(set_to_none=True)
+                if opt_state.scheduler is not None:
+                    opt_state.scheduler.step()
         return params, opt_state, loss
 
     def _critical_weights(self, scene, cam, ys, xs):

@@ -45,6 +45,7 @@ from ..ops.polarization import (_cross, _unit, plane_normal,
                                 transport_polarization_ode)
 from ..scene.scene import Scene
 from ..scene.shading import shade
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,16 +169,20 @@ def render_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
                 jitter: torch.Tensor | None = None) -> torch.Tensor:
     """Shade the rays through pixels (ys, xs) of any shape, jittered by
     ``jitter`` (generate_rays) or through the pixel centres; returns
-    ys.shape + (3,)."""
-    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs, jitter)
+    ys.shape + (3,).  The camera, the integrator and the shading each run
+    in a profiler span (``bhgc.render.*``)."""
+    with annotate("bhgc.render.rays"):
+        origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs,
+                                  jitter)
+        env = scene_env(scene, cfg, cam)
+        scene_bh = _bh_frame(scene)
+        o_rel = origin - scene.bh.loc
 
-    env = scene_env(scene, cfg, cam)
-    scene_bh = _bh_frame(scene)
-    o_rel = origin - scene.bh.loc
-
-    s = launch(env, o_rel, d, cfg.integrator)
-    end_dir = final_direction(env, s)
-    return shade(scene_bh, s, end_dir)
+    with annotate("bhgc.render.integrate"):
+        s = launch(env, o_rel, d, cfg.integrator)
+    with annotate("bhgc.render.shade"):
+        end_dir = final_direction(env, s)
+        return shade(scene_bh, s, end_dir)
 
 
 def render_sample(scene: Scene, cam: Camera, cfg: RenderConfig,

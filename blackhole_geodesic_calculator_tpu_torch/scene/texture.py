@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from ..utils.profiling import annotate
+
 # arccos has an infinite derivative at +-1; rays aligned with the poles
 # would otherwise poison gradients through the unselected branch.
 _ACOS_EPS = 1e-6
@@ -37,7 +39,8 @@ class _SampleBpy(torch.autograd.Function):
     in another order than in the JAX package (float32 rounding differs by a
     few ulp); on a CUDA device PyTorch sorts the indices of an accumulating
     ``index_put_`` and sums each texel's run in that order, and two
-    gradients of the 1024^2 flagship on an H100 were bitwise equal."""
+    gradients of the 1024^2 flagship on an H100 were bitwise equal.  The
+    backward runs in the profiler span ``bhgc.texture.backward``."""
 
     @staticmethod
     def forward(ctx, tex, x, y):
@@ -68,23 +71,25 @@ class _SampleBpy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        c00, c01, c10, c11, tx, ty, xi0, xi1, yi0, yi1 = ctx.saved_tensors
-        h, w, c = ctx.tex_shape
-        txe, tye = tx[..., None], ty[..., None]
-        dtex = None
-        if ctx.needs_input_grad[0]:
-            dtex = g.new_zeros((h, w, c))
-            for yi, xi, wgt in ((yi0, xi0, (1.0 - txe) * (1.0 - tye)),
-                                (yi0, xi1, txe * (1.0 - tye)),
-                                (yi1, xi0, (1.0 - txe) * tye),
-                                (yi1, xi1, txe * tye)):
-                dtex.index_put_((yi, xi), g * wgt, accumulate=True)
-        # dx, dy: exactly the derivatives of the bilinear weights
-        dfx = torch.sum(g * ((c01 - c00) * (1.0 - tye) + (c11 - c10) * tye),
-                        dim=-1)
-        dfy = torch.sum(g * ((c10 - c00) * (1.0 - txe) + (c11 - c01) * txe),
-                        dim=-1)
-        return dtex, dfx * (0.5 * w), dfy * (-0.5 * h)
+        with annotate("bhgc.texture.backward"):
+            (c00, c01, c10, c11, tx, ty, xi0, xi1, yi0,
+             yi1) = ctx.saved_tensors
+            h, w, c = ctx.tex_shape
+            txe, tye = tx[..., None], ty[..., None]
+            dtex = None
+            if ctx.needs_input_grad[0]:
+                dtex = g.new_zeros((h, w, c))
+                for yi, xi, wgt in ((yi0, xi0, (1.0 - txe) * (1.0 - tye)),
+                                    (yi0, xi1, txe * (1.0 - tye)),
+                                    (yi1, xi0, (1.0 - txe) * tye),
+                                    (yi1, xi1, txe * tye)):
+                    dtex.index_put_((yi, xi), g * wgt, accumulate=True)
+            # dx, dy: exactly the derivatives of the bilinear weights
+            dfx = torch.sum(g * ((c01 - c00) * (1.0 - tye)
+                                 + (c11 - c10) * tye), dim=-1)
+            dfy = torch.sum(g * ((c10 - c00) * (1.0 - txe)
+                                 + (c11 - c01) * txe), dim=-1)
+            return dtex, dfx * (0.5 * w), dfy * (-0.5 * h)
 
 
 def sample_bpy(tex: torch.Tensor, x: torch.Tensor,

@@ -4,7 +4,8 @@ utils/profiling.py).
 * ``trace(dir)`` captures the host's operators, and the card's kernels and
   copies when a CUDA device is present, and writes a Chrome trace under
   ``dir`` (chrome://tracing, Perfetto or TensorBoard read it);
-* ``annotate(name)`` scopes a named region of the timeline;
+* ``annotate(name)`` scopes a named region of the timeline, and costs a
+  flag read when no profiler runs;
 * ``profile_steps(fn, *args)`` + ``op_table(...)`` read that trace back
   and return per-op device times, and ``collective_report`` the share of
   the collectives and their overlap with compute, without a viewer.
@@ -59,8 +60,19 @@ def trace(logdir: str):
             os.path.join(logdir, f"{time.time_ns():020d}.pt.trace.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span context for profiler timelines."""
+    """Named span context for profiler timelines: ``record_function`` while
+    a profiler runs (its span shares the trace, and the clock, with the
+    card's kernels), else one shared ``nullcontext``: a bare
+    ``record_function`` dispatches two operators even with no profiler
+    running.  The Python flag is the process's, so spans opened on
+    autograd's device thread see it too."""
+    if not (torch.autograd.profiler._is_profiler_enabled
+            or torch._C._autograd._profiler_enabled()):
+        return _OFF
     return torch.profiler.record_function(name)
 
 
