@@ -211,4 +211,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # kerr, has_disk, n_sph -> resident blocks per SM
     lib.bhgc_dopri_bwd_occupancy.argtypes = [i32, i32, i32]
     lib.bhgc_dopri_bwd_occupancy.restype = i32
+    # c00, c01, c10, c11, tx, ty, xi0, xi1, yi0, yi1, g, n, C, H, W, sx,
+    # sy, dx, dy, scratch, dtex (null: no texture cotangent), stream
+    lib.bhgc_tex_bwd.argtypes = ([vp] * 11 + [i32] * 4 + [f32] * 2
+                                 + [vp] * 5)
+    lib.bhgc_tex_bwd.restype = i32
     return lib

@@ -96,12 +96,18 @@ Source note
 ``integrate_ckpt_plain`` and ``integrate_adaptive_ckpt_plain`` those of the
 checkpoints; they share no code with the kernels.  ``integrate`` takes them
 only for tensors on the CPU.
+
+``tex_bwd`` launches ``csrc/tex_bwd.cu``, the texture sampler's backward
+(scene/texture.py ``_SampleBpy``), which replaces no TPU kernel; its
+source note gives its bound and design, and scene/texture.py
+``sample_bpy_bwd_plain`` is its plain version.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 
 import torch
 
@@ -127,8 +133,9 @@ N_GRAD = 5     # scalar cotangents per block row (csrc/rk4_bwd.cu kNGrad)
 N_GRAD_DOPRI = 2   # ... of dopri_bwd.cu: mass and spin
 
 # Launches of each kernel variant since import (or since a caller cleared
-# them), by variant name (``variant``); a wrapper adds one right where it
-# launches its kernel, and nowhere else.
+# them), by variant name (``variant``; "tex_bwd_dtex" and "tex_bwd" for
+# the texture backward with and without the texture cotangent); a wrapper
+# adds one right where it launches its kernel, and nowhere else.
 LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
@@ -274,11 +281,11 @@ def _flat(t: torch.Tensor, batch, tail, dtype, name) -> torch.Tensor:
 def _check_device(x: torch.Tensor, **others: torch.Tensor) -> None:
     """``x`` on a CUDA device and every other tensor on the same one."""
     if not x.is_cuda:
-        raise ValueError("integrate_cuda needs tensors on a CUDA device; "
+        raise ValueError("the CUDA kernels need tensors on a CUDA device; "
                          f"got {x.device}")
     for name, t in others.items():
         if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+            raise ValueError(f"{name} is on {t.device}, not {x.device}")
 
 
 def _stream(device: torch.device) -> int:
@@ -629,3 +636,64 @@ def integrate_cuda(env: GeodesicEnv, s0: RayState,
         s0, x=x1.reshape(batch + (3,)), p=p1.reshape(batch + (3,)),
         lam=lam1.reshape(batch), status=st1.reshape(batch),
         hit_obj=obj1.reshape(batch))
+
+
+def tex_bwd_exponent(max_abs: float, n: int) -> int:
+    """Host mirror of csrc/tex_bwd.cu's ``fixed_exponent``: the k for which
+    tex_bwd scales the texture cotangent's terms by 2^k into int64, from
+    the largest finite |g| and the number of rays n.  With max_abs < 2^e
+    and n < 2^b, k = 62 - b - e, so n * max_abs * 2^k < 2^62: no texel's
+    sum of its terms (at most n * max_abs in magnitude) overflows.  0 when
+    max_abs is 0.  The tests hold the kernel's dtex bit for bit to a sum
+    at this k (tests/test_torch_cuda.py, chip_smoke.py phase 49), so the
+    two copies of the rule cannot part unseen."""
+    if not max_abs > 0.0:
+        return 0
+    return 62 - int(n).bit_length() - math.frexp(max_abs)[1]
+
+
+def tex_bwd(c00, c01, c10, c11, tx, ty, xi0, xi1, yi0, yi1, g, tex_shape,
+            dtex: bool):
+    """Launch csrc/tex_bwd.cu: the texture sampler's backward
+    (scene/texture.py ``_SampleBpy``) from what its forward saved -- the
+    corner colours (..., C), tx, ty and the int64 corner indices (...,) --
+    and the output cotangent ``g`` (..., C).  Returns (dtex, dx, dy) as
+    texture.sample_bpy_bwd_plain does: dtex the (H, W, C) texture
+    cotangent when ``dtex`` is true, else None.  dtex is a fixed-point sum,
+    the same bit for bit from run to run."""
+    h, w, nc = tex_shape
+    g = g.contiguous()
+    _check_device(g, c00=c00, c01=c01, c10=c10, c11=c11, tx=tx, ty=ty,
+                  xi0=xi0, xi1=xi1, yi0=yi0, yi1=yi1)
+    ins = dict(c00=c00, c01=c01, c10=c10, c11=c11, g=g, tx=tx, ty=ty,
+               xi0=xi0, xi1=xi1, yi0=yi0, yi1=yi1)
+    for name, t in ins.items():
+        dtype = torch.int64 if name[0] in "xy" else torch.float32
+        shape = tx.shape + (nc,) if name[0] in "cg" else tx.shape
+        if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                             f"shape {tuple(shape)}; got {t.dtype}, "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+    n = tx.numel()
+    if n >= 2**31:
+        raise ValueError(f"too many rays for one launch: {n}")
+    dx, dy = torch.empty_like(tx), torch.empty_like(ty)
+    if n == 0:
+        return (g.new_zeros((h, w, nc)) if dtex else None), dx, dy
+    lib = _build.load()
+    out = scratch = None
+    if dtex:
+        out = g.new_empty((h, w, nc))
+        total = h * w * nc   # the sums, their flags (4 bits each), m
+        scratch = torch.zeros(total + -(-total // 16) + 1,
+                              dtype=torch.int64, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.bhgc_tex_bwd(
+            *(t.data_ptr() for t in (c00, c01, c10, c11, tx, ty, xi0, xi1,
+                                     yi0, yi1, g)),
+            n, nc, h, w, 0.5 * w, -0.5 * h, dx.data_ptr(), dy.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if out is None else out.data_ptr(), _stream(g.device))
+    _raise_on(rc, "tex_bwd")
+    LAUNCHES["tex_bwd_dtex" if dtex else "tex_bwd"] += 1
+    return out, dx, dy

@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..ops import cuda_kernel
 from ..utils.profiling import annotate
 
 # arccos has an infinite derivative at +-1; rays aligned with the poles
@@ -32,15 +33,15 @@ def safe_arctan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class _SampleBpy(torch.autograd.Function):
     """Bilinear sample with the hand-written backward of the JAX package's
     ``sample_bpy`` custom VJP (scene/texture.py:144-206): the corner colours
-    are kept from the forward, so the backward gathers nothing; the texture
-    cotangent is four accumulating scatters of the corner weights into
-    (H, W, C), and the coordinate cotangents are the derivatives of the
-    bilinear weights.  The contributions of the rays that hit one texel add
-    in another order than in the JAX package (float32 rounding differs by a
-    few ulp); on a CUDA device PyTorch sorts the indices of an accumulating
-    ``index_put_`` and sums each texel's run in that order, and two
-    gradients of the 1024^2 flagship on an H100 were bitwise equal.  The
-    backward runs in the profiler span ``bhgc.texture.backward``."""
+    are kept from the forward, so the backward gathers nothing.  On a CUDA
+    device the backward is one launch of ``ops/csrc/tex_bwd.cu``
+    (cuda_kernel.tex_bwd): the coordinate cotangents, the derivatives of
+    the bilinear weights, per ray, and, when the texture needs a gradient,
+    its cotangent as a fixed-point sum in int64 of the rays' weighted
+    cotangents, which is the same bit for bit from run to run (its
+    rounding: the kernel's source note).  On the CPU it is
+    ``sample_bpy_bwd_plain``.  The backward runs in the profiler span
+    ``bhgc.texture.backward``."""
 
     @staticmethod
     def forward(ctx, tex, x, y):
@@ -72,24 +73,35 @@ class _SampleBpy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with annotate("bhgc.texture.backward"):
-            (c00, c01, c10, c11, tx, ty, xi0, xi1, yi0,
-             yi1) = ctx.saved_tensors
-            h, w, c = ctx.tex_shape
-            txe, tye = tx[..., None], ty[..., None]
-            dtex = None
-            if ctx.needs_input_grad[0]:
-                dtex = g.new_zeros((h, w, c))
-                for yi, xi, wgt in ((yi0, xi0, (1.0 - txe) * (1.0 - tye)),
-                                    (yi0, xi1, txe * (1.0 - tye)),
-                                    (yi1, xi0, (1.0 - txe) * tye),
-                                    (yi1, xi1, txe * tye)):
-                    dtex.index_put_((yi, xi), g * wgt, accumulate=True)
-            # dx, dy: exactly the derivatives of the bilinear weights
-            dfx = torch.sum(g * ((c01 - c00) * (1.0 - tye)
-                                 + (c11 - c10) * tye), dim=-1)
-            dfy = torch.sum(g * ((c10 - c00) * (1.0 - txe)
-                                 + (c11 - c01) * txe), dim=-1)
-            return dtex, dfx * (0.5 * w), dfy * (-0.5 * h)
+            bwd = cuda_kernel.tex_bwd if g.is_cuda else sample_bpy_bwd_plain
+            return bwd(*ctx.saved_tensors, g, ctx.tex_shape,
+                       ctx.needs_input_grad[0])
+
+
+def sample_bpy_bwd_plain(c00, c01, c10, c11, tx, ty, xi0, xi1, yi0, yi1, g,
+                         tex_shape, dtex: bool):
+    """Plain PyTorch version of ``cuda_kernel.tex_bwd``: (dtex, dx, dy)
+    from the forward's saved tensors and the cotangent ``g``; dtex (None
+    unless ``dtex``) is four accumulating scatters of the corner weights
+    into (H, W, C).  The contributions of the rays that hit one texel add
+    in another order than in the JAX package (float32 rounding differs by a
+    few ulp)."""
+    h, w, c = tex_shape
+    txe, tye = tx[..., None], ty[..., None]
+    out = None
+    if dtex:
+        out = g.new_zeros((h, w, c))
+        for yi, xi, wgt in ((yi0, xi0, (1.0 - txe) * (1.0 - tye)),
+                            (yi0, xi1, txe * (1.0 - tye)),
+                            (yi1, xi0, (1.0 - txe) * tye),
+                            (yi1, xi1, txe * tye)):
+            out.index_put_((yi, xi), g * wgt, accumulate=True)
+    # dx, dy: exactly the derivatives of the bilinear weights
+    dfx = torch.sum(g * ((c01 - c00) * (1.0 - tye)
+                         + (c11 - c10) * tye), dim=-1)
+    dfy = torch.sum(g * ((c10 - c00) * (1.0 - txe)
+                         + (c11 - c01) * txe), dim=-1)
+    return out, dfx * (0.5 * w), dfy * (-0.5 * h)
 
 
 def sample_bpy(tex: torch.Tensor, x: torch.Tensor,

@@ -9,8 +9,9 @@ dopri_fwd, dopri_ckpt and dopri_bwd, BASELINE config 4's multisampled
 animation frame and massive particles through all six, the polarized
 (Stokes) frame, the polarization maps and the Gen-1 hybrid renderer
 through rk4_fwd, the learned surrogate trained on rk4_fwd's labels, the
-sharded renders and the Trainer through rk4_ckpt and rk4_bwd, and the
-host surfaces: the native runtime, the CLI's render of every example and
+sharded renders and the Trainer through rk4_ckpt and rk4_bwd, the
+texture sampler's backward through tex_bwd, and the host surfaces: the
+native runtime, the CLI's render of every example and
 its animation, the compat API, utils.profiling and the four example
 programs -- and fails (non-zero exit, no result
 line) if anything is off:
@@ -282,7 +283,20 @@ line) if anything is off:
      = 0 map against the CPU's within TOL_POL away from b_c; each
      example's wall seconds, launches and the device's busy share (a
      second run traced through utils.profiling; for kerr_faraday
-     FARADAY_BUSY_STAGES transport stages).
+     FARADAY_BUSY_STAGES transport stages);
+ 49. the texture sampler's backward (ops/csrc/tex_bwd.cu) at the orbit
+     fit's shapes: the six sample_bpy calls of config 4's frame 1 at
+     SIZE^2 x ANIM_SAMPLES samples in one call with a 512 x 1024 sky
+     (the sky's with its texture cotangent, the disk's and the moons'
+     without), the seam and pole batches of the CPU test, a g with NaN and
+     infinities and an all-zero g: against the plain path (TOL_TEX_XY and
+     the summation bound of dtex), dtex bit for bit against the same
+     fixed-point sum taken with torch, two runs bit for bit, one launch a
+     call; the warps' texel groups; the six calls' device ms beside their
+     bound, the plain path's and the sky's four index_put_, and each
+     variant's call ms, device ms and bound.  Every render gradient's
+     launch check above counts tex_bwd_dtex (a learned texture) and
+     tex_bwd (a frozen one) beside the integrator's kernels.
 
 The two-rank paths (the sample group's all_reduce, the ray group's
 all_gather, the gradient average) need two ranks; two NCCL ranks cannot
@@ -315,6 +329,7 @@ import struct
 import subprocess
 import sys
 import time
+import unittest.mock
 import zlib
 from pathlib import Path
 
@@ -352,6 +367,8 @@ from blackhole_geodesic_calculator_tpu_torch.ops.polarization import (
     transport_polarization_ode)
 from blackhole_geodesic_calculator_tpu_torch.parallel import (
     polarization_map_sharded, render_stokes_sharded)
+from blackhole_geodesic_calculator_tpu_torch.parallel.render import (
+    render_samples, slot_jitter)
 from blackhole_geodesic_calculator_tpu_torch.render import (
     debug_rays, format_debug_string, limited, render_progressive,
     render_sample, render_stats, sample_draws)
@@ -359,7 +376,9 @@ from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
     _bh_frame, scene_env)
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
     disk_uv, shade)
-from blackhole_geodesic_calculator_tpu_torch.scene.texture import equirect_uv
+from blackhole_geodesic_calculator_tpu_torch.scene import texture
+from blackhole_geodesic_calculator_tpu_torch.scene.texture import (
+    equirect_uv, sample_bpy, sample_bpy_bwd_plain)
 from blackhole_geodesic_calculator_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent
@@ -386,6 +405,12 @@ for _kind, _line in (("fwd", 473), ("ckpt", 749), ("bwd", 804)):
     for _suffix in ("", "_events", "_kerr", "_kerr_events"):
         KERNELS[f"dopri_{_kind}{_suffix}"] = (
             f"{PKG}/ops/csrc/dopri_{_kind}.cu", f"{PALLAS}:{_line}")
+# the texture sampler's backward, with and without the texture cotangent:
+# no TPU kernel, the JAX package's is XLA's quad scatter
+for _name in ("tex_bwd_dtex", "tex_bwd"):
+    KERNELS[_name] = (f"{PKG}/ops/csrc/tex_bwd.cu",
+                      "none (XLA: blackhole_geodesic_calculator_tpu/scene/"
+                      "texture.py:144 _sample_bpy_bwd)")
 
 # Tolerances of the kernels against their plain versions.  Both are
 # float32; they differ in rsqrtf against torch.rsqrt and in nvcc's fused
@@ -593,6 +618,21 @@ TOL_SUR = 1e-5
 SHARDED_MEAN = 1e-6
 TOL_TRAINER_GRAD = 1e-2
 FIT_STEPS = 60
+# Phase 49 (the texture sampler's backward, csrc/tex_bwd.cu) at the orbit
+# fit's shapes: a TEX_SKY sky (the benchmark's 512 x 1024) under config 4's
+# frame 1 at SIZE^2 x ANIM_SAMPLES samples in one call, as the Trainer
+# renders them.  dx and dy repeat the plain path's roundings and add the
+# channels in order, which torch.sum need not keep: within TOL_TEX_XY (two
+# ulp) of the largest |value|.  dtex is the kernel's fixed-point sum: each
+# of the n_t terms of texel t rounded to the quantum 2^-k (k from the
+# largest |g|, cuda_kernel.tex_bwd_exponent), the sum exact, then one
+# rounding to float32 (u = 2^-24).  The plain path's float32 sums of the
+# same terms in some order are within (n_t - 1) u sum_t |term| of the exact
+# sum (Higham's bound for recursive summation).  So each texel is held to
+# (n_t + 1) u sum_t |term| + n_t 2^-(k+1).  The kernel's dtex also equals,
+# bit for bit, the same fixed-point sum taken with torch (tex_reference).
+TEX_SKY = (512, 1024)
+TOL_TEX_XY = 2.0 ** -22
 # The card's peak rates for the bound of each kernel (NVIDIA's data sheet
 # for the H100 SXM at 700 W, float32 outside the tensor cores).
 PEAK_FLOPS = 67e12
@@ -1384,9 +1424,9 @@ def phase_flagship_grad(scene, cam, dev, readings):
     launches = read_counts()
     for name in ("rk4_ckpt", "rk4_bwd"):
         readings[name]["launches"] = launches.get(name, 0)
-    check(launches == only(rk4_ckpt=1, rk4_bwd=1),
-          f"forward+backward launched {launches}, expected rk4_ckpt and "
-          "rk4_bwd once each and rk4_fwd never")
+    check(launches == only(rk4_ckpt=1, rk4_bwd=1, tex_bwd_dtex=1),
+          f"forward+backward launched {launches}, expected rk4_ckpt, "
+          "rk4_bwd and the sky's tex_bwd_dtex once each and rk4_fwd never")
     for g in gk:
         check(bool(torch.isfinite(g).all()), "flagship gradient not finite")
     gp = render_grads(scene, cam, cfg_plain)
@@ -2165,11 +2205,14 @@ def phase_events_render(dev, readings, spin=None):
     gk = render_grads(scene, cam, cfg)
     torch.cuda.synchronize()
     launches = read_counts()
-    for name in (ckpt_k, bwd_k):
+    names = (ckpt_k, bwd_k) + (() if spin else ("tex_bwd_dtex", "tex_bwd"))
+    for name in names:
         readings[name]["launches"] = launches.get(name, 0)
-    check(launches == only(**{ckpt_k: 1, bwd_k: 1}),
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1}, tex_bwd_dtex=1,
+                           tex_bwd=5),
           f"{label} forward+backward launched {launches}, expected {ckpt_k} "
-          f"and {bwd_k} once each")
+          f"and {bwd_k} once each, tex_bwd_dtex once (the sky) and tex_bwd "
+          "5 times (the disk, the four moons)")
     for g in gk:
         check(bool(torch.isfinite(g).all()), f"{label} gradient not finite")
     gp = render_grads(scene, cam, cfg_plain)
@@ -3275,9 +3318,11 @@ def phase_dopri_ring(dev, name_limit, readings, spin=None):
     launches = read_counts()
     for name in (ckpt_k, bwd_k):
         readings[name]["launches"] = launches.get(name, 0)
-    check(launches == only(**{ckpt_k: 1, bwd_k: 1}),
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1}, tex_bwd_dtex=1,
+                           tex_bwd=1),
           f"{tag} forward+backward launched {launches}, expected {ckpt_k} "
-          f"and {bwd_k} once each")
+          f"and {bwd_k} once each, tex_bwd_dtex (the sky) and tex_bwd (the "
+          "moon) once each")
     for g in gk:
         check(bool(torch.isfinite(g).all()), f"{tag} gradient not finite")
     timing = {}
@@ -4408,11 +4453,13 @@ def phase_anim_fwd(dev, name_limit, readings):
 def phase_anim_grad(dev, name_limit, readings):
     """The gradient of mean(img[..., :3]^2) of config 4's frame 1 to the
     mass, the camera position and the sky: rk4_ckpt's and rk4_bwd's event
-    variants once per sample each and rk4_fwd never; against the plain
-    path on the same draws, the sky whole and the mass and camera on the
-    pixels calm in every sample (frame_parts); the sky cotangents of the
-    samples add up; two runs; times, the device busy share, each kernel's
-    device ms per sample and its bound, K2's checkpoint bytes."""
+    variants and tex_bwd_dtex (the sky) once per sample each, tex_bwd
+    (the disk, the four moons) five times a sample, rk4_fwd never;
+    against the plain path on the same draws, the sky whole and the mass
+    and camera on the pixels calm in every sample (frame_parts); the sky
+    cotangents of the samples add up; two runs; times, the device busy
+    share, each kernel's device ms per sample and its bound, K2's
+    checkpoint bytes."""
     scene, cam = events_scene(dev), frame_cam(2 * np.pi / ANIM_FRAMES, dev)
     cfg, cfg_plain = anim_cfg(), anim_cfg("torch")
     icfg = cfg.integrator
@@ -4423,9 +4470,12 @@ def phase_anim_grad(dev, name_limit, readings):
     launches = read_counts()
     count_path(readings, "animation step", launches)
     check(launches == only(rk4_ckpt_events=ANIM_SAMPLES,
-                           rk4_bwd_events=ANIM_SAMPLES),
-          f"animation step launched {launches}, expected rk4_ckpt_events "
-          f"and rk4_bwd_events {ANIM_SAMPLES} times each")
+                           rk4_bwd_events=ANIM_SAMPLES,
+                           tex_bwd_dtex=ANIM_SAMPLES,
+                           tex_bwd=5 * ANIM_SAMPLES),
+          f"animation step launched {launches}, expected rk4_ckpt_events, "
+          f"rk4_bwd_events and tex_bwd_dtex (the sky) {ANIM_SAMPLES} times "
+          f"each and tex_bwd (the disk, the four moons) {5 * ANIM_SAMPLES}")
     for g in gk:
         check(bool(torch.isfinite(g).all()), "animation gradient not finite")
     gp, plain_ms = once(lambda: render_grads(scene, cam, cfg_plain))
@@ -6046,9 +6096,9 @@ def phase_trainer(dev, name_limit, readings):
         launches = read_counts()
         if path == "kernel":
             count_path(readings, "Trainer step 512", launches)
-            check(launches == only(rk4_ckpt=1, rk4_bwd=1),
-                  f"the Trainer step launched {launches}, expected rk4_ckpt "
-                  "and rk4_bwd once each")
+            check(launches == only(rk4_ckpt=1, rk4_bwd=1, tex_bwd_dtex=1),
+                  f"the Trainer step launched {launches}, expected rk4_ckpt, "
+                  "rk4_bwd and tex_bwd_dtex once each")
         grads[path] = {k: p0[k] - p[k].detach() for k in p0}
         log(f"# phase 38: Trainer.step 512x512, mask_critical 0.25, {path} "
             f"path: loss {float(loss):.6e}")
@@ -6120,7 +6170,8 @@ def phase_trainer(dev, name_limit, readings):
         f"{losses[0]:.4e} -> min {min(losses):.4e} in {FIT_STEPS} steps, "
         f"{fit_ms:.3f} ms, launches {launches} [{name_limit}]")
     check(abs(mass - 0.5) < 0.05 and min(losses) < 0.5 * losses[0]
-          and launches == only(rk4_ckpt=FIT_STEPS, rk4_bwd=FIT_STEPS),
+          and launches == only(rk4_ckpt=FIT_STEPS, rk4_bwd=FIT_STEPS,
+                               tex_bwd=FIT_STEPS),
           "the mass fit did not recover the mass")
     readings.setdefault("trainer", {}).update(
         grad_parity=worst, step_ms=wall, step_loss=float(loss),
@@ -6819,8 +6870,9 @@ def phase_example_faraday(dev, name_limit, readings):
 
 def phase_example_fit(dev, name_limit, readings):
     """examples.fit_orbit on the card: the targets through rk4_fwd (one
-    launch a frame for all its samples), each fit step one rk4_ckpt and
-    one rk4_bwd, no plain loop; its exit code is the script's < 1%
+    launch a frame for all its samples), each fit step one rk4_ckpt, one
+    rk4_bwd and one tex_bwd (the sky, frozen), no plain loop; its exit
+    code is the script's < 1%
     recovery of mass, orbit phase and roll; the busy share."""
     name = "fit_orbit"
     wall, launches = run_example(name, fit_orbit, readings, name_limit)
@@ -6829,7 +6881,8 @@ def phase_example_fit(dev, name_limit, readings):
         rep = json.load(f)
     steps = len(rep["losses"])
     check(launches == only(rk4_fwd=rep["config"]["frames"], rk4_ckpt=steps,
-                           rk4_bwd=steps), f"{name} launched {launches}")
+                           rk4_bwd=steps, tex_bwd=steps),
+          f"{name} launched {launches}")
     log(f"# phase 47: {name}: loss {rep['loss_first']:.4e} -> "
         f"{rep['loss_last']:.4e} in {steps} steps, errors "
         f"{json.dumps(rep['errors'])}, fit {rep['fit_seconds']:.3f} s "
@@ -6844,18 +6897,258 @@ def phase_example_tutorial(dev, name_limit, readings):
     """examples.tutorial on the card: rk4_fwd (the fan, the hybrid frame,
     the table's build, the surrogate's labels and evaluation),
     rk4_fwd_events (the scene, its sharded and Stokes renders), the mass
-    gradient through rk4_ckpt_events and rk4_bwd_events, no plain loop;
+    gradient through rk4_ckpt_events, rk4_bwd_events and tex_bwd (the
+    frozen sky, disk and moon), no plain loop;
     its three PNGs; the busy share."""
     name = "tutorial"
     wall, launches = run_example(name, tutorial, readings, name_limit)
     check(set(launches) == {"rk4_fwd", "rk4_fwd_events", "rk4_ckpt_events",
-                            "rk4_bwd_events"}, f"{name} launched {launches}")
+                            "rk4_bwd_events", "tex_bwd"},
+          f"{name} launched {launches}")
     out = ROOT / "build" / "chip_smoke" / name
     for png in ("tutorial_disk.png", "tutorial_limited_mlp.png",
                 "tutorial_polfrac.png"):
         check((out / png).exists(), f"{name} wrote no {png}")
     example_busy(name, quiet_main(name, tutorial), wall, launches,
                  name_limit, readings)
+
+
+def tex_terms(saved):
+    """The plain path's four (rows, columns, weights) of the corners, from
+    what sample_bpy's forward saved."""
+    _, _, _, _, tx, ty, xi0, xi1, yi0, yi1 = saved
+    txe, tye = tx[..., None], ty[..., None]
+    return ((yi0, xi0, (1.0 - txe) * (1.0 - tye)),
+            (yi0, xi1, txe * (1.0 - tye)),
+            (yi1, xi0, (1.0 - txe) * tye), (yi1, xi1, txe * tye))
+
+
+def tex_saved(tex, x, y, learn_tex):
+    """(the tensors sample_bpy's forward saves for (tex, x, y), the
+    texture's shape, whether dtex is wanted): the arguments of the
+    backward's two paths but g."""
+    leaf = lambda t, on: t.detach().clone().requires_grad_(on)  # noqa
+    out = sample_bpy(leaf(tex, learn_tex), leaf(x, True), leaf(y, True))
+    return out.grad_fn.saved_tensors, tuple(tex.shape), learn_tex
+
+
+def tex_reference(saved, g, shape):
+    """tex_bwd.cu's fixed-point dtex taken with torch -- each finite term
+    g w scaled by 2^k (k: cuda_kernel.tex_bwd_exponent of the largest
+    finite |g|), rounded to int64, summed by index_add_ (integers: any
+    order gives the same) and back to float32 -- and each texel's bound
+    on the distance of the plain path's dtex from it (the module comment
+    at TOL_TEX_XY)."""
+    h, w, nc = shape
+    a = g.abs()
+    a = a[torch.isfinite(a)]
+    k = cuda_kernel.tex_bwd_exponent(float(a.max()) if a.numel() else 0.0,
+                                     saved[4].numel())
+    acc = torch.zeros(h * w * nc, dtype=torch.int64, device=g.device)
+    count = torch.zeros(h * w * nc, dtype=torch.float64, device=g.device)
+    mass = torch.zeros_like(count)
+    ch = torch.arange(nc, device=g.device)
+    for yi, xi, wgt in tex_terms(saved):
+        idx = ((yi * w + xi)[..., None] * nc + ch).reshape(-1)
+        v = (g * wgt).reshape(-1).double()
+        acc.index_add_(0, idx, torch.where(
+            torch.isfinite(v), torch.round(v * 2.0 ** k), 0.0).to(torch.int64))
+        count.index_add_(0, idx, torch.ones_like(v))
+        mass.index_add_(0, idx, v.abs())
+    bound = (count + 1) * 2.0 ** -24 * mass + count * 2.0 ** -(k + 1)
+    return ((acc.double() * 2.0 ** -k).float().reshape(shape),
+            bound.reshape(shape))
+
+
+def tex_check(what, call, g):
+    """One backward of the texture sampler through tex_bwd against the
+    plain path on the card (module comment at TOL_TEX_XY), and a second
+    run bit for bit; returns the kernel's (dtex, dx, dy) and its largest
+    |difference| from the plain path's over their largest |value|."""
+    saved, shape, dtex = call
+    kd, kx, ky = cuda_kernel.tex_bwd(*saved, g, shape, dtex)
+    pd, px, py = sample_bpy_bwd_plain(*saved, g, shape, dtex)
+    again = cuda_kernel.tex_bwd(*saved, g, shape, dtex)
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    check(all(a is b or torch.equal(bits(a), bits(b))
+              for a, b in zip((kd, kx, ky), again)),
+          f"{what}: two runs of tex_bwd differ")
+    errs = []
+    for got, want, name in ((kx, px, "dx"), (ky, py, "dy")):
+        fin = torch.isfinite(want)
+        check(torch.equal(torch.isfinite(got), fin)
+              and torch.equal(torch.isnan(got), torch.isnan(want)),
+              f"{what}: {name}'s non-finite entries differ from the plain "
+              "path's")
+        err = float((got - want)[fin].abs().max()
+                    / want[fin].abs().max().clamp(min=1e-30)) if bool(
+                        fin.any()) else 0.0
+        check(err <= TOL_TEX_XY, f"{what}: {name} {err:.3e} of its largest "
+              f"value from the plain path's, outside {TOL_TEX_XY:.3e}")
+        errs.append(err)
+    if dtex:
+        fp, bound = tex_reference(saved, g, shape)
+        fin = torch.isfinite(pd)
+        for name, cls in (("NaN", torch.isnan), ("+inf", torch.isposinf),
+                          ("-inf", torch.isneginf)):
+            check(torch.equal(cls(kd), cls(pd)),
+                  f"{what}: dtex's {name} texels differ from the plain "
+                  "path's")
+        err = (kd.double() - pd.double()).abs()
+        share = float((err[fin] / bound[fin].clamp(min=1e-300)).max()) if bool(
+            fin.any()) else 0.0
+        check(bool((err[fin] <= bound[fin]).all()),
+              f"{what}: dtex outside the float32 summation bound of the "
+              f"plain path (worst texel at {share:.3f} of it)")
+        check(torch.equal(bits(kd[fin]), bits(fp[fin])),
+              f"{what}: dtex differs from the fixed-point sum taken with "
+              "torch")
+        rel = float((err[fin]).max() / pd[fin].abs().max().clamp(
+            min=1e-30)) if bool(fin.any()) else 0.0
+        log(f"# phase 49 [{what}]: dtex {rel:.3e} of its largest |value| "
+            f"from the plain path's (worst texel at {share:.3f} of the "
+            f"summation bound); dx, dy {errs[0]:.3e}, {errs[1]:.3e}")
+        errs.append(rel)
+    return (kd, kx, ky), max(errs)
+
+
+def phase_tex_bwd(dev, name_limit, readings):
+    """The texture sampler's backward through csrc/tex_bwd.cu at the orbit
+    fit's shapes (the module comment at TOL_TEX_XY): the six sample_bpy
+    calls of config 4's frame 1 at SIZE^2 x ANIM_SAMPLES samples in one
+    call with a TEX_SKY sky (the sky, whose dtex is wanted, the disk and
+    the four moons, whose are not), captured from one render_samples;
+    each against the plain path, two runs bit for bit, each call launching
+    tex_bwd_dtex or tex_bwd once; the seam and pole batches of
+    tests/test_torch_grad.py::test_sample_bpy_backward_matches_jax; a g
+    with NaN and infinities, and an all-zero g; the warps' texel groups;
+    the six calls' device ms against their bound, the plain path's and
+    the sky's four index_put_."""
+    sky = torch.as_tensor(make_sky(*TEX_SKY, 32), dtype=torch.float32,
+                          device=dev)
+    scene = dataclasses.replace(events_scene(dev), background=sky)
+    cam = frame_cam(2 * np.pi / ANIM_FRAMES, dev)
+    cfg = anim_cfg()
+    pix = torch.arange(SIZE * SIZE, device=dev)
+    ys, xs = pix // SIZE, pix % SIZE
+    jitter = slot_jitter(cfg, sample_draws(cfg, dev), ys, xs)
+    seen, apply = [], texture._SampleBpy.apply
+
+    def capture(tex, x, y):
+        seen.append((tex, x.detach(), y.detach()))
+        return apply(tex, x, y)
+
+    with torch.no_grad(), unittest.mock.patch.object(
+            texture._SampleBpy, "apply", capture):
+        render_samples(scene, cam, cfg, ys, xs, jitter)
+    calls = [tex_saved(t, x, y, t.data_ptr() == sky.data_ptr())
+             for t, x, y in seen]
+    n = calls[0][0][4].numel()
+    check(len(calls) == 6 and sum(c[2] for c in calls) == 1
+          and all(c[0][4].numel() == n for c in calls)
+          and n == ANIM_SAMPLES * SIZE * SIZE,
+          f"the frame made {len(calls)} sample_bpy calls of "
+          f"{[c[0][4].numel() for c in calls]} rays, expected six of "
+          f"{ANIM_SAMPLES * SIZE * SIZE}, one on the sky")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(49)
+    gs = [torch.randn(c[0][0].shape, generator=gen, device=dev)
+          for c in calls]
+    cuda_kernel.LAUNCHES.clear()
+    for i, (call, g) in enumerate(zip(calls, gs)):
+        _, err = tex_check(f"call {i} ({'sky' if call[2] else 'frozen'} "
+                           f"{call[1]})", call, g)
+        r = readings["tex_bwd_dtex" if call[2] else "tex_bwd"]
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_kernel.LAUNCHES.items() if v}
+    check(launches == {"tex_bwd_dtex": 2, "tex_bwd": 10},
+          f"two runs of the six calls launched {launches}, expected "
+          "tex_bwd_dtex 2 and tex_bwd 10")
+    # the seam and pole batches of the CPU test, and the edge cases of g
+    rng = np.random.default_rng(5)
+    small = torch.as_tensor(rng.uniform(size=(16, 32, 3)),
+                            dtype=torch.float32, device=dev)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    for where, seed in (("seam", 5), ("poles", 6)):
+        rng = np.random.default_rng(seed)
+        xy = [rng.uniform(-0.95, 0.95, 4000) for _ in range(2)]
+        edge = rng.uniform(0.96, 1.0, 4000) * rng.choice([-1.0, 1.0], 4000)
+        xy[where == "poles"] = edge
+        _, err = tex_check(where, tex_saved(small, f32(xy[0]), f32(xy[1]),
+                                            True),
+                           f32(rng.normal(size=(4000, 3))))
+        r = readings["tex_bwd_dtex"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    sky_call, g = calls[0], gs[0]
+    bad = g.clone()
+    bad.view(-1)[::100_003] = float("nan")
+    bad.view(-1)[7::100_019] = float("inf")
+    bad.view(-1)[11::100_043] = float("-inf")
+    tex_check("g with NaN and infinities", sky_call, bad)
+    (kd, _, _), _ = tex_check("all-zero g", sky_call, torch.zeros_like(g))
+    check(int(torch.count_nonzero(kd)) == 0, "all-zero g: dtex not zero")
+    # the warps' texel groups on the sky call: lanes a leader, atomics a ray
+    _, _, _, _, _, _, xi0, _, yi0, yi1 = sky_call[0]
+    key = ((yi0 * TEX_SKY[1] + xi0) * 2 + (yi1 - yi0)).reshape(-1)
+    key = torch.cat([key, key.new_full(((-n) % 32,), -1)]).reshape(-1, 32)
+    groups = int((torch.sort(key, dim=1).values.diff(dim=1) != 0).sum()
+                 + key.shape[0])
+    per_texel = torch.bincount((yi0 * TEX_SKY[1] + xi0).reshape(-1))
+    log(f"# phase 49: the sky call's {n} rays fall in {groups} warp "
+        f"groups, {n / groups:.2f} lanes a leader: {4 * groups / n:.3f} "
+        f"atomics a ray and channel instead of 4; "
+        f"{int((per_texel > 0).sum())} texel cells hit, "
+        f"{float(per_texel[per_texel > 0].float().mean()):.1f} rays a cell "
+        f"on average, {int(per_texel.max())} at most")
+    # times: the six calls of a step through the kernel, the plain path,
+    # and the sky's four accumulating index_put_ alone
+    def step(bwd):
+        for call, g in zip(calls, gs):
+            bwd(*call[0], g, call[1], call[2])
+
+    def index_puts():
+        out = gs[0].new_zeros(sky_call[1])
+        for yi, xi, wgt in tex_terms(sky_call[0]):
+            out.index_put_((yi, xi), gs[0] * wgt, accumulate=True)
+
+    # the work of a call: dx, dy read the corners, tx, ty and g and write
+    # dx, dy (14 operations a channel, 4 a ray); the texture cotangent
+    # also reads the four indices and writes dtex once (the weights, and
+    # a product and a scaling a corner and channel)
+    nc = sky_call[1][2]
+    ray_bytes = n * (4 * nc * 4 + 8 + nc * 4 + 8)
+    ray_ops = n * (14 * nc + 4)
+    tex_bytes = n * 32 + sky_call[0][0].element_size() * (
+        TEX_SKY[0] * TEX_SKY[1] * nc)
+    bytes_ = 6 * ray_bytes + tex_bytes
+    bound_ms = bytes_ / PEAK_BYTES * 1e3
+    ms = device_ms(lambda: step(cuda_kernel.tex_bwd))
+    plain_ms = device_ms(lambda: step(sample_bpy_bwd_plain), runs=3)
+    put_ms = device_ms(index_puts, runs=3)
+    # each variant on one call: the sky's with dtex, the disk's without
+    for name, (call, g), ops, nbytes in (
+            ("tex_bwd_dtex", (sky_call, gs[0]), ray_ops + n * (8 * nc + 4),
+             ray_bytes + tex_bytes),
+            ("tex_bwd", (calls[1], gs[1]), ray_ops, ray_bytes)):
+        one = lambda bwd: lambda: bwd(*call[0], g, call[1], call[2])  # noqa
+        readings[name].update(
+            ms=timed(one(cuda_kernel.tex_bwd)),
+            device_ms=device_ms(one(cuda_kernel.tex_bwd)),
+            plain_ms=device_ms(one(sample_bpy_bwd_plain), runs=3),
+            **bound(ops, nbytes))
+        r = readings[name]
+        log(f"# {name} [one call, {n} rays]: call {r['ms']:.3f} ms, device "
+            f"{r['device_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms [{name_limit}]")
+    sky_ms = readings["tex_bwd_dtex"]["device_ms"]
+    log(f"# tex_bwd [the orbit fit's six calls a step, {n} rays, sky "
+        f"{TEX_SKY[0]}x{TEX_SKY[1]}]: device {ms:.3f} ms (the sky's "
+        f"{sky_ms:.3f}), bound {bound_ms:.3f} ms ({bytes_ / 1e9:.2f} GB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s), plain {plain_ms:.3f} ms, the sky's "
+        f"four index_put_ {put_ms:.3f} ms; launches a step: tex_bwd_dtex "
+        f"1, tex_bwd 5 [{name_limit}]")
 
 
 def main() -> int:
@@ -6967,6 +7260,8 @@ def main() -> int:
           name_limit, readings)
     phase("phase 48 (example tutorial)", phase_example_tutorial, dev,
           name_limit, readings)
+    phase("phase 49 (texture backward)", phase_tex_bwd, dev, name_limit,
+          readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")
 

@@ -17,6 +17,7 @@ nothing of JAX, so it also runs where JAX is not installed; the tests'
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from blackhole_geodesic_calculator_tpu_torch.ops import states  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops import geodesic as tgeo  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init  # noqa: E402
+from blackhole_geodesic_calculator_tpu_torch.scene import texture  # noqa: E402
 import torch_particles  # noqa: E402
 
 
@@ -115,11 +117,16 @@ def counts():
     return dict(cuda_kernel.LAUNCHES)
 
 
-def launched(before):
-    """The launches of each kernel variant since ``before`` (counts())."""
+TEXTURE_KERNELS = ("tex_bwd", "tex_bwd_dtex")
+
+
+def launched(before, texture=False):
+    """The launches of each integrator kernel variant since ``before``
+    (counts()); with ``texture``, of the texture backward's instead."""
     now = cuda_kernel.LAUNCHES
     return {k: now[k] - before.get(k, 0) for k in now
-            if now[k] != before.get(k, 0)}
+            if now[k] != before.get(k, 0)
+            and (k in TEXTURE_KERNELS) == texture}
 
 
 def initial_state(e, x0, d0):
@@ -208,7 +215,8 @@ def test_bwd_is_deterministic():
 
 def test_render_gradient_launches_ckpt_and_bwd():
     """A 32x32 flagship frame's gradient goes through rk4_ckpt and rk4_bwd
-    once each, never rk4_fwd, and agrees with the plain path."""
+    once each, never rk4_fwd, and the sky's backward through tex_bwd with
+    its texture cotangent once; it agrees with the plain path."""
     v, u = np.meshgrid(np.arange(256), np.arange(512), indexing="ij")
     sky = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * u / 512)
                     * np.sin(np.pi * v / 256), v / 256,
@@ -231,11 +239,75 @@ def test_render_gradient_launches_ckpt_and_bwd():
     before = counts()
     gk = grads(cfg)
     assert launched(before) == {"rk4_ckpt": 1, "rk4_bwd": 1}
+    assert launched(before, texture=True) == {"tex_bwd_dtex": 1}
     gp = grads(dataclasses.replace(cfg, integrator=dataclasses.replace(
         cfg.integrator, backend="torch")))
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max() / b.abs().max()) <= TOL_RENDER_GRAD
+
+
+# jax.vjp of the JAX package's sample_bpy on the inputs of
+# tests/test_torch_grad.py::test_sample_bpy_backward_matches_jax, written by
+# tests/test_torch_grad.py::test_sample_bpy_backward_golden on the CPU
+TEX_GOLDEN = Path(__file__).parent / "golden" / "sample_bpy_backward.npz"
+
+
+@pytest.mark.parametrize("where", ["interior", "seam", "poles"])
+def test_tex_bwd_matches_plain(where):
+    """csrc/tex_bwd.cu, through sample_bpy's backward on the card, against
+    jax.vjp of the JAX sample_bpy (TEX_GOLDEN) within 1e-5 of the largest
+    |value|, as the CPU path is held; its dtex bit for bit against the
+    fixed-point sum at cuda_kernel.tex_bwd_exponent's scale; against
+    sample_bpy_bwd_plain: dx and dy within two ulp of their largest value
+    (the channels may add in another order), dtex within 1e-5 of its
+    largest value (the plain path's float32 sums of about 1,000 terms a
+    texel); two runs bit for bit; NaN and infinite g entries give
+    non-finite texels where the plain path's are; one launch a call."""
+    with np.load(TEX_GOLDEN) as z:
+        tex, x, y, g, jtex, jx, jy = (
+            torch.as_tensor(z[f"{where}_{k}"], device=DEV)
+            for k in ("tex", "x", "y", "g", "dtex", "dx", "dy"))
+    leaves = [t.clone().requires_grad_(True) for t in (tex, x, y)]
+    out = texture.sample_bpy(*leaves)
+    saved = out.grad_fn.saved_tensors
+    before = counts()
+    out.backward(g)
+    assert launched(before, texture=True) == {"tex_bwd_dtex": 1}
+    for got, want in zip((leaf.grad for leaf in leaves), (jtex, jx, jy)):
+        assert float((got - want).abs().max()
+                     / want.abs().max().clamp(min=1e-30)) <= 1e-5
+    # the same sum in int64 at the host mirror's scale
+    _, _, _, _, tx, ty, xi0, xi1, yi0, yi1 = saved
+    h, w, nc = tex.shape
+    k = cuda_kernel.tex_bwd_exponent(float(g.abs().max()), x.numel())
+    acc = torch.zeros(h * w * nc, dtype=torch.int64, device=DEV)
+    txe, tye = tx[:, None], ty[:, None]
+    for yi, xi, wgt in ((yi0, xi0, (1.0 - txe) * (1.0 - tye)),
+                        (yi0, xi1, txe * (1.0 - tye)),
+                        (yi1, xi0, (1.0 - txe) * tye), (yi1, xi1, txe * tye)):
+        idx = ((yi * w + xi)[:, None] * nc + torch.arange(nc, device=DEV))
+        acc.index_add_(0, idx.reshape(-1), torch.round(
+            (g * wgt).reshape(-1).double() * 2.0 ** k).to(torch.int64))
+    fixed = (acc.double() * 2.0 ** -k).float().reshape(h, w, nc)
+    assert torch.equal(leaves[0].grad.view(torch.int32),
+                       fixed.view(torch.int32))
+    # against the plain path, with NaN and infinite entries of g
+    g = g.clone()
+    g[::97, 1] = float("nan")
+    g[5::89, 0] = float("inf")
+    before = counts()
+    got = cuda_kernel.tex_bwd(*saved, g, tex.shape, True)
+    again = cuda_kernel.tex_bwd(*saved, g, tex.shape, True)
+    assert launched(before, texture=True) == {"tex_bwd_dtex": 2}
+    want = texture.sample_bpy_bwd_plain(*saved, g, tex.shape, True)
+    for a, b, c, tol in zip(got, again, want, (1e-5, 2 ** -22, 2 ** -22)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(torch.isnan(a), torch.isnan(c))
+        assert torch.equal(torch.isinf(a), torch.isinf(c))
+        fin = torch.isfinite(c)
+        assert float((a - c)[fin].abs().max()
+                     / c[fin].abs().max().clamp(min=1e-30)) <= tol
 
 
 def test_render_image_launches_the_kernel():

@@ -19,7 +19,10 @@ whole renders need 1e-3 (see ``test_flagship_render_gradients_match_jax``).
 """
 
 import dataclasses
+import fractions
 import importlib
+import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +48,7 @@ from blackhole_geodesic_calculator_tpu_torch.ops import integrate as tint  # noq
 from blackhole_geodesic_calculator_tpu_torch.ops import states as tstates  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init as tnull  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.render.renderer import render_image  # noqa: E402
+from blackhole_geodesic_calculator_tpu_torch.scene import texture  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.scene.texture import sample_bpy  # noqa: E402
 
 # the JAX package's ops/__init__ exports a function named ``integrate``
@@ -315,11 +319,13 @@ def test_integrate_fixed_gradients_match_jax(reference):
 # =============================================================================
 # The texture sampler's backward.
 # =============================================================================
-@pytest.mark.parametrize("where", ["interior", "seam", "poles"])
-def test_sample_bpy_backward_matches_jax(where):
-    """dtex, dx and dy against jax.vjp of the JAX sample_bpy (its quad
-    scatter with the row fold and column roll) -- at the x = +-1 seam, where
-    the +1 column wraps, and at the y = +-1 pole rows, where rows clip."""
+WHERE = ["interior", "seam", "poles"]
+
+
+def texture_inputs(where):
+    """A 16x32 texture, 4000 bpy coordinates -- inside, at the x = +-1 seam
+    (the +1 column wraps) or at the y = +-1 pole rows (rows clip) -- and
+    output cotangents; numpy float32."""
     rng = np.random.default_rng({"interior": 4, "seam": 5, "poles": 6}[where])
     tex = rng.uniform(size=(16, 32, 3)).astype(np.float32)
     n = 4000
@@ -332,6 +338,15 @@ def test_sample_bpy_backward_matches_jax(where):
         y = edge
     x, y = x.astype(np.float32), y.astype(np.float32)
     g = rng.normal(size=(n, 3)).astype(np.float32)
+    return tex, x, y, g
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_sample_bpy_backward_matches_jax(where):
+    """dtex, dx and dy against jax.vjp of the JAX sample_bpy (its quad
+    scatter with the row fold and column roll) -- at the x = +-1 seam, where
+    the +1 column wraps, and at the y = +-1 pole rows, where rows clip."""
+    tex, x, y, g = texture_inputs(where)
     out, vjp = jax.vjp(jsample, jnp.asarray(tex), jnp.asarray(x),
                        jnp.asarray(y))
     jtex, jx, jy = vjp(jnp.asarray(g))
@@ -343,6 +358,144 @@ def test_sample_bpy_backward_matches_jax(where):
     close(tt.grad, jtex, 1e-5, "dtex")
     close(tx.grad, jx, 1e-5, "dx")
     close(ty.grad, jy, 1e-5, "dy")
+
+
+TEX_GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                          "sample_bpy_backward.npz")
+
+
+def texture_golden():
+    """texture_inputs and jax.vjp of the JAX sample_bpy on them, for each
+    of WHERE: {f"{where}_{name}": float32 array}."""
+    out = {}
+    for where in WHERE:
+        tex, x, y, g = texture_inputs(where)
+        _, vjp = jax.vjp(jsample, jnp.asarray(tex), jnp.asarray(x),
+                         jnp.asarray(y))
+        grads = (np.asarray(v, np.float32) for v in vjp(jnp.asarray(g)))
+        for name, a in zip(("tex", "x", "y", "g", "dtex", "dx", "dy"),
+                           (tex, x, y, g, *grads)):
+            out[f"{where}_{name}"] = a
+    return out
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_sample_bpy_backward_golden(where):
+    """The golden that tests/test_torch_cuda.py holds the card's texture
+    backward to, where JAX is not installed, is texture_inputs and jax.vjp
+    of the JAX sample_bpy on them, bit for bit (REGEN_GOLDEN=1 writes it
+    anew)."""
+    want = texture_golden()
+    if os.environ.get("REGEN_GOLDEN") == "1" or not os.path.exists(
+            TEX_GOLDEN):
+        np.savez_compressed(TEX_GOLDEN, **want)
+        pytest.skip(f"golden regenerated: {TEX_GOLDEN}")
+    with np.load(TEX_GOLDEN) as z:
+        assert sorted(z.files) == sorted(want)
+        for name in want:
+            if name.startswith(where + "_"):
+                assert z[name].dtype == np.float32, name
+                assert np.array_equal(z[name], want[name]), name
+
+
+@pytest.mark.parametrize("learn_tex", [True, False])
+def test_sample_bpy_backward_on_cpu_is_plain(learn_tex, monkeypatch):
+    """CPU tensors take sample_bpy_bwd_plain, never the kernel's wrapper,
+    and count no launch; a frozen texture gets no cotangent."""
+    tex, x, y, g = texture_inputs("interior")
+    tt, tx, ty = (T(tex).requires_grad_(learn_tex),
+                  T(x).requires_grad_(True), T(y).requires_grad_(True))
+    out = sample_bpy(tt, tx, ty)
+    want = texture.sample_bpy_bwd_plain(*out.grad_fn.saved_tensors, T(g),
+                                        tt.shape, learn_tex)
+
+    def refuse(*args):
+        raise AssertionError("the CPU path launched tex_bwd")
+
+    monkeypatch.setattr(cuda_kernel, "tex_bwd", refuse)
+    before = dict(cuda_kernel.LAUNCHES)
+    out.backward(T(g))
+    assert dict(cuda_kernel.LAUNCHES) == before
+    assert (tt.grad is None) == (not learn_tex)
+    for got, w in zip((tt.grad, tx.grad, ty.grad), want):
+        assert (got is None and w is None) or torch.equal(got, w)
+
+
+def test_tex_bwd_refuses_cpu_tensors():
+    """The kernel's wrapper raises on CPU tensors: no fallback."""
+    tex, x, y, g = texture_inputs("interior")
+    out = sample_bpy(T(tex).requires_grad_(True), T(x).requires_grad_(True),
+                     T(y))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_kernel.tex_bwd(*out.grad_fn.saved_tensors, T(g), tex.shape,
+                            True)
+
+
+F32_MAX = float(np.finfo(np.float32).max)
+F32_TINY = float(np.finfo(np.float32).smallest_subnormal)
+
+
+@pytest.mark.parametrize("max_abs,n", [
+    (0.0, 5 * 1024 ** 2), (1.0, 5 * 1024 ** 2), (F32_MAX, 5 * 1024 ** 2),
+    (F32_TINY, 5 * 1024 ** 2), (F32_MAX, 2 ** 31 - 1), (F32_TINY, 2 ** 31 - 1),
+    (F32_TINY, 1), (3.0, 1)])
+def test_tex_bwd_exponent(max_abs, n):
+    """tex_bwd.cu's fixed-point exponent (its host mirror): n terms of
+    magnitude up to max_abs scaled by 2^k sum to less than 2^62, so no
+    texel's int64 sum overflows, and to at least 2^60, so at most two bits
+    of the int64 go unused; every nonzero float32 term scales to a normal
+    double and 2^-k, which converts the sums back, is one too.  max_abs = 0
+    gives k = 0."""
+    k = cuda_kernel.tex_bwd_exponent(max_abs, n)
+    if max_abs == 0.0:
+        assert k == 0
+        return
+    top = fractions.Fraction(n) * fractions.Fraction(max_abs) * (
+        fractions.Fraction(2) ** k)
+    assert 2 ** 60 <= top < 2 ** 62
+    assert abs(k) <= 1022
+    assert math.ldexp(F32_TINY, k) >= 2.0 ** -1022
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_tex_bwd_fixed_point_sum(where):
+    """tex_bwd.cu's texture cotangent, emulated with numpy: each term g w
+    (float32, the plain path's) scaled by 2^k (tex_bwd_exponent) and
+    rounded to int64.  The sums are the same bit for bit with the rays in
+    another order, and within one float32 rounding of the float64 sum of
+    the same terms -- closer than the plain path's float32 sums."""
+    tex, x, y, g = texture_inputs(where)
+    out = sample_bpy(T(tex).requires_grad_(True), T(x).requires_grad_(True),
+                     T(y).requires_grad_(True))
+    saved = out.grad_fn.saved_tensors
+    _, _, _, _, tx, ty, xi0, xi1, yi0, yi1 = (t.numpy() for t in saved)
+    h, w, c = tex.shape
+    k = cuda_kernel.tex_bwd_exponent(float(np.abs(g).max()), len(x))
+    one = np.float32(1.0)
+    terms = [((yi0 * w + xi0), (one - tx) * (one - ty)),
+             ((yi0 * w + xi1), tx * (one - ty)),
+             ((yi1 * w + xi0), (one - tx) * ty), ((yi1 * w + xi1), tx * ty)]
+
+    def fixed(order):
+        acc = np.zeros(h * w * c, np.int64)
+        exact = np.zeros(h * w * c, np.float64)
+        for texel, wgt in terms:
+            v = (g * wgt[:, None])[order]
+            idx = (texel[:, None] * c + np.arange(c))[order]
+            np.add.at(acc, idx, np.rint(np.ldexp(v.astype(np.float64), k))
+                      .astype(np.int64))
+            np.add.at(exact, idx, v.astype(np.float64))
+        return (np.ldexp(acc.astype(np.float64), -k).astype(np.float32),
+                exact)
+
+    got, exact = fixed(np.arange(len(x)))
+    again, _ = fixed(np.random.default_rng(7).permutation(len(x)))
+    assert np.array_equal(got.view(np.int32), again.view(np.int32))
+    assert (np.abs(got - exact) <= np.spacing(np.abs(exact).astype(
+        np.float32))).all()
+    plain = texture.sample_bpy_bwd_plain(*saved, T(g), tex.shape, True)[0]
+    assert (np.abs(got - exact).max()
+            <= np.abs(plain.numpy().reshape(-1) - exact).max())
 
 
 # =============================================================================
