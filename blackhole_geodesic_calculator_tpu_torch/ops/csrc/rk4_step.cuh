@@ -453,12 +453,16 @@ __device__ __forceinline__ SegEvents segment_events(
 // (`_events_merge`, :272-317): never store a non-finite state; an event
 // ray freezes at the interpolated event point.  Shared by rk4_step and
 // dopri_trip (dopri_trip.cuh), so the two integrators classify alike.
+// `inside`: the step sampled the horizon's interior deep enough that it
+// crossed it (rk4_step, Kerr), so the ray is CAPTURED whatever its
+// endpoint and events say.
 template <bool KERR, bool DISK, bool SPH, bool GUARD>
 __device__ __forceinline__ void classify_merge(const Scalars& sc,
                                                const float* __restrict__ sph,
                                                int n_sph, float dt, float y0,
                                                float y1, float y2, float q0,
-                                               float q1, float q2, Ray& r) {
+                                               float q1, float q2, Ray& r,
+                                               bool inside = false) {
   // Endpoint classification, lowest priority first (_events_merge); a
   // sphere entry overrides it, and a disk crossing no later on the segment
   // overrides that.
@@ -477,6 +481,7 @@ __device__ __forceinline__ void classify_merge(const Scalars& sc,
       sc, sph, n_sph, r.x0, r.x1, r.x2, y0, y1, y2, rb);
   if (SPH && ev.sid >= 0) st = kObject;
   if (DISK && ev.disk && ev.t_disk <= ev.t_sph) st = kDisk;
+  if (inside && finite) st = kCaptured;
 
   const float x0 = r.x0, x1 = r.x1, x2 = r.x2, lam0 = r.lam;
   if (finite) {
@@ -504,7 +509,13 @@ __device__ __forceinline__ void classify_merge(const Scalars& sc,
 // One RK4 step of an ACTIVE ray with endpoint classification, the segment
 // events and the freeze merge (classify_merge).  The step size reads the
 // radius r.rad, which the caller sets before the first step and
-// classify_merge after each.
+// classify_merge after each.  Kerr: a step one of whose stage points lies
+// within half the capture radius has crossed the horizon and captures the
+// ray, wherever its endpoint lands: there, towards the ring singularity,
+// a stage's right-hand side is so large that the endpoint can land
+// outside again with a state no photon has; a photon's own step from
+// outside the horizon does not reach that deep (ops/integrate.py
+// `_fixed_step`).
 template <int PMODE, bool KERR, bool DISK, bool SPH, bool GUARD>
 __device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
                                          float E,
@@ -528,8 +539,18 @@ __device__ __forceinline__ void rk4_step(const Scalars& sc, float power,
   const float q0 = r.p0 + s6 * (ka[3] + 2.0f * (kb[3] + kc[3]) + kd[3]);
   const float q1 = r.p1 + s6 * (ka[4] + 2.0f * (kb[4] + kc[4]) + kd[4]);
   const float q2 = r.p2 + s6 * (ka[5] + 2.0f * (kb[5] + kc[5]) + kd[5]);
+  bool inside = false;
+  if constexpr (KERR) {
+    const float deep = 0.5f * sc.r_capture;
+    inside = ks_radius(sc.spin, r.x0 + c * ka[0], r.x1 + c * ka[1],
+                       r.x2 + c * ka[2]) <= deep ||
+             ks_radius(sc.spin, r.x0 + c * kb[0], r.x1 + c * kb[1],
+                       r.x2 + c * kb[2]) <= deep ||
+             ks_radius(sc.spin, r.x0 + h * kc[0], r.x1 + h * kc[1],
+                       r.x2 + h * kc[2]) <= deep;
+  }
   classify_merge<KERR, DISK, SPH, GUARD>(sc, sph, n_sph, h, y0, y1, y2, q0,
-                                         q1, q2, r);
+                                         q1, q2, r, inside);
 }
 
 // ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.kerr import ks_radius, ks_scalars
+from ..models.kerr import ks_radius2, ks_scalars
 
 _R2_FLOOR = 1e-12  # keeps captured rays finite until the capture test freezes them
 
@@ -34,12 +34,15 @@ def _schwarzschild_scalars(x3, mass):
 def ks_fields(x3, mass, a):
     """(q, l3, r) with q = 2H for the Kerr-Schild family; a may be None.
 
-    The Kerr radius is floored as the Schwarzschild r^2 is: a captured ray
-    frozen on the ring's disk (z = 0, rho < |a|, where r = 0) keeps a
-    finite velocity and direction; elsewhere the floor changes no bit."""
+    The Kerr r^2 is floored as the Schwarzschild one is, before its square
+    root: a captured ray frozen on or by the ring's disk (z = 0, rho < |a|,
+    where r^2 rounds to 0) keeps a finite velocity and direction, and a
+    finite (zero) gradient, where a floor on r itself passed back the
+    square root's infinite derivative at 0 times zero, NaN; elsewhere the
+    floor changes no bit."""
     if a is None:
         return _schwarzschild_scalars(x3, mass)
-    r = torch.clamp_min(ks_radius(x3, a), _R2_FLOOR ** 0.5)
+    r = torch.sqrt(torch.clamp_min(ks_radius2(x3, a), _R2_FLOOR))
     H, l3 = ks_scalars(x3, mass, a, r=r)
     return 2.0 * H, l3, r
 

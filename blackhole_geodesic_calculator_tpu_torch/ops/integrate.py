@@ -123,18 +123,26 @@ class IntegratorConfig:
 # =============================================================================
 # Single steps.
 # =============================================================================
-def rk4_step(env: GeodesicEnv, x, p, E, dt):
-    """Classic RK4 on the 6-dim (x, p) Hamiltonian system; dt is per-ray."""
+def rk4_stages(env: GeodesicEnv, x, p, E, dt):
+    """Classic RK4 on the 6-dim (x, p) Hamiltonian system; dt is per-ray.
+    Returns the endpoint (x1, p1) and the positions of stages 2-4."""
     h = dt[..., None]
-
     k1x, k1p = env.rhs(x, p, E)
-    k2x, k2p = env.rhs(x + 0.5 * h * k1x, p + 0.5 * h * k1p, E)
-    k3x, k3p = env.rhs(x + 0.5 * h * k2x, p + 0.5 * h * k2p, E)
-    k4x, k4p = env.rhs(x + h * k3x, p + h * k3p, E)
-
+    xa = x + 0.5 * h * k1x
+    k2x, k2p = env.rhs(xa, p + 0.5 * h * k1p, E)
+    xb = x + 0.5 * h * k2x
+    k3x, k3p = env.rhs(xb, p + 0.5 * h * k2p, E)
+    xc = x + h * k3x
+    k4x, k4p = env.rhs(xc, p + h * k3p, E)
     sixth = 1.0 / 6.0
     x1 = x + h * sixth * (k1x + 2.0 * (k2x + k3x) + k4x)
     p1 = p + h * sixth * (k1p + 2.0 * (k2p + k3p) + k4p)
+    return x1, p1, (xa, xb, xc)
+
+
+def rk4_step(env: GeodesicEnv, x, p, E, dt):
+    """Classic RK4 on the 6-dim (x, p) Hamiltonian system; dt is per-ray."""
+    x1, p1, _ = rk4_stages(env, x, p, E, dt)
     return x1, p1
 
 
@@ -230,15 +238,18 @@ def _sphere_events(env: GeodesicEnv, x0, x1):
     return t_best, pt, obj
 
 
-def _apply_events(env: GeodesicEnv, s: RayState, x1, p1, dt) -> RayState:
+def _apply_events(env: GeodesicEnv, s: RayState, x1, p1, dt,
+                  inside=None) -> RayState:
     """Classify the step x -> x1 and merge it into the frozen-state carry.
 
     Priority, lowest first: BUDGET, ESCAPED, CAPTURED, ERROR; then a sphere
     hit (OBJECT), then a disk crossing (DISK) that comes no later on the
-    segment than the sphere hit.  A ray whose step is non-finite keeps its
-    old x and p.  Event rays freeze at the interpolated event point: x is
-    that point (z = 0 on the disk), lam gets the fraction of the step and
-    p is the step's endpoint momentum.
+    segment than the sphere hit; then, where ``inside`` (the step sampled
+    the horizon's interior deep enough to have crossed it), CAPTURED for a
+    finite step.  A ray whose step
+    is non-finite keeps its old x and p.  Event rays freeze at the
+    interpolated event point: x is that point (z = 0 on the disk), lam
+    gets the fraction of the step and p is the step's endpoint momentum.
     """
     active = s.active
 
@@ -267,6 +278,8 @@ def _apply_events(env: GeodesicEnv, s: RayState, x1, p1, dt) -> RayState:
     if env.disk is not None:
         disk_wins = torch.isfinite(t_disk) & (t_disk <= t_sph)
         status = status.masked_fill(disk_wins, states.DISK)
+    if inside is not None:
+        status = status.masked_fill(inside & finite, states.CAPTURED)
     status = torch.where(active, status, s.status)
 
     upd = (active & finite)[..., None]
@@ -310,9 +323,22 @@ def _dt_eff(env: GeodesicEnv, cfg: IntegratorConfig, s: RayState):
 
 def _fixed_step(env: GeodesicEnv, cfg: IntegratorConfig,
                 s: RayState) -> RayState:
+    """One RK4 step and its events.  Kerr: a step one of whose stage
+    points lies within half the capture radius has crossed the horizon
+    and captures the ray wherever its endpoint lands (csrc/rk4_step.cuh
+    ``rk4_step``): there, towards the ring singularity, a stage's
+    right-hand side is so large that a fixed step from just outside can
+    land outside again with a state no photon has (at a/M = 0.9 and dt =
+    0.1, about 1.5e-5 of the rays of an edge-on frame); a photon's own
+    step from outside the horizon does not reach that deep."""
     dt = _dt_eff(env, cfg, s)
-    x1, p1 = rk4_step(env, s.x, s.p, s.E, dt)
-    return _apply_events(env, s, x1, p1, dt)
+    x1, p1, stages = rk4_stages(env, s.x, s.p, s.E, dt)
+    inside = None
+    if env.spin is not None:
+        deep = 0.5 * env.r_capture
+        inside = functools.reduce(torch.logical_or, (
+            env.radius(xs) <= deep for xs in stages))
+    return _apply_events(env, s, x1, p1, dt, inside)
 
 
 def integrate_fixed_fast(env: GeodesicEnv, s0: RayState,

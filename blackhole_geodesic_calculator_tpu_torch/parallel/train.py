@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ..camera.pinhole import Camera, generate_rays
+from ..models.kerr import critical_weights
 from ..ops.geodesic import null_init
 from ..render.renderer import RenderConfig, render_rays, sample_draws
 from ..scene.scene import Scene
@@ -100,8 +101,9 @@ class Trainer:
     # ell = |x cross p| / E lies within this relative band of the critical
     # ell_c = 3 sqrt(3) M wind around the photon sphere, and their pixel
     # values oscillate on tiny parameter scales.  e.g. 0.25 drops
-    # |ell / ell_c - 1| < 0.25 from a weighted MSE that replaces loss_fn
-    # (Schwarzschild's ell_c for Kerr scenes too).
+    # |ell / ell_c - 1| <= 0.25 from a weighted MSE that replaces loss_fn;
+    # a Kerr hole is masked by the distance from its own critical curve
+    # (``_critical_weights``).
     mask_critical: float | None = None
     scheduler: Callable[[torch.optim.Optimizer], Any] | None = None
     clip_norm: float | None = None
@@ -183,12 +185,29 @@ class Trainer:
     def _critical_weights(self, scene, cam, ys, xs):
         """0/1 ray weights leaving out the critical band (mask_critical),
         from the pixel-centre rays and the current params, constant under
-        the gradient."""
+        the gradient.
+
+        Schwarzschild: |ell / (3 sqrt(3) M) - 1| <= band.  Kerr: the same
+        rule on the Kerr critical curve, where the JAX package keeps
+        Schwarzschild's "coarse" ell_c for every spin (JAX
+        parallel/train.py:84-86), which at a/M = 0.9 brackets neither of
+        the shadow's equatorial edges.  Each ray's Carter constants
+        (lambda, eta) = (L_z / E, Q / E^2) are taken from its initial
+        state, and |rho / rho_c - 1| <= band is left out, rho =
+        sqrt(eta + lambda^2) against the critical curve's rho_c at the
+        same angle atan2(sqrt(eta), lambda) (models/kerr.py
+        ``critical_weights``, on a table of the curve made from the current
+        mass and spin).  Rays with eta < 0 do not come near the curve and
+        are kept.  At a = 0 this is the Schwarzschild rule."""
         with torch.no_grad():
             o, d = generate_rays(cam, self.cfg.width, self.cfg.height, ys,
                                  xs)
             o_rel = o - scene.bh.loc
-            p0, e0 = null_init(o_rel, d, scene.bh.mass, scene.bh.spin)
+            bh = scene.bh
+            p0, e0 = null_init(o_rel, d, bh.mass, bh.spin)
+            if bh.spin is not None:
+                return critical_weights(o_rel, p0, e0, bh.mass, bh.spin,
+                                        self.mask_critical)
             ell = torch.linalg.norm(torch.linalg.cross(o_rel, p0, dim=-1),
                                     dim=-1) / e0
             ell_c = 3.0 * math.sqrt(3.0) * scene.bh.mass

@@ -15,6 +15,7 @@ import torch
 
 from ..ops import states
 from ..ops.states import RayState
+from ..utils.profiling import annotate
 from .scene import Scene
 from .texture import safe_arccos, sample_bpy, sample_equirect, sphere_uv_bpy
 
@@ -44,7 +45,12 @@ def disk_redshift(x: torch.Tensor, p: torch.Tensor, E: torch.Tensor, mass,
         L_z   = x p_y - y p_x
         g     = E / (u^t (E - Omega L_z))
 
-    Inside the innermost circular photon orbit (u^t undefined) g is 0."""
+    Inside the innermost circular photon orbit (u^t undefined) g is 0, and
+    so it is where E - Omega L_z <= 0: no matter on the orbit emits such a
+    photon (its energy there would not be positive), a state that only a
+    ray whose RK4 step went through the horizon's interior reaches (a step
+    of 0.1 a little outside the horizon of a/M = 0.9 can), and whose g
+    would grow without bound."""
     def f(v):
         return torch.as_tensor(v, dtype=torch.float32, device=x.device)
 
@@ -59,9 +65,10 @@ def disk_redshift(x: torch.Tensor, p: torch.Tensor, E: torch.Tensor, mass,
     ut = (r * sqr + s * a * sqM) / (
         r ** 0.75 * torch.sqrt(torch.clamp_min(denom2, 1e-12)))
     lz = x[..., 0] * p[..., 1] - x[..., 1] * p[..., 0]
-    e_emit = ut * torch.clamp_min(E - omega * lz, 1e-12)
+    rel = E - omega * lz
+    e_emit = ut * torch.clamp_min(rel, 1e-12)
     g = E / torch.clamp_min(e_emit, 1e-12)
-    return torch.where(denom2 > 1e-12, g, 0.0)
+    return torch.where((denom2 > 1e-12) & (rel > 0), g, 0.0)
 
 
 def disk_uv(disk, hit_point: torch.Tensor) -> tuple[torch.Tensor,
@@ -88,7 +95,8 @@ def shade_disk(scene: Scene, hit_point: torch.Tensor,
         color     = tex(tex_x, s) intensity
 
     times g^beaming (``disk_redshift``) when the disk has a beaming
-    exponent and the momentum is given."""
+    exponent and the momentum is given, in the profiler span
+    ``bhgc.render.redshift``."""
     disk = scene.disk
     tex_x, s = disk_uv(disk, hit_point)
     gauss = torch.exp(-((s - disk.mean) ** 2) / (2.0 * disk.stddev ** 2))
@@ -96,10 +104,11 @@ def shade_disk(scene: Scene, hit_point: torch.Tensor,
                  / torch.sqrt(2.0 * math.pi * disk.stddev))
     out = sample_bpy(disk.texture, tex_x, s) * intensity[..., None]
     if disk.beaming is not None and p is not None:
-        g = disk_redshift(hit_point, p, E, scene.bh.mass, scene.bh.spin,
-                          disk.orbit_dir if disk.orbit_dir is not None
-                          else 1.0)
-        out = out * (g ** disk.beaming)[..., None]
+        with annotate("bhgc.render.redshift"):
+            g = disk_redshift(hit_point, p, E, scene.bh.mass, scene.bh.spin,
+                              disk.orbit_dir if disk.orbit_dir is not None
+                              else 1.0)
+            out = out * (g ** disk.beaming)[..., None]
     return out
 
 
@@ -173,8 +182,13 @@ def shade(scene: Scene, s: RayState, end_dir: torch.Tensor) -> torch.Tensor:
     st = s.status
     color = shade_background(scene, end_dir)  # ESCAPED and BUDGET
     if scene.disk is not None:
-        color = torch.where((st == states.DISK)[..., None],
-                            shade_disk(scene, s.x, s.p, s.E), color)
+        on = st == states.DISK
+        # A beaming disk's g^beaming of a ray that ended elsewhere (inside
+        # the horizon, say) can overflow to inf, and the select's zero
+        # cotangent times inf is NaN: those rays enter with E = 0, so g = 0.
+        E = s.E if scene.disk.beaming is None else torch.where(on, s.E, 0.0)
+        color = torch.where(on[..., None], shade_disk(scene, s.x, s.p, E),
+                            color)
     if scene.spheres is not None:
         color = torch.where((st == states.OBJECT)[..., None],
                             shade_sphere(scene, s), color)

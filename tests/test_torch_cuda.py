@@ -4,7 +4,9 @@ dopri_ckpt and dopri_bwd, event-free and with disk and sphere events,
 Schwarzschild and Kerr, photons and massive particles, and renders --
 multisampled and progressive too -- and their gradients through them;
 the Stokes frame, the Schwarzschild polarization map, the Gen-1 hybrid
-(its pre-set rays through rk4_fwd bit for bit) and its surrogate table.
+(its pre-set rays through rk4_fwd bit for bit) and its surrogate table;
+the texture backward tex_bwd; the Trainer's Kerr critical-curve mask on
+the card.
 
 Needs a CUDA device and nvcc, and skips without them (decided in a fixture
 when each test runs, never at import).  This file imports
@@ -1371,3 +1373,45 @@ def test_surrogate_table_build_matches_plain():
     calm = ~tp.captured & ((tp.b - 1.5 * 3 ** 0.5).abs() > 0.25)
     chord = (tk.end_dir.cpu() - tp.end_dir).norm(dim=-1)[calm]
     assert float(chord.max()) <= 1e-4
+
+
+@pytest.mark.parametrize("a_over_m", [0.9, -0.6])
+def test_kerr_mask_matches_plain(a_over_m):
+    """The Trainer's Kerr critical-curve mask on the card against the same
+    PyTorch operations on the CPU, on the pixel-centre rays of a 1024^2
+    frame seen from the benchmark's Kerr orbit: the weights equal but for
+    rays within 1e-5 of the band's edge (the card's fused multiply-adds
+    move a ratio's last bits); the band drops rays; the mask launches none
+    of the port's kernels."""
+    from blackhole_geodesic_calculator_tpu_torch.camera.pinhole import (
+        generate_rays, pixel_grid)
+    from blackhole_geodesic_calculator_tpu_torch.models import kerr
+
+    n = 1024
+    cam = P.Camera.make((24.0, 0.0, 6.0), euler=(0.0, 1.33, 0.1),
+                        fov=(0.8, 0.8), device=DEV)
+    cfg = P.RenderConfig(width=n, height=n)
+    tr = P.Trainer(cfg=cfg, param_fn=None, optimizer=None,
+                   mask_critical=0.25)
+    scene = P.Scene(bh=P.BlackHole.make(mass=0.5, spin=a_over_m * 0.5,
+                                        device=DEV),
+                    background=torch.zeros(4, 8, 3, device=DEV))
+    ys, xs = pixel_grid(n, n, 0, n, 0, n, device=DEV)
+    before = counts()
+    got = tr._critical_weights(scene, cam, ys, xs)
+    assert counts() == before
+    cpu = lambda t: torch.as_tensor(t).cpu()  # noqa: E731
+    scene_c = P.Scene(bh=P.BlackHole.make(mass=0.5, spin=a_over_m * 0.5,
+                                          device="cpu"),
+                      background=torch.zeros(4, 8, 3))
+    cam_c = P.Camera(position=cpu(cam.position), euler=cpu(cam.euler),
+                     fov=cpu(cam.fov))
+    want = tr._critical_weights(scene_c, cam_c, ys.cpu(), xs.cpu())
+    o, d = generate_rays(cam_c, n, n, ys.cpu(), xs.cpu())
+    p0, e0 = null_init(o, d, scene_c.bh.mass, scene_c.bh.spin)
+    lam, eta = kerr.carter_constants(o, p0, e0, scene_c.bh.spin)
+    ratio = kerr.critical_ratio(lam, eta, scene_c.bh.mass, scene_c.bh.spin)
+    edge = ((ratio - 1.0).abs() - 0.25).abs() < 1e-5
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.cpu()[~edge], want[~edge])
+    assert 0.0 < float(want.mean()) < 1.0
