@@ -216,4 +216,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bhgc_tex_bwd.argtypes = ([vp] * 11 + [i32] * 4 + [f32] * 2
                                  + [vp] * 5)
     lib.bhgc_tex_bwd.restype = i32
+    i64 = ctypes.c_longlong
+    # scal, sph, n_sph, lights, n_lights, then (pointer, H, W) of the sky,
+    # the disk's texture and the spheres' stack, kerr, disk, sph_mode
+    scene = [vp, vp, i32, vp, i32] + [vp, i32, i32] * 3 + [i32] * 3
+    # the scene, x, p, E, status, hit_obj, out, n, stream
+    lib.bhgc_shade_fwd.argtypes = scene + [vp] * 6 + [i32, vp]
+    lib.bhgc_shade_fwd.restype = i32
+    # the scene, need_sky, need_disk, need_moon, x, p, E, status,
+    # hit_obj, g, gx, gp, gE, partial, ncol, cols, rec_slot, rec_uv,
+    # rec_g, stat, n, stream
+    lib.bhgc_shade_bwd.argtypes = (scene + [i32] * 3 + [vp] * 10 + [i32]
+                                   + [vp] * 5 + [i32, vp])
+    lib.bhgc_shade_bwd.restype = i32
+    lib.bhgc_shade_bwd_blocks.argtypes = [i32]
+    lib.bhgc_shade_bwd_blocks.restype = i32
+    # rec_slot, rec_uv, rec_g, n, (H, W, first texel) of the sky, the
+    # disk's texture and the spheres' stack, texels, scratch, dtex, stream
+    lib.bhgc_shade_tex.argtypes = ([vp] * 3 + [i32] + [i32, i32, i64] * 3
+                                   + [i64, vp, vp, vp])
+    lib.bhgc_shade_tex.restype = i32
     return lib

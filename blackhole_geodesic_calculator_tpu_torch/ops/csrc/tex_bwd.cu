@@ -59,26 +59,12 @@
 
 #include <cuda_runtime.h>
 
+#include "tex_scatter.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kScatterThreads;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 132 * 8;   // grid-stride passes: 8 blocks an SM
-
-// 2^k scales terms of magnitude <= max_abs, n of them to a texel, into
-// int64 with room: n max_abs 2^k < 2^62.  0 when max_abs is 0.
-__device__ __forceinline__ int fixed_exponent(float max_abs, int n) {
-  if (!(max_abs > 0.0f)) return 0;
-  int e;
-  frexpf(max_abs, &e);           // max_abs < 2^e
-  const int b = 32 - __clz(n);   // n < 2^b
-  return 62 - b - e;
-}
-
-// The flag of a non-finite term: 1 NaN, 2 +inf, 4 -inf.
-__device__ __forceinline__ unsigned nonfinite_flag(float v) {
-  return isnan(v) ? 1u : (v > 0.0f ? 2u : 4u);
-}
 
 __global__ void tex_bwd_absmax(const float* __restrict__ g, long long total,
                                unsigned* __restrict__ stat) {
@@ -134,7 +120,6 @@ __global__ void tex_bwd_kernel(
   }
   if constexpr (DTEX) {
     __shared__ long long part[kWarps][4][32];
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
     long long t[4] = {0, 0, 0, 0};   // texel of each corner
     unsigned long long key = ~0ull;  // dead lanes group among themselves
     if (live) {
@@ -147,72 +132,16 @@ __global__ void tex_bwd_kernel(
       key = static_cast<unsigned long long>(t[0]) << 1 |
             static_cast<unsigned long long>(y1 - y0);
     }
-    const unsigned group = __match_any_sync(0xffffffffu, key);
-    const bool leader = live && lane == __ffs(group) - 1;
     // the plain path's weights, in its order: (1-tx)(1-ty), tx(1-ty),
     // (1-tx)ty, tx ty
     const float wgt[4] = {__fmul_rn(ax, ay), __fmul_rn(tx, ay),
                           __fmul_rn(ax, ty), __fmul_rn(tx, ty)};
     const double scale =
         scalbn(1.0, fixed_exponent(__uint_as_float(*stat), n));
-    for (int c = 0; c < nc; ++c) {
-      const float gc = live ? g[row + c] : 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float v = __fmul_rn(gc, wgt[k]);
-        long long q = 0;
-        if (isfinite(v)) {
-          q = __double2ll_rn(static_cast<double>(v) * scale);
-        } else {
-          const long long o = t[k] * nc + c;
-          atomicOr(&flags[o >> 3], nonfinite_flag(v) << (4 * (o & 7)));
-        }
-        part[wid][k][lane] = q;
-      }
-      __syncwarp();
-      if (leader) {
-        long long s[4] = {0, 0, 0, 0};
-        for (unsigned m = group; m != 0; m &= m - 1) {
-          const int j = __ffs(m) - 1;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) s[k] += part[wid][k][j];
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (s[k] != 0) {
-            atomicAdd(&acc[t[k] * nc + c],
-                      static_cast<unsigned long long>(s[k]));
-          }
-        }
-      }
-      __syncwarp();
-    }
+    scatter_quads(live, t, key, wgt, nc,
+                  [&](int c) { return g[row + c]; }, scale, acc, flags,
+                  part[threadIdx.x >> 5]);
   }
-}
-
-__global__ void tex_bwd_finish(const long long* __restrict__ acc,
-                               const unsigned* __restrict__ flags,
-                               const unsigned* __restrict__ stat, int n,
-                               long long total, float* __restrict__ dtex) {
-  const double inv =
-      scalbn(1.0, -fixed_exponent(__uint_as_float(*stat), n));
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const unsigned f = (flags[i >> 3] >> (4 * (i & 7))) & 7u;
-    float v = __double2float_rn(__ll2double_rn(acc[i]) * inv);
-    if (f != 0) {
-      v = (f & 1u) || (f & 6u) == 6u ? __int_as_float(0x7fffffff)
-          : (f & 2u)                 ? __int_as_float(0x7f800000)
-                                     : __int_as_float(0xff800000);
-    }
-    dtex[i] = v;
-  }
-}
-
-int grid_stride_blocks(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
 }  // namespace

@@ -101,6 +101,15 @@ only for tensors on the CPU.
 (scene/texture.py ``_SampleBpy``), which replaces no TPU kernel; its
 source note gives its bound and design, and scene/texture.py
 ``sample_bpy_bwd_plain`` is its plain version.
+
+``shade_cuda`` runs ``ShadeKernel``: the final direction and the shading
+of ``integrate.final_direction`` + ``scene/shading.py`` ``shade``, each ray
+by its own status, as one launch of ``csrc/shade.cu`` (``shade_fwd``) and,
+under autograd, one of ``csrc/shade_bwd.cu`` (``shade_bwd``, and
+``shade_tex`` for the textures' cotangents, with tex_bwd.cu's fixed-point
+scatter from ``csrc/tex_scatter.cuh``).  They replace no TPU kernel (the
+JAX package's shading is XLA's); their source notes give their bound and
+design, and ops/shade_adjoint.py is their plain statement.
 """
 
 from __future__ import annotations
@@ -114,6 +123,7 @@ import torch
 from ..utils.profiling import annotate
 from . import _build
 from .adjoint import NSCAL, Controller
+from .shade_adjoint import DISK_NONE, NSH, SPH_COLS, ShadeScene
 from .integrate import (
     GeodesicEnv,
     IntegratorConfig,
@@ -134,8 +144,10 @@ N_GRAD_DOPRI = 2   # ... of dopri_bwd.cu: mass and spin
 
 # Launches of each kernel variant since import (or since a caller cleared
 # them), by variant name (``variant``; "tex_bwd_dtex" and "tex_bwd" for
-# the texture backward with and without the texture cotangent); a wrapper
-# adds one right where it launches its kernel, and nowhere else.
+# the texture backward with and without the texture cotangent; "shade_fwd",
+# "shade_bwd" -- its kernel and column sums -- and "shade_tex" -- the
+# texture scatter and its finish -- for the shading); a wrapper adds one
+# right where it launches its kernel, and nowhere else.
 LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
@@ -697,3 +709,205 @@ def tex_bwd(c00, c01, c10, c11, tx, ty, xi0, xi1, yi0, yi1, g, tex_shape,
     _raise_on(rc, "tex_bwd")
     LAUNCHES["tex_bwd_dtex" if dtex else "tex_bwd"] += 1
     return out, dx, dy
+
+
+SPH_NONE, SPH_PLAIN, SPH_LIGHTS = 0, 1, 2   # csrc/shade.cuh kSph*
+
+
+def _sph_mode(ss: ShadeScene) -> int:
+    if ss.n_sph == 0:
+        return SPH_NONE
+    return SPH_LIGHTS if ss.n_lights else SPH_PLAIN
+
+
+def _shade_scene_args(ss: ShadeScene) -> tuple:
+    """The scene's leading arguments of bhgc_shade_fwd and bhgc_shade_bwd."""
+    def tex(t):
+        return (None, 0, 0) if t is None else (t.data_ptr(), t.shape[-3],
+                                               t.shape[-2])
+    return (ss.scal.data_ptr(), ss.sph.data_ptr(), ss.n_sph,
+            ss.lights.data_ptr(), ss.n_lights, *tex(ss.sky),
+            *tex(ss.disk_tex), *tex(ss.sph_tex), int(ss.kerr), ss.disk,
+            _sph_mode(ss))
+
+
+def _check_shade_scene(ss: ShadeScene, x: torch.Tensor) -> None:
+    """The scene's tensors: contiguous float32 on the rays' device, of the
+    shapes the kernels read."""
+    k = ss.n_sph
+    want = dict(scal=(NSH,), sph=(k, SPH_COLS),
+                lights=(ss.lights.shape[0], 3))
+    for name, t in (("scal", ss.scal), ("sph", ss.sph),
+                    ("lights", ss.lights), ("sky", ss.sky),
+                    ("disk_tex", ss.disk_tex), ("sph_tex", ss.sph_tex)):
+        if t is None:
+            continue
+        shape = want.get(name)
+        if name == "sph_tex":
+            ok = t.dim() == 4 and t.shape[0] == k and t.shape[3] == 3
+        elif shape is None:
+            ok = t.dim() == 3 and t.shape[2] == 3
+        else:
+            ok = tuple(t.shape) == shape
+        if (not ok or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"the shading kernels need {name} as a "
+                             f"contiguous float32 tensor on {x.device}"
+                             f"{'' if shape is None else f' of shape {shape}'}"
+                             f"; got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if k and ss.sph_tex is None:
+        raise ValueError("spheres need their textures")
+    if ss.disk != DISK_NONE and ss.disk_tex is None:
+        raise ValueError("a disk needs its texture")
+
+
+def shade_fwd(ss: ShadeScene, x, p, E, st, obj) -> torch.Tensor:
+    """Launch csrc/shade.cu: the (n, 3) colours of the rays of final state
+    (x, p (n, 3), E, status, hit_obj (n,)) in the scene ``ss``, each by
+    its own status (ops/shade_adjoint.py ``shade_forward``)."""
+    out = x.new_empty((E.numel(), 3))
+    n = E.numel()
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _build.load().bhgc_shade_fwd(
+                *_shade_scene_args(ss), x.data_ptr(), p.data_ptr(),
+                E.data_ptr(), st.data_ptr(), obj.data_ptr(), out.data_ptr(),
+                n, _stream(x.device))
+        _raise_on(rc, "shade_fwd")
+        LAUNCHES[variant("shade_fwd", ss.kerr, False)] += 1
+    return out
+
+
+def _texel_layout(ss: ShadeScene, need) -> list:
+    """(texture, (H, W, first texel)) of the sky, the disk's texture and
+    the spheres' stack in the scatter's buffer, the texture None where it
+    needs no cotangent."""
+    out, first = [], 0
+    for t, wanted in zip((ss.sky, ss.disk_tex, ss.sph_tex), need):
+        if t is None or not wanted:
+            out.append((None, (0, 0, 0)))
+            continue
+        out.append((t, (t.shape[-3], t.shape[-2], first)))
+        first += t.numel() // 3
+    return out
+
+
+def shade_bwd(ss: ShadeScene, x, p, E, st, obj, g, need=(True,) * 3):
+    """Launch csrc/shade_bwd.cu: the VJP of ``shade_fwd`` for the colour
+    cotangent g (n, 3), as ops/shade_adjoint.py ``shade_vjp`` returns it:
+    (gx, gp, gE, gscal (NSH,), gsph (K, 8), glights (L, 3), gsky,
+    gdisk_tex, gsph_tex), the texture cotangents only where the scene has
+    the texture and ``need`` (sky, disk, spheres) asks for it, else None.
+    The scene's cotangents are column sums in a fixed order and the
+    textures' fixed-point sums (csrc/tex_scatter.cuh): the same bit for
+    bit from run to run.  The texture scatter runs in the profiler span
+    ``bhgc.texture.backward``."""
+    n, k, nl = E.numel(), ss.n_sph, ss.n_lights
+    ncol = NSH + SPH_COLS * k + 3 * nl
+    gx, gp, gE = torch.empty_like(x), torch.empty_like(p), torch.empty_like(E)
+    layout = _texel_layout(ss, need)
+    texels = sum(t.numel() // 3 for t, _ in layout if t is not None)
+    wanted = [t is not None for t, _ in layout]
+    if n == 0:
+        gx.zero_(), gp.zero_(), gE.zero_()
+        cols = E.new_zeros(ncol)
+        dtex = E.new_zeros((texels, 3))
+    else:
+        lib = _build.load()
+        records = scratch = None
+        stat = None
+        if texels:
+            total = 3 * texels
+            with annotate("bhgc.texture.backward"):
+                scratch = torch.zeros(total + -(-total // 16) + 1,
+                                      dtype=torch.int64, device=E.device)
+            stat = scratch.data_ptr() + 8 * (total + -(-total // 16))
+            records = (torch.empty(n, dtype=torch.int32, device=E.device),
+                       E.new_empty((n, 2)), E.new_empty((n, 3)))
+        partial = E.new_empty((ncol, lib.bhgc_shade_bwd_blocks(n)))
+        cols = E.new_empty(ncol)
+        rec = ((None,) * 3 if records is None
+               else tuple(t.data_ptr() for t in records))
+        with torch.cuda.device(E.device):
+            rc = lib.bhgc_shade_bwd(
+                *_shade_scene_args(ss), *map(int, wanted), x.data_ptr(),
+                p.data_ptr(), E.data_ptr(), st.data_ptr(), obj.data_ptr(),
+                g.data_ptr(), gx.data_ptr(), gp.data_ptr(), gE.data_ptr(),
+                partial.data_ptr(), ncol, cols.data_ptr(), *rec, stat, n,
+                _stream(E.device))
+        _raise_on(rc, "shade_bwd")
+        LAUNCHES[variant("shade_bwd", ss.kerr, False)] += 1
+        dtex = None
+        if texels:
+            with annotate("bhgc.texture.backward"):
+                dtex = E.new_empty((texels, 3))
+                with torch.cuda.device(E.device):
+                    rc = lib.bhgc_shade_tex(
+                        *rec, n, *(v for _, hwf in layout for v in hwf),
+                        texels, scratch.data_ptr(), dtex.data_ptr(),
+                        _stream(E.device))
+                _raise_on(rc, "shade_tex")
+            LAUNCHES["shade_tex"] += 1
+    texs = []
+    for t, (_, _, first) in layout:
+        texs.append(None if t is None else
+                    dtex[first:first + t.numel() // 3].view(t.shape))
+    gsph = cols[NSH:NSH + SPH_COLS * k].view(k, SPH_COLS)
+    glights = E.new_zeros((ss.lights.shape[0], 3))
+    if nl:
+        glights = cols[NSH + SPH_COLS * k:].view(nl, 3)
+    return (gx, gp, gE, cols[:NSH], gsph, glights, *texs)
+
+
+class ShadeKernel(torch.autograd.Function):
+    """(x, p, E, status, hit_obj, scal, sph, lights, sky, disk_tex,
+    sph_tex) -> the (n, 3) colours through csrc/shade.cu, with
+    csrc/shade_bwd.cu as the backward: the final direction and the shading
+    of ``final_direction`` + ``shade`` (scene/shading.py), each ray by its
+    own status.  The forward saves only its inputs; the backward recomputes
+    each ray's branch, in the profiler span ``bhgc.shade.backward`` (its
+    texture scatter in ``bhgc.texture.backward``).  status and hit_obj get
+    no cotangent; the sphere table's radius column gets zeros (the radii
+    enter the shading only through the shadow tests' comparisons)."""
+
+    @staticmethod
+    def forward(ctx, x, p, E, st, obj, scal, sph, lights, sky, disk_tex,
+                sph_tex, kerr, disk):
+        ss = ShadeScene(scal, sph, lights, sky, disk_tex, sph_tex, kerr, disk)
+        out = shade_fwd(ss, x, p, E, st, obj)
+        ctx.save_for_backward(x, p, E, st, obj, scal, sph, lights, sky,
+                              disk_tex, sph_tex)
+        ctx.flags = (kerr, disk)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with annotate("bhgc.shade.backward"):
+            x, p, E, st, obj, *scene = ctx.saved_tensors
+            ss = ShadeScene(*scene, *ctx.flags)
+            grads = shade_bwd(ss, x, p, E, st, obj, g.contiguous(),
+                              need=ctx.needs_input_grad[8:11])
+            gx, gp, gE, *rest = grads
+            return (gx, gp, gE, None, None, *rest, None, None)
+
+
+def shade_cuda(ss: ShadeScene, s: RayState) -> torch.Tensor:
+    """The colours (batch + (3,)) of the rays of final state ``s`` in the
+    scene ``ss`` (scene/shading.py ``shade_scene``) through ShadeKernel:
+    one launch of csrc/shade.cu, and under autograd csrc/shade_bwd.cu in
+    the backward.  The tensors must be on one CUDA device; nothing falls
+    back to the plain path."""
+    batch = s.E.shape
+    if s.E.numel() >= 2**31:
+        raise ValueError(f"too many rays for one launch: {s.E.numel()}")
+    x = _flat(s.x, batch, (3,), torch.float32, "x")
+    p = _flat(s.p, batch, (3,), torch.float32, "p")
+    E = _flat(s.E, batch, (), torch.float32, "E")
+    st = _flat(s.status, batch, (), torch.int32, "status")
+    obj = _flat(s.hit_obj, batch, (), torch.int32, "hit_obj")
+    _check_device(x, p=p, E=E, status=st, hit_obj=obj)
+    _check_shade_scene(ss, x)
+    out = ShadeKernel.apply(x, p, E, st, obj, ss.scal, ss.sph, ss.lights,
+                            ss.sky, ss.disk_tex, ss.sph_tex, ss.kerr,
+                            ss.disk)
+    return out.reshape(batch + (3,))

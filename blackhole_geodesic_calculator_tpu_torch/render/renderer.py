@@ -44,7 +44,7 @@ from ..ops.polarization import (_cross, _unit, plane_normal,
                                 polarization_rotation,
                                 transport_polarization_ode)
 from ..scene.scene import Scene
-from ..scene.shading import shade
+from ..scene.shading import shade, shade_rays
 from ..utils.profiling import annotate
 
 
@@ -170,7 +170,8 @@ def render_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
     """Shade the rays through pixels (ys, xs) of any shape, jittered by
     ``jitter`` (generate_rays) or through the pixel centres; returns
     ys.shape + (3,).  The camera, the integrator and the shading each run
-    in a profiler span (``bhgc.render.*``)."""
+    in a profiler span (``bhgc.render.*``); on a CUDA device the final
+    direction and the shading are one kernel launch (``shade_rays``)."""
     with annotate("bhgc.render.rays"):
         origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs,
                                   jitter)
@@ -181,8 +182,7 @@ def render_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
     with annotate("bhgc.render.integrate"):
         s = launch(env, o_rel, d, cfg.integrator)
     with annotate("bhgc.render.shade"):
-        end_dir = final_direction(env, s)
-        return shade(scene_bh, s, end_dir)
+        return shade_rays(env, scene_bh, s)
 
 
 def render_sample(scene: Scene, cam: Camera, cfg: RenderConfig,

@@ -5,6 +5,12 @@ the final colour: escaped and budget rays look up the sky, disk rays the
 Gaussian-profile textured disk, sphere rays the emission texture or the
 Lambert lights with shadow rays, captured and inside-horizon rays are
 black, non-finite rays are red.
+
+``shade_rays`` is the renderer's entry: on a CUDA device it shades each
+ray once, by its own status, in one launch of ops/csrc/shade.cu with a
+hand-written backward (ops/cuda_kernel.py ``ShadeKernel``), from the scene
+as ``shade_scene`` packs it; on the CPU it is ``final_direction`` +
+``shade``.
 """
 
 from __future__ import annotations
@@ -13,7 +19,10 @@ import math
 
 import torch
 
-from ..ops import states
+from ..ops import cuda_kernel, states
+from ..ops.integrate import GeodesicEnv, final_direction
+from ..ops.shade_adjoint import (DISK_BEAMING, DISK_NONE, DISK_PLAIN,
+                                 SPH_COLS, ShadeScene)
 from ..ops.states import RayState
 from ..utils.profiling import annotate
 from .scene import Scene
@@ -197,3 +206,60 @@ def shade(scene: Scene, s: RayState, end_dir: torch.Tensor) -> torch.Tensor:
     color = torch.where((st == states.ERROR)[..., None],
                         color.new_tensor(ERROR_COLOR), color)
     return color
+
+
+def shade_scene(scene: Scene) -> ShadeScene:
+    """``scene`` (in the hole's frame: renderer._bh_frame) as the shading
+    kernels take it (ops/shade_adjoint.py ``ShadeScene``): the scalars
+    stacked into one vector, the spheres' [centre, radius, emission,
+    albedo] rows into one table, the light positions, the textures; each
+    in the autograd graph of the scene's tensors.  An absent scalar is 0
+    (the orbit direction 1, as ``shade_disk`` defaults it)."""
+    bh, disk, sph, lights = scene.bh, scene.disk, scene.spheres, scene.lights
+    mass = bh.mass
+    zero = mass.new_zeros(())
+
+    def f(v):
+        if v is None:
+            return zero
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=mass.device).reshape(())
+
+    vals = [mass, bh.spin]
+    if disk is None:
+        vals += [None] * 8
+    else:
+        vals += [disk.r_in, disk.r_out, disk.phase, disk.mean, disk.stddev,
+                 disk.intensity, disk.beaming,
+                 1.0 if disk.orbit_dir is None else disk.orbit_dir]
+    vals.append(None if lights is None else lights.intensity)
+    scal = torch.stack([f(v) for v in vals])
+    if sph is None:
+        table = mass.new_zeros((0, SPH_COLS))
+        sph_tex = None
+    else:
+        table = torch.cat([sph.center, sph.radius[:, None],
+                           sph.emission[:, None], sph.albedo],
+                          dim=1).contiguous()
+        sph_tex = sph.texture.contiguous()
+    pos = (mass.new_zeros((0, 3)) if lights is None
+           else lights.position.reshape(-1, 3).contiguous())
+    mode = (DISK_NONE if disk is None
+            else DISK_PLAIN if disk.beaming is None else DISK_BEAMING)
+    return ShadeScene(
+        scal=scal, sph=table, lights=pos,
+        sky=None if scene.background is None
+        else scene.background.contiguous(),
+        disk_tex=None if disk is None else disk.texture.contiguous(),
+        sph_tex=sph_tex, kerr=bh.spin is not None, disk=mode)
+
+
+def shade_rays(env: GeodesicEnv, scene: Scene, s: RayState) -> torch.Tensor:
+    """The colours of the rays of final state ``s`` in ``scene`` (the
+    hole's frame): ``shade(scene, s, final_direction(env, s))``.  On a CUDA
+    device that is ops/cuda_kernel.py ``shade_cuda``: one launch that
+    shades each ray by its own status, and one hand-written backward; a
+    CUDA tensor launches it or raises.  On the CPU, the plain path."""
+    if s.x.is_cuda:
+        return cuda_kernel.shade_cuda(shade_scene(scene), s)
+    return shade(scene, s, final_direction(env, s))

@@ -294,9 +294,22 @@ line) if anything is off:
      fixed-point sum taken with torch, two runs bit for bit, one launch a
      call; the warps' texel groups; the six calls' device ms beside their
      bound, the plain path's and the sky's four index_put_, and each
-     variant's call ms, device ms and bound.  Every render gradient's
-     launch check above counts tex_bwd_dtex (a learned texture) and
-     tex_bwd (a frozen one) beside the integrator's kernels.
+     variant's call ms, device ms and bound.  The six calls are the plain
+     shading's of the frame's rays: on the card the renders shade through
+     shade_fwd and shade_bwd (phase 50), which call no sample_bpy;
+ 50. the shading kernels (ops/csrc/shade.cu, shade_bwd.cu) at the two
+     cells' sizes, SIZE^2 x ANIM_SAMPLES rays: config 4's frame 1 (the
+     orbit cell's scene: a learned 512 x 1024 sky, the disk, four textured
+     moons) and the Kerr cell's face-on frame (a = 0.45, a beaming disk):
+     the colours and every cotangent against the plain shading and its
+     autograd (TOL_SHADE_FRAME, TOL_SHADE_RAY, TOL_SHADE_SCENE; the rays
+     that part counted and held to MAX_SHADE_PARTED), two backward runs bit
+     for bit,
+     one launch of each; the forward's call ms and device ms beside its
+     bound and the plain shading's, the backward's without and with the
+     sky's texture cotangent beside theirs and the plain path's.  Every
+     render gradient's launch check above counts shade_fwd, shade_bwd and
+     shade_tex (a learned texture) beside the integrator's kernels.
 
 The two-rank paths (the sample group's all_reduce, the ray group's
 all_gather, the gradient average) need two ranks; two NCCL ranks cannot
@@ -318,6 +331,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -372,10 +386,11 @@ from blackhole_geodesic_calculator_tpu_torch.parallel.render import (
 from blackhole_geodesic_calculator_tpu_torch.render import (
     debug_rays, format_debug_string, limited, render_progressive,
     render_sample, render_stats, sample_draws)
+from blackhole_geodesic_calculator_tpu_torch.render import renderer
 from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
     _bh_frame, scene_env)
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
-    disk_uv, shade)
+    disk_uv, shade, shade_rays, shade_scene)
 from blackhole_geodesic_calculator_tpu_torch.scene import texture
 from blackhole_geodesic_calculator_tpu_torch.scene.texture import (
     equirect_uv, sample_bpy, sample_bpy_bwd_plain)
@@ -411,6 +426,16 @@ for _name in ("tex_bwd_dtex", "tex_bwd"):
     KERNELS[_name] = (f"{PKG}/ops/csrc/tex_bwd.cu",
                       "none (XLA: blackhole_geodesic_calculator_tpu/scene/"
                       "texture.py:144 _sample_bpy_bwd)")
+# the final direction and the shading, each ray by its status, and their
+# backward (shade_tex: its texture scatter): no TPU kernel, the JAX
+# package's is XLA's dense shading
+for _name, _src in (("shade_fwd", "shade.cu"), ("shade_fwd_kerr", "shade.cu"),
+                    ("shade_bwd", "shade_bwd.cu"),
+                    ("shade_bwd_kerr", "shade_bwd.cu"),
+                    ("shade_tex", "shade_bwd.cu")):
+    KERNELS[_name] = (f"{PKG}/ops/csrc/{_src}",
+                      "replaces none: XLA's dense shading, JAX "
+                      "scene/shading.py")
 
 # Tolerances of the kernels against their plain versions.  Both are
 # float32; they differ in rsqrtf against torch.rsqrt and in nvcc's fused
@@ -633,6 +658,31 @@ FIT_STEPS = 60
 # bit for bit, the same fixed-point sum taken with torch (tex_reference).
 TEX_SKY = (512, 1024)
 TOL_TEX_XY = 2.0 ** -22
+# Phase 50 (the shading kernels) at the cells' frames, against the plain
+# shading and its autograd on the same final states, both float32, as
+# tests/test_torch_cuda.py's shading tests compare them.  The colours
+# differ by the direction's last bits (rhs's reciprocal square roots and
+# fused multiply-adds against ks_fields' forms), which the longitude near
+# the sky's pole turns by 1 / |(d_x, d_y)|, and which the 512 x 1024 sky's
+# slopes (32 times the tests' 16 x 32 sky's) carry into the colour: within
+# TOL_SHADE_FRAME (readings on an H100, PERF.md §7: 29 rays above it
+# in the orbit frame, at most 1.22e-4; 167 in the face-on Kerr frame, 13
+# above 1e-3, all sky rays within 0.2 of the pole's direction).  A ray's
+# cotangents of x, p and E within TOL_SHADE_RAY of its own scale
+# (ray_gaps; 10 and 46 rays above it).  A ray beyond either parts; the
+# parted rays are counted and held to MAX_SHADE_PARTED of the rays.  The
+# sky's cotangent is compared without the parted rays' and the rays
+# within SKY_POLE_CAP of the sky's pole (their colour cotangent set to 0
+# on both sides; readings 1.5e-5 orbit, 5.1e-4 Kerr of its largest
+# entry, against TOL_SHADE_SCENE; 1.2e-3 in Kerr with the pole's).  The
+# mass's and the spin's, sums over 5.24M rays with much cancellation, are
+# held to TOL_SHADE_RAY of the sum of the plain path's per-ray terms'
+# magnitudes (scalar_terms), the bound the per-ray tolerance implies.
+TOL_SHADE_FRAME = 1e-4
+TOL_SHADE_RAY = 1e-4
+MAX_SHADE_PARTED = 1e-4
+TOL_SHADE_SCENE = 1e-3
+SKY_POLE_CAP = 0.01
 # The card's peak rates for the bound of each kernel (NVIDIA's data sheet
 # for the H100 SXM at 700 W, float32 outside the tensor cores).
 PEAK_FLOPS = 67e12
@@ -1167,9 +1217,27 @@ def reset_counts():
 
 
 def read_counts():
-    """The launches of each kernel variant (ops/cuda_kernel.py's LAUNCHES,
-    by the names of KERNELS) since reset_counts."""
-    return {name: n for name, n in cuda_kernel.LAUNCHES.items() if n}
+    """The launches of each integrator and texture kernel variant
+    (ops/cuda_kernel.py's LAUNCHES, by the names of KERNELS) since
+    reset_counts; the shading kernels' are read_shading's."""
+    return {name: n for name, n in cuda_kernel.LAUNCHES.items()
+            if n and not name.startswith("shade_")}
+
+
+def read_shading():
+    """The launches of the shading kernels (shade_fwd, shade_bwd,
+    shade_tex and their Kerr variants) since reset_counts."""
+    return {name: n for name, n in cuda_kernel.LAUNCHES.items()
+            if n and name.startswith("shade_")}
+
+
+def shading(kerr=False, fwd=0, bwd=0, tex=0):
+    """The shading launches of ``fwd`` forward renders through
+    render_rays, ``bwd`` backwards and ``tex`` texture scatters (a
+    backward with a texture that needs its cotangent)."""
+    k = "_kerr" if kerr else ""
+    return only(**{f"shade_fwd{k}": fwd, f"shade_bwd{k}": bwd,
+                   "shade_tex": tex})
 
 
 def only(**launches):
@@ -1376,6 +1444,18 @@ def phase_bwd(env, icfg, dev, readings):
     log("# phase 5: rk4_bwd agrees with autograd of the plain loop")
 
 
+def shade_as(cfg):
+    """The shading of a render of ``cfg``: the kernels (shade_rays) or, with
+    the plain integrator (backend "torch"), the plain shading
+    (final_direction + shade), so that a plain reference is the plain path
+    throughout."""
+    if cfg.integrator.backend != "torch":
+        return contextlib.nullcontext()
+    return unittest.mock.patch.object(
+        renderer, "shade_rays",
+        lambda env, scene, s: shade(scene, s, final_direction(env, s)))
+
+
 def render_grads(scene0, cam0, cfg, mask=None):
     """d mean(img[..., :3]^2) (bench.py:385-391) / d (mass, camera
     position, sky) and, for a Kerr hole, / d spin; ``mask`` (H, W) weights
@@ -1389,10 +1469,11 @@ def render_grads(scene0, cam0, cfg, mask=None):
             spin=None if bh.spin is None else leaf(bh.spin)),
         background=leaf(scene0.background))
     cam = dataclasses.replace(cam0, position=leaf(cam0.position))
-    sq = P.render_image(scene, cam, cfg)[..., :3].pow(2)
-    if mask is not None:
-        sq = sq * mask[..., None]
-    sq.mean().backward()
+    with shade_as(cfg):
+        sq = P.render_image(scene, cam, cfg)[..., :3].pow(2)
+        if mask is not None:
+            sq = sq * mask[..., None]
+        sq.mean().backward()
     out = (scene.bh.mass.grad, cam.position.grad, scene.background.grad)
     return out if bh.spin is None else out + (scene.bh.spin.grad,)
 
@@ -1421,12 +1502,14 @@ def phase_flagship_grad(scene, cam, dev, readings):
     reset_counts()
     gk = render_grads(scene, cam, cfg)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches, shaded = read_counts(), read_shading()
     for name in ("rk4_ckpt", "rk4_bwd"):
         readings[name]["launches"] = launches.get(name, 0)
-    check(launches == only(rk4_ckpt=1, rk4_bwd=1, tex_bwd_dtex=1),
-          f"forward+backward launched {launches}, expected rk4_ckpt, "
-          "rk4_bwd and the sky's tex_bwd_dtex once each and rk4_fwd never")
+    check(launches == only(rk4_ckpt=1, rk4_bwd=1)
+          and shaded == shading(fwd=1, bwd=1, tex=1),
+          f"forward+backward launched {launches}, {shaded}, expected "
+          "rk4_ckpt, rk4_bwd, shade_fwd, shade_bwd and the sky's shade_tex "
+          "once each and rk4_fwd never")
     for g in gk:
         check(bool(torch.isfinite(g).all()), "flagship gradient not finite")
     gp = render_grads(scene, cam, cfg_plain)
@@ -2204,15 +2287,14 @@ def phase_events_render(dev, readings, spin=None):
     reset_counts()
     gk = render_grads(scene, cam, cfg)
     torch.cuda.synchronize()
-    launches = read_counts()
-    names = (ckpt_k, bwd_k) + (() if spin else ("tex_bwd_dtex", "tex_bwd"))
-    for name in names:
+    launches, shaded = read_counts(), read_shading()
+    for name in (ckpt_k, bwd_k):
         readings[name]["launches"] = launches.get(name, 0)
-    check(launches == only(**{ckpt_k: 1, bwd_k: 1}, tex_bwd_dtex=1,
-                           tex_bwd=5),
-          f"{label} forward+backward launched {launches}, expected {ckpt_k} "
-          f"and {bwd_k} once each, tex_bwd_dtex once (the sky) and tex_bwd "
-          "5 times (the disk, the four moons)")
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1})
+          and shaded == shading(spin is not None, fwd=1, bwd=1, tex=1),
+          f"{label} forward+backward launched {launches}, {shaded}, "
+          f"expected {ckpt_k} and {bwd_k} once each, the shading's forward "
+          "and backward once each and its texture scatter once (the sky)")
     for g in gk:
         check(bool(torch.isfinite(g).all()), f"{label} gradient not finite")
     gp = render_grads(scene, cam, cfg_plain)
@@ -3219,11 +3301,12 @@ def ring_grads(scene0, cam0, cfg, mask=None, timing=None):
         spheres=dataclasses.replace(sph, center=leaf(sph.center),
                                     radius=leaf(sph.radius)))
     cam = dataclasses.replace(cam0, position=leaf(cam0.position))
-    img, t_fwd = once(lambda: P.render_image(scene, cam, cfg))
-    sq = img[..., :3].pow(2)
-    if mask is not None:
-        sq = sq * mask[..., None]
-    _, t_bwd = once(sq.mean().backward)
+    with shade_as(cfg):
+        img, t_fwd = once(lambda: P.render_image(scene, cam, cfg))
+        sq = img[..., :3].pow(2)
+        if mask is not None:
+            sq = sq * mask[..., None]
+        _, t_bwd = once(sq.mean().backward)
     if timing is not None:
         timing.update(fwd=t_fwd, bwd=t_bwd)
     out = (scene.bh.mass.grad, cam.position.grad, scene.background.grad,
@@ -3315,14 +3398,14 @@ def phase_dopri_ring(dev, name_limit, readings, spin=None):
     # forward+backward through dopri_ckpt and dopri_bwd
     reset_counts()
     gk, t_step = once(lambda: ring_grads(scene, cam, cfg))
-    launches = read_counts()
+    launches, shaded = read_counts(), read_shading()
     for name in (ckpt_k, bwd_k):
         readings[name]["launches"] = launches.get(name, 0)
-    check(launches == only(**{ckpt_k: 1, bwd_k: 1}, tex_bwd_dtex=1,
-                           tex_bwd=1),
-          f"{tag} forward+backward launched {launches}, expected {ckpt_k} "
-          f"and {bwd_k} once each, tex_bwd_dtex (the sky) and tex_bwd (the "
-          "moon) once each")
+    check(launches == only(**{ckpt_k: 1, bwd_k: 1})
+          and shaded == shading(spin is not None, fwd=1, bwd=1, tex=1),
+          f"{tag} forward+backward launched {launches}, {shaded}, expected "
+          f"{ckpt_k} and {bwd_k} once each, the shading's forward and "
+          "backward once each and its texture scatter once (the sky)")
     for g in gk:
         check(bool(torch.isfinite(g).all()), f"{tag} gradient not finite")
     timing = {}
@@ -4453,8 +4536,8 @@ def phase_anim_fwd(dev, name_limit, readings):
 def phase_anim_grad(dev, name_limit, readings):
     """The gradient of mean(img[..., :3]^2) of config 4's frame 1 to the
     mass, the camera position and the sky: rk4_ckpt's and rk4_bwd's event
-    variants and tex_bwd_dtex (the sky) once per sample each, tex_bwd
-    (the disk, the four moons) five times a sample, rk4_fwd never;
+    variants, the shading's forward and backward and its texture scatter
+    (the sky) once per sample each, rk4_fwd and tex_bwd never;
     against the plain path on the same draws, the sky whole and the mass
     and camera on the pixels calm in every sample (frame_parts); the sky
     cotangents of the samples add up; two runs; times, the device busy
@@ -4467,15 +4550,15 @@ def phase_anim_grad(dev, name_limit, readings):
     reset_counts()
     gk = render_grads(scene, cam, cfg)
     torch.cuda.synchronize()
-    launches = read_counts()
-    count_path(readings, "animation step", launches)
+    launches, shaded = read_counts(), read_shading()
+    count_path(readings, "animation step", {**launches, **shaded})
     check(launches == only(rk4_ckpt_events=ANIM_SAMPLES,
-                           rk4_bwd_events=ANIM_SAMPLES,
-                           tex_bwd_dtex=ANIM_SAMPLES,
-                           tex_bwd=5 * ANIM_SAMPLES),
-          f"animation step launched {launches}, expected rk4_ckpt_events, "
-          f"rk4_bwd_events and tex_bwd_dtex (the sky) {ANIM_SAMPLES} times "
-          f"each and tex_bwd (the disk, the four moons) {5 * ANIM_SAMPLES}")
+                           rk4_bwd_events=ANIM_SAMPLES)
+          and shaded == shading(fwd=ANIM_SAMPLES, bwd=ANIM_SAMPLES,
+                                tex=ANIM_SAMPLES),
+          f"animation step launched {launches}, {shaded}, expected "
+          f"rk4_ckpt_events, rk4_bwd_events, shade_fwd, shade_bwd and "
+          f"shade_tex (the sky) {ANIM_SAMPLES} times each")
     for g in gk:
         check(bool(torch.isfinite(g).all()), "animation gradient not finite")
     gp, plain_ms = once(lambda: render_grads(scene, cam, cfg_plain))
@@ -6091,14 +6174,17 @@ def phase_trainer(dev, name_limit, readings):
         p = sky_params(scene0, cam)
         p0 = {k: v.detach().clone() for k, v in p.items()}
         reset_counts()
-        p, _, loss = tr.step(p, tr.init(p), tf, ys, xs)
+        with shade_as(c):
+            p, _, loss = tr.step(p, tr.init(p), tf, ys, xs)
         torch.cuda.synchronize()
-        launches = read_counts()
+        launches, shaded = read_counts(), read_shading()
         if path == "kernel":
-            count_path(readings, "Trainer step 512", launches)
-            check(launches == only(rk4_ckpt=1, rk4_bwd=1, tex_bwd_dtex=1),
-                  f"the Trainer step launched {launches}, expected rk4_ckpt, "
-                  "rk4_bwd and tex_bwd_dtex once each")
+            count_path(readings, "Trainer step 512", {**launches, **shaded})
+            check(launches == only(rk4_ckpt=1, rk4_bwd=1)
+                  and shaded == shading(fwd=1, bwd=1, tex=1),
+                  f"the Trainer step launched {launches}, {shaded}, expected "
+                  "rk4_ckpt, rk4_bwd, shade_fwd, shade_bwd and shade_tex "
+                  "once each")
         grads[path] = {k: p0[k] - p[k].detach() for k in p0}
         log(f"# phase 38: Trainer.step 512x512, mask_critical 0.25, {path} "
             f"path: loss {float(loss):.6e}")
@@ -6162,7 +6248,7 @@ def phase_trainer(dev, name_limit, readings):
     reset_counts()
     (params, losses), fit_ms = once(lambda: tr.fit({"mass": 0.35}, target,
                                                    n_steps=FIT_STEPS))
-    launches = read_counts()
+    launches = {**read_counts(), **read_shading()}
     count_path(readings, "mass fit", launches)
     mass = float(params["mass"])
     log(f"# phase 38: test_trainer_recovers_mass's fit on the card: mass "
@@ -6171,7 +6257,7 @@ def phase_trainer(dev, name_limit, readings):
         f"{fit_ms:.3f} ms, launches {launches} [{name_limit}]")
     check(abs(mass - 0.5) < 0.05 and min(losses) < 0.5 * losses[0]
           and launches == only(rk4_ckpt=FIT_STEPS, rk4_bwd=FIT_STEPS,
-                               tex_bwd=FIT_STEPS),
+                               shade_fwd=FIT_STEPS, shade_bwd=FIT_STEPS),
           "the mass fit did not recover the mass")
     readings.setdefault("trainer", {}).update(
         grad_parity=worst, step_ms=wall, step_loss=float(loss),
@@ -6744,9 +6830,9 @@ def example_argv(name):
 
 def run_example(name, mod, readings, name_limit):
     """``mod.main`` on the card (example_argv), in this process, its output
-    logged: (wall s, launches).  The launches go to the kernels line's
-    ``launches_by_path``; the example must exit 0 and not call the plain
-    loop."""
+    logged: (wall s, launches), the shading kernels' among them.  The
+    launches go to the kernels line's ``launches_by_path``; the example
+    must exit 0 and not call the plain loop."""
     import contextlib
     import io
 
@@ -6759,7 +6845,7 @@ def run_example(name, mod, readings, name_limit):
         rc = mod.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = {**read_counts(), **read_shading()}
     count_path(readings, f"example {name}", launches)
     log(f"# example {name} {' '.join(argv)}: exit {rc} in {wall:.3f} s, "
         f"launches {launches} [{name_limit}]")
@@ -6795,7 +6881,8 @@ def quiet_main(name, mod):
 def phase_example_study(dev, name_limit, readings):
     """examples.parameter_study on the card: one rk4_fwd (a = 0) or
     rk4_fwd_kerr launch of one ray a bisection step, one rk4_fwd of the
-    deflection fan, one rk4_fwd_events a disk frame, no plain loop; its
+    deflection fan, one rk4_fwd_events and one shade_fwd a disk frame, no
+    plain loop; its
     Bardeen (< 1%), deflection-series and beaming checks inside the
     script; the deflection angles against the CPU plain loop's on the same
     impact parameters within TOL_DEFLECTION rad; the device's busy
@@ -6803,7 +6890,9 @@ def phase_example_study(dev, name_limit, readings):
     name = "parameter_study"
     wall, launches = run_example(name, parameter_study, readings,
                                     name_limit)
-    check(set(launches) == {"rk4_fwd", "rk4_fwd_kerr", "rk4_fwd_events"},
+    check(set(launches) == {"rk4_fwd", "rk4_fwd_kerr", "rk4_fwd_events",
+                            "shade_fwd"}
+          and launches["shade_fwd"] == launches["rk4_fwd_events"],
           f"{name} launched {launches}")
     with open(ROOT / "build" / "chip_smoke" / name /
               "parameter_study.json") as f:
@@ -6869,9 +6958,10 @@ def phase_example_faraday(dev, name_limit, readings):
 
 
 def phase_example_fit(dev, name_limit, readings):
-    """examples.fit_orbit on the card: the targets through rk4_fwd (one
-    launch a frame for all its samples), each fit step one rk4_ckpt, one
-    rk4_bwd and one tex_bwd (the sky, frozen), no plain loop; its exit
+    """examples.fit_orbit on the card: the targets through rk4_fwd and
+    shade_fwd (one launch each a frame for all its samples), each fit step
+    one rk4_ckpt, one rk4_bwd, one shade_fwd and one shade_bwd (the sky
+    frozen: no texture scatter), no plain loop; its exit
     code is the script's < 1%
     recovery of mass, orbit phase and roll; the busy share."""
     name = "fit_orbit"
@@ -6880,8 +6970,9 @@ def phase_example_fit(dev, name_limit, readings):
               "fit_orbit_result.json") as f:
         rep = json.load(f)
     steps = len(rep["losses"])
-    check(launches == only(rk4_fwd=rep["config"]["frames"], rk4_ckpt=steps,
-                           rk4_bwd=steps, tex_bwd=steps),
+    frames = rep["config"]["frames"]
+    check(launches == only(rk4_fwd=frames, rk4_ckpt=steps, rk4_bwd=steps,
+                           shade_fwd=frames + steps, shade_bwd=steps),
           f"{name} launched {launches}")
     log(f"# phase 47: {name}: loss {rep['loss_first']:.4e} -> "
         f"{rep['loss_last']:.4e} in {steps} steps, errors "
@@ -6896,14 +6987,15 @@ def phase_example_fit(dev, name_limit, readings):
 def phase_example_tutorial(dev, name_limit, readings):
     """examples.tutorial on the card: rk4_fwd (the fan, the hybrid frame,
     the table's build, the surrogate's labels and evaluation),
-    rk4_fwd_events (the scene, its sharded and Stokes renders), the mass
-    gradient through rk4_ckpt_events, rk4_bwd_events and tex_bwd (the
-    frozen sky, disk and moon), no plain loop;
+    rk4_fwd_events (the scene, its sharded and Stokes renders), shade_fwd
+    (the renders through render_rays), the mass gradient through
+    rk4_ckpt_events, rk4_bwd_events and shade_bwd (the sky, disk and moon
+    frozen: no texture scatter), no plain loop;
     its three PNGs; the busy share."""
     name = "tutorial"
     wall, launches = run_example(name, tutorial, readings, name_limit)
     check(set(launches) == {"rk4_fwd", "rk4_fwd_events", "rk4_ckpt_events",
-                            "rk4_bwd_events", "tex_bwd"},
+                            "rk4_bwd_events", "shade_fwd", "shade_bwd"},
           f"{name} launched {launches}")
     out = ROOT / "build" / "chip_smoke" / name
     for png in ("tutorial_disk.png", "tutorial_limited_mlp.png",
@@ -7017,7 +7109,8 @@ def phase_tex_bwd(dev, name_limit, readings):
     fit's shapes (the module comment at TOL_TEX_XY): the six sample_bpy
     calls of config 4's frame 1 at SIZE^2 x ANIM_SAMPLES samples in one
     call with a TEX_SKY sky (the sky, whose dtex is wanted, the disk and
-    the four moons, whose are not), captured from one render_samples;
+    the four moons, whose are not), captured from the plain shading of the
+    final state of one render_samples (frame_state);
     each against the plain path, two runs bit for bit, each call launching
     tex_bwd_dtex or tex_bwd once; the seam and pole batches of
     tests/test_torch_grad.py::test_sample_bpy_backward_matches_jax; a g
@@ -7027,11 +7120,8 @@ def phase_tex_bwd(dev, name_limit, readings):
     sky = torch.as_tensor(make_sky(*TEX_SKY, 32), dtype=torch.float32,
                           device=dev)
     scene = dataclasses.replace(events_scene(dev), background=sky)
-    cam = frame_cam(2 * np.pi / ANIM_FRAMES, dev)
-    cfg = anim_cfg()
-    pix = torch.arange(SIZE * SIZE, device=dev)
-    ys, xs = pix // SIZE, pix % SIZE
-    jitter = slot_jitter(cfg, sample_draws(cfg, dev), ys, xs)
+    env, scene_bh, s = frame_state(
+        scene, frame_cam(2 * np.pi / ANIM_FRAMES, dev), anim_cfg(), dev)
     seen, apply = [], texture._SampleBpy.apply
 
     def capture(tex, x, y):
@@ -7040,7 +7130,7 @@ def phase_tex_bwd(dev, name_limit, readings):
 
     with torch.no_grad(), unittest.mock.patch.object(
             texture._SampleBpy, "apply", capture):
-        render_samples(scene, cam, cfg, ys, xs, jitter)
+        shade(scene_bh, s, final_direction(env, s))
     calls = [tex_saved(t, x, y, t.data_ptr() == sky.data_ptr())
              for t, x, y in seen]
     n = calls[0][0][4].numel()
@@ -7065,6 +7155,8 @@ def phase_tex_bwd(dev, name_limit, readings):
     check(launches == {"tex_bwd_dtex": 2, "tex_bwd": 10},
           f"two runs of the six calls launched {launches}, expected "
           "tex_bwd_dtex 2 and tex_bwd 10")
+    for name, k in launches.items():
+        readings[name]["launches"] = k
     # the seam and pole batches of the CPU test, and the edge cases of g
     rng = np.random.default_rng(5)
     small = torch.as_tensor(rng.uniform(size=(16, 32, 3)),
@@ -7149,6 +7241,229 @@ def phase_tex_bwd(dev, name_limit, readings):
         f"{PEAK_BYTES / 1e12:.2f} TB/s), plain {plain_ms:.3f} ms, the sky's "
         f"four index_put_ {put_ms:.3f} ms; launches a step: tex_bwd_dtex "
         f"1, tex_bwd 5 [{name_limit}]")
+
+
+def frame_state(scene, cam, cfg, dev):
+    """(env, the scene in the hole's frame, the final state) of one
+    render_samples of the SIZE^2 pixels at cfg.samples samples (all in one
+    integrator launch, as the Trainer renders them), captured where
+    render_rays shades them, under torch.no_grad."""
+    pix = torch.arange(SIZE * SIZE, device=dev)
+    ys, xs = pix // SIZE, pix % SIZE
+    jitter = slot_jitter(cfg, sample_draws(cfg, dev), ys, xs)
+    seen, real = [], renderer.shade_rays
+
+    def grab(env, scene_bh, s):
+        seen.append((env, scene_bh, s))
+        return real(env, scene_bh, s)
+
+    with torch.no_grad(), unittest.mock.patch.object(renderer, "shade_rays",
+                                                     grab):
+        render_samples(scene, cam, cfg, ys, xs, jitter)
+    env, scene_bh, s = seen[0]
+    flat = lambda t: t.reshape((-1,) + t.shape[2:]).contiguous()  # noqa: E731
+    return env, scene_bh, dataclasses.replace(
+        s, **{k: flat(getattr(s, k))
+              for k in ("x", "p", "E", "lam", "status", "hit_obj")})
+
+
+def kerr_cell_frame(dev):
+    """The Kerr cell's face-on frame (gpubench/configs/kerr_disk_1024.json:
+    a = 0.45, M = 0.5, a beaming disk 1.6-6.0 of intensity 1.2, no moons,
+    500 RK4 steps of 0.1 grown to 64x) with a TEX_SKY sky: (scene, camera,
+    render config)."""
+    v, u = np.meshgrid(np.arange(64), np.arange(256), indexing="ij")
+    disk_tex = np.stack([0.9 + 0 * u, 0.5 + 0.3 * np.sin(8 * np.pi * u / 256),
+                         0.2 + 0 * u], -1)
+    scene = P.Scene(
+        bh=P.BlackHole.make(mass=0.5, spin=0.45, device=dev),
+        background=torch.as_tensor(make_sky(*TEX_SKY, 32),
+                                   dtype=torch.float32, device=dev),
+        disk=P.Disk.make(r_in=1.6, r_out=6.0, texture=disk_tex,
+                         intensity=1.2, beaming=4.0, device=dev))
+    cam = P.Camera.make(position=(0.0, 0.0, 24.74), fov=(0.8, 0.8),
+                        device=dev)
+    cfg = anim_cfg()
+    cfg = dataclasses.replace(cfg, integrator=dataclasses.replace(
+        cfg.integrator, n_steps=500, dt=0.1))
+    return scene, cam, cfg
+
+
+def shade_grads(env, scene_bh, s, g, kernel):
+    """(colours, cotangents of x, p, E, the sky, the mass and, for a Kerr
+    hole, the spin) of sum(g * colour) through the shading kernels or the
+    plain shading."""
+    leaf = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
+    bh = scene_bh.bh
+    mass = leaf(bh.mass)
+    spin = None if bh.spin is None else leaf(bh.spin)
+    scene = dataclasses.replace(
+        scene_bh, bh=dataclasses.replace(bh, mass=mass, spin=spin),
+        background=leaf(scene_bh.background))
+    env = dataclasses.replace(env, mass=mass, spin=spin)
+    s = dataclasses.replace(s, x=leaf(s.x), p=leaf(s.p), E=leaf(s.E))
+    out = (shade_rays(env, scene, s) if kernel
+           else shade(scene, s, final_direction(env, s)))
+    leaves = [s.x, s.p, s.E, scene.background, mass] + (
+        [] if spin is None else [spin])
+    return out.detach(), torch.autograd.grad((out * g).sum(), leaves)
+
+
+def scalar_terms(env, scene_bh, s, g):
+    """The plain shading's per-ray terms of the mass's and, for a Kerr
+    hole, the spin's cotangent of sum(g * colour): autograd with the hole's
+    scalars expanded to one a ray."""
+    n = g.shape[0]
+    bh = scene_bh.bh
+    per_ray = lambda t: t.detach().expand(n).clone().requires_grad_(True)  # noqa: E731
+    mass = per_ray(bh.mass)
+    spin = None if bh.spin is None else per_ray(bh.spin)
+    scene = dataclasses.replace(scene_bh, bh=dataclasses.replace(
+        bh, mass=mass, spin=spin))
+    env = dataclasses.replace(env, mass=mass, spin=spin)
+    out = shade(scene, s, final_direction(env, s))
+    return torch.autograd.grad((out * g).sum(),
+                               [mass] + ([] if spin is None else [spin]))
+
+
+def ray_gaps(a, b):
+    """Each ray's gap between per-ray cotangents a and b (n, ...): its
+    largest |a - b| over the larger of its largest |b| and the rays' 99.9th
+    percentile of that (tests/shade_cases.py ray_gaps); 0 where b is not
+    finite."""
+    n = b.shape[0]
+    a, b = a.reshape(n, -1), b.reshape(n, -1)
+    ok = torch.isfinite(b).all(-1)
+    mag = torch.where(ok, b.abs().max(-1).values,
+                      torch.zeros(n, device=b.device))
+    scale = max(float(torch.quantile(mag[ok][::4].double(), 0.999)), 1e-30)
+    gap = (a - b).abs().max(-1).values / torch.clamp_min(mag, scale)
+    return torch.where(ok, gap, torch.zeros_like(gap))
+
+
+def phase_shade(dev, name_limit, readings):
+    """The shading kernels at the two cells' frames (the module comment at
+    TOL_SHADE_FRAME): colours, cotangents, repeatability, launches, times
+    and bounds."""
+    sky = torch.as_tensor(make_sky(*TEX_SKY, 32), dtype=torch.float32,
+                          device=dev)
+    moon_tex = np.random.default_rng(50).uniform(0.0, 1.0, (4, 16, 32, 3))
+    orbit = (dataclasses.replace(events_scene(dev, moon_tex=moon_tex),
+                                 background=sky),
+             frame_cam(2 * np.pi / ANIM_FRAMES, dev), anim_cfg())
+    for tag, (scene, cam, cfg) in (("orbit", orbit),
+                                   ("Kerr", kerr_cell_frame(dev))):
+        kerr = scene.bh.spin is not None
+        suffix = "_kerr" if kerr else ""
+        env, scene_bh, s = frame_state(scene, cam, cfg, dev)
+        n = s.E.numel()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(50)
+        g = torch.randn((n, 3), generator=gen, device=dev)
+        reset_counts()
+        out_k, gk = shade_grads(env, scene_bh, s, g, kernel=True)
+        torch.cuda.synchronize()
+        shaded = read_shading()
+        check(shaded == shading(kerr, fwd=1, bwd=1, tex=1) and
+              read_counts() == {},
+              f"{tag}: the shading's forward and backward launched "
+              f"{shaded}, {read_counts()}")
+        for name in (f"shade_fwd{suffix}", f"shade_bwd{suffix}"):
+            readings[name]["launches"] = 1
+        readings["shade_tex"].setdefault("launches", 0)
+        readings["shade_tex"]["launches"] += 1
+        _, again = shade_grads(env, scene_bh, s, g, kernel=True)
+        check(all(torch.equal(a, b) for a, b in zip(gk, again)),
+              f"{tag}: two backward runs differ")
+        out_p, gp = shade_grads(env, scene_bh, s, g, kernel=False)
+        dc = (out_k - out_p).abs().max(-1).values
+        parted = dc > TOL_SHADE_FRAME
+        gaps = {"colour": float(dc[~parted].max())}
+        for name, a, b in zip(("x", "p", "E"), gk[:3], gp[:3]):
+            check(bool(torch.isfinite(a).all()),
+                  f"{tag}: the kernel's {name} cotangent not finite")
+            d = ray_gaps(a, b)
+            parted |= d > TOL_SHADE_RAY
+            gaps[name] = float(d[d <= TOL_SHADE_RAY].max())
+        n_part = int(parted.sum())
+        check(n_part <= MAX_SHADE_PARTED * n,
+              f"{tag}: {n_part} rays part from the plain path's")
+        with torch.no_grad():
+            pole = final_direction(env, s)[:, :2].norm(dim=-1) < SKY_POLE_CAP
+        g_kept = torch.where((parted | pole)[:, None], 0.0, g)
+        _, gk2 = shade_grads(env, scene_bh, s, g_kept, kernel=True)
+        _, gp2 = shade_grads(env, scene_bh, s, g_kept, kernel=False)
+        gaps["sky"] = rel_err(gk2[3], gp2[3])
+        check(gaps["sky"] <= TOL_SHADE_SCENE,
+              f"{tag}: the sky cotangent {gaps['sky']:.3e} from the plain "
+              "path's")
+        for name, a, t in zip(("mass", "spin"), gk2[4:],
+                              scalar_terms(env, scene_bh, s, g_kept)):
+            t = t.double()
+            gaps[name] = float((a.double() - t.sum()).abs() / t.abs().sum())
+            check(gaps[name] <= TOL_SHADE_RAY,
+                  f"{tag}: the {name} cotangent {gaps[name]:.3e} of its "
+                  "terms' magnitudes from the plain path's")
+        log(f"# phase 50 [{tag}, {n} rays]: {n_part} rays part (largest "
+            f"colour gap {float(dc.max()):.3e}), {int(pole.sum())} within "
+            f"{SKY_POLE_CAP} of the sky's pole; the others' gaps: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+            + " (the mass's and the spin's over the sum of their terms' "
+            "magnitudes)")
+        # times: the forward; the backward without and with the sky's
+        # texture cotangent (the kernel, the column sums; then the scatter,
+        # its finish and the scratch's fill)
+        ss = shade_scene(scene_bh)
+        fwd = no_grad(lambda: cuda_kernel.shade_cuda(ss, s))
+        args = (ss, s.x, s.p, s.E, s.status, s.hit_obj, g)
+        bwd = lambda: cuda_kernel.shade_bwd(*args, need=(False,) * 3)  # noqa
+        bwd_tex = lambda: cuda_kernel.shade_bwd(  # noqa: E731
+            *args, need=(True, False, False))
+        plain_fwd = no_grad(lambda: shade(scene_bh, s,
+                                          final_direction(env, s)))
+
+        def plain_step():
+            shade_grads(env, scene_bh, s, g, kernel=False)
+
+        def kernel_step():
+            shade_grads(env, scene_bh, s, g, kernel=True)
+
+        n_sph, texels = ss.n_sph, TEX_SKY[0] * TEX_SKY[1]
+        tex_bytes = 4 * sum(t.numel() for t in (ss.sky, ss.disk_tex,
+                                                ss.sph_tex) if t is not None)
+        ncol = cuda_kernel.NSH + 8 * n_sph
+        blocks = -(-n // 256)
+        fwd_bytes = n * 48 + tex_bytes
+        bwd_bytes = n * 76 + tex_bytes + 8 * ncol * blocks
+        total = 3 * texels
+        tex_extra = (n * 48 + 2 * 8 * (total + -(-total // 16) + 1)
+                     + 4 * total)
+        step_plain = device_ms(plain_step, runs=3)
+        step_kernel = device_ms(kernel_step)
+        rows = ((f"shade_fwd{suffix}", fwd, fwd_bytes,
+                 device_ms(plain_fwd, runs=3)),
+                (f"shade_bwd{suffix}", bwd, bwd_bytes, step_plain),
+                ("shade_tex", bwd_tex, bwd_bytes + tex_extra, step_plain))
+        for name, fn, nbytes, plain_ms in rows:
+            if name == "shade_tex" and kerr:
+                log(f"# shade_tex [Kerr, {n} rays, the backward with the "
+                    f"sky's cotangent]: device {device_ms(fn):.3f} ms, bound "
+                    f"{nbytes / PEAK_BYTES * 1e3:.4f} ms [{name_limit}]")
+                continue
+            err = (gaps["colour"] if name.startswith("shade_fwd")
+                   else max(v for k, v in gaps.items() if k != "colour"))
+            readings[name].update(
+                max_abs_err=err, ms=timed(fn), device_ms=device_ms(fn),
+                plain_ms=plain_ms, **bound(0, nbytes))
+            r = readings[name]
+            log(f"# {name} [{tag}, {n} rays]: call {r['ms']:.3f} ms, device "
+                f"{r['device_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+                f"bytes ({nbytes / 1e9:.3f} GB; operations not counted), "
+                f"plain {plain_ms:.3f} ms [{name_limit}]")
+        log(f"# shading [{tag}, {n} rays]: forward and backward with the "
+            f"sky's cotangent through the kernels {step_kernel:.3f} ms of "
+            f"device time, the plain shading and its autograd "
+            f"{step_plain:.3f} ms [{name_limit}]")
 
 
 def main() -> int:
@@ -7261,6 +7576,8 @@ def main() -> int:
     phase("phase 48 (example tutorial)", phase_example_tutorial, dev,
           name_limit, readings)
     phase("phase 49 (texture backward)", phase_tex_bwd, dev, name_limit,
+          readings)
+    phase("phase 50 (shading kernels)", phase_shade, dev, name_limit,
           readings)
     log(f"# chip_smoke ran {time.perf_counter() - t_start:.1f} s, the "
         "kernels' build included")

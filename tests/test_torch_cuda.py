@@ -5,8 +5,9 @@ Schwarzschild and Kerr, photons and massive particles, and renders --
 multisampled and progressive too -- and their gradients through them;
 the Stokes frame, the Schwarzschild polarization map, the Gen-1 hybrid
 (its pre-set rays through rk4_fwd bit for bit) and its surrogate table;
-the texture backward tex_bwd; the Trainer's Kerr critical-curve mask on
-the card.
+the texture backward tex_bwd; the shading kernels shade_fwd and
+shade_bwd against autograd of the plain shading; the Trainer's Kerr
+critical-curve mask on the card.
 
 Needs a CUDA device and nvcc, and skips without them (decided in a fixture
 when each test runs, never at import).  This file imports
@@ -35,6 +36,7 @@ from blackhole_geodesic_calculator_tpu_torch.models.kerr import horizon_radius  
 from blackhole_geodesic_calculator_tpu_torch.ops import geodesic as tgeo  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.ops.geodesic import null_init  # noqa: E402
 from blackhole_geodesic_calculator_tpu_torch.scene import texture  # noqa: E402
+import shade_cases  # noqa: E402
 import torch_particles  # noqa: E402
 
 
@@ -122,13 +124,20 @@ def counts():
 TEXTURE_KERNELS = ("tex_bwd", "tex_bwd_dtex")
 
 
-def launched(before, texture=False):
+def _kind(name):
+    if name.startswith("shade_"):
+        return "shading"
+    return "texture" if name in TEXTURE_KERNELS else "integrator"
+
+
+def launched(before, texture=False, shading=False):
     """The launches of each integrator kernel variant since ``before``
-    (counts()); with ``texture``, of the texture backward's instead."""
+    (counts()); with ``texture``, of the texture backward's instead, with
+    ``shading`` of the shading kernels'."""
+    want = "shading" if shading else "texture" if texture else "integrator"
     now = cuda_kernel.LAUNCHES
     return {k: now[k] - before.get(k, 0) for k in now
-            if now[k] != before.get(k, 0)
-            and (k in TEXTURE_KERNELS) == texture}
+            if now[k] != before.get(k, 0) and _kind(k) == want}
 
 
 def initial_state(e, x0, d0):
@@ -215,10 +224,25 @@ def test_bwd_is_deterministic():
         assert torch.equal(a, b)
 
 
+def plain_shading():
+    """Within the block, render_rays shades through the plain path,
+    final_direction + shade, as the CPU does: the reference of a render's
+    whole kernel path."""
+    from unittest import mock
+
+    from blackhole_geodesic_calculator_tpu_torch.render import renderer
+    from blackhole_geodesic_calculator_tpu_torch.scene import shading
+
+    return mock.patch.object(renderer, "shade_rays", lambda env, scene, s: (
+        shading.shade(scene, s, tint.final_direction(env, s))))
+
+
 def test_render_gradient_launches_ckpt_and_bwd():
     """A 32x32 flagship frame's gradient goes through rk4_ckpt and rk4_bwd
-    once each, never rk4_fwd, and the sky's backward through tex_bwd with
-    its texture cotangent once; it agrees with the plain path."""
+    once each, never rk4_fwd, and its shading through shade_fwd and
+    shade_bwd once each, the sky's texture cotangent through their scatter
+    (never tex_bwd); it agrees with the plain path (the plain integrator
+    and the plain shading)."""
     v, u = np.meshgrid(np.arange(256), np.arange(512), indexing="ij")
     sky = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * u / 512)
                     * np.sin(np.pi * v / 256), v / 256,
@@ -241,9 +265,11 @@ def test_render_gradient_launches_ckpt_and_bwd():
     before = counts()
     gk = grads(cfg)
     assert launched(before) == {"rk4_ckpt": 1, "rk4_bwd": 1}
-    assert launched(before, texture=True) == {"tex_bwd_dtex": 1}
-    gp = grads(dataclasses.replace(cfg, integrator=dataclasses.replace(
-        cfg.integrator, backend="torch")))
+    assert launched(before, texture=True) == {}
+    assert launched(before, shading=True) == SHADE_STEP
+    with plain_shading():
+        gp = grads(dataclasses.replace(cfg, integrator=dataclasses.replace(
+            cfg.integrator, backend="torch")))
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max() / b.abs().max()) <= TOL_RENDER_GRAD
@@ -1415,3 +1441,138 @@ def test_kerr_mask_matches_plain(a_over_m):
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got.cpu()[~edge], want[~edge])
     assert 0.0 < float(want.mean()) < 1.0
+
+
+# The launches of one shading forward and backward with a texture
+# cotangent: the forward, the backward (its kernel and the column sums),
+# the texture scatter (the scatter and its finish).
+SHADE_STEP = {"shade_fwd": 1, "shade_bwd": 1, "shade_tex": 1}
+SHADE_RAYS = 1 << 20
+# Tolerances of the shading kernels against autograd of the plain shading
+# on the card, on tests/shade_cases.py's rays at SHADE_RAYS (readings on
+# an H100: PERF.md).  Both sides are float32.  The colours differ by the
+# last bits of the direction -- rhs's reciprocal square roots and fused
+# multiply-adds against ks_fields' and the plain kernels' forms -- which
+# the longitude near the sky's pole turns by 1 / |(d_x, d_y)|: colours
+# within TOL_SHADE_COLOUR (readings 2.9e-6-9.3e-6 away from the pole).  A
+# ray's cotangents of x, p and E within TOL_SHADE_RAY of its own scale
+# (shade_cases.ray_gaps; readings up to 5.5e-5).  A ray that parts --
+# colour beyond TOL_SHADE_COLOUR or a cotangent beyond TOL_SHADE_RAY:
+# near the pole, or whose bilinear cell moves with those bits (the colour
+# is continuous there, its coordinate cotangents are not) -- is counted,
+# and the parted rays held to MAX_SHADE_PARTED of the rays (readings: 1 in
+# 2^20 on the Kerr cases without spheres, none elsewhere).  The scene's
+# cotangents -- sums over 1M rays -- are compared without the parted rays'
+# terms (their colour cotangent set to 0 on both sides), within
+# TOL_SHADE_SCENE of each leaf's largest entry, a table's row by row
+# (shade_cases.leaf_gap; readings up to 2.1e-5).
+TOL_SHADE_COLOUR = 2e-5
+TOL_SHADE_RAY = 1e-4
+MAX_SHADE_PARTED = 1e-5
+TOL_SHADE_SCENE = 1e-3
+
+
+def shade_both(case):
+    """(plain colours, plain gradients, kernel colours, kernel gradients,
+    the shading kernels' launches) of sum(g * colour) on a case."""
+    from blackhole_geodesic_calculator_tpu_torch.scene import shading
+
+    ref_out, ref = shade_cases.autograd_grads(
+        case, lambda c: shading.shade(c.scene, c.state,
+                                      tint.final_direction(c.env, c.state)))
+    before = counts()
+    out, got = shade_cases.autograd_grads(
+        case, lambda c: shading.shade_rays(c.env, c.scene, c.state))
+    return ref_out, ref, out, got, launched(before, shading=True)
+
+
+def parted_rays(ref_out, ref, out, got):
+    """The rays whose colour or whose cotangent of x, p or E part from the
+    plain path's (TOL_SHADE_COLOUR, TOL_SHADE_RAY); the kernel's per-ray
+    cotangents must be finite."""
+    parted = (out - ref_out).abs().max(-1).values > TOL_SHADE_COLOUR
+    for k in ("x", "p", "E"):
+        assert torch.isfinite(got[k]).all(), k
+        parted |= shade_cases.ray_gaps(got[k], ref[k]) > TOL_SHADE_RAY
+    return parted
+
+
+@pytest.mark.parametrize("features", shade_cases.feature_matrix(),
+                         ids=shade_cases.case_id)
+def test_shade_kernel_matches_plain(features):
+    """shade_fwd's colours and shade_bwd's cotangents -- of x, p, E and
+    every leaf of the scene -- against autograd of final_direction + shade
+    on 1M rays of every status (the sky's seam and poles, shadowed lights,
+    both redshift zeros): one launch each way (and the texture scatter);
+    the rays that part counted and limited."""
+    case = shade_cases.make_case(*features, n=SHADE_RAYS, device=DEV,
+                                 seed=7)
+    ref_out, ref, out, got, runs = shade_both(case)
+    kerr = features[0]
+    step = dict(SHADE_STEP)
+    if kerr:
+        step["shade_fwd_kerr"] = step.pop("shade_fwd")
+        step["shade_bwd_kerr"] = step.pop("shade_bwd")
+    assert runs == step
+    parted = parted_rays(ref_out, ref, out, got)
+    assert int(parted.sum()) <= MAX_SHADE_PARTED * SHADE_RAYS
+    case.g[parted] = 0.0
+    _, ref, _, got, _ = shade_both(case)
+    for k, want in ref.items():
+        if k in ("x", "p", "E"):
+            continue
+        assert torch.isfinite(got[k]).all(), k
+        gap = shade_cases.leaf_gap(got[k], want)
+        assert gap <= TOL_SHADE_SCENE, (k, gap)
+
+
+@pytest.mark.parametrize("features", [(False, True, "plain", 4, 2),
+                                      (True, True, "beam+", 0, 0)],
+                         ids=shade_cases.case_id)
+def test_shade_backward_is_deterministic(features):
+    """The scene's and the textures' cotangents are fixed-order and
+    fixed-point sums: two backward passes give the same bits."""
+    from blackhole_geodesic_calculator_tpu_torch.scene import shading
+
+    case = shade_cases.make_case(*features, n=SHADE_RAYS, device=DEV)
+    run = lambda: shade_cases.autograd_grads(  # noqa: E731
+        case, lambda c: shading.shade_rays(c.env, c.scene, c.state))[1]
+    a, b = run(), run()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_trainer_step_shades_once(monkeypatch):
+    """A multisampled Trainer step of the events scene learning the mass
+    and the sky shades all its samples' rays in one shade_fwd launch and
+    differentiates them in shade_bwd's: no texture lookup through
+    sample_bpy, no tex_bwd."""
+    calls = []
+    apply = texture._SampleBpy.apply
+    monkeypatch.setattr(texture._SampleBpy, "apply", staticmethod(
+        lambda *a: (calls.append(1), apply(*a))[1]))
+    scene0 = anim_scene()
+    cam = P.Camera.make(position=(0.0, 3.0, 25.0), fov=(0.8, 0.8),
+                        device=DEV)
+    cfg = P.RenderConfig(width=32, height=32, samples=3, lam_max=100.0,
+                         integrator=P.IntegratorConfig(**FLAGSHIP))
+
+    def param_fn(params):
+        bh = dataclasses.replace(scene0.bh, mass=params["mass"])
+        return dataclasses.replace(scene0, bh=bh,
+                                   background=params["sky"]), cam
+
+    tr = P.Trainer(cfg=cfg, param_fn=param_fn,
+                   optimizer=lambda ts: torch.optim.Adam(ts, lr=1e-3))
+    params = tr._leaves({"mass": 0.5, "sky": scene0.background}, DEV)
+    opt = tr.init(params)
+    target, ys, xs = tr.shard_target(torch.zeros(32, 32, 3, device=DEV))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    before = counts()
+    _, _, loss = tr.step(params, opt, target, ys, xs, tr._draws(gen, DEV))
+    assert torch.isfinite(loss)
+    assert launched(before, shading=True) == SHADE_STEP
+    assert launched(before, texture=True) == {}
+    assert launched(before) == {"rk4_ckpt_events": 1, "rk4_bwd_events": 1}
+    assert calls == []
