@@ -6,16 +6,18 @@ parallel/render.py).
   re-traces pixel 0): a ray's cost varies wildly (a shadow ray captures in
   a few steps, a photon-ring grazer runs every step), and contiguous row
   blocks would make the rank holding the photon ring the straggler;
-* every rank renders its slots through ``render_rays`` (the CUDA kernels
-  on the card), its share of the samples stacked into one batch;
+* every rank renders its slots and its share of the samples through the
+  renderer's ``render_samples``, all of them in one ``render_rays`` call
+  (the CUDA kernels on the card);
 * the ranks of a sample group average their samples' means with an
   ``all_reduce``, and the ranks of a ray group ``all_gather`` their slots, whose deal is
   undone by layout (``_undeal_cm``).
 
 The jitter draws are ``sample_draws``'s, the same on every rank, and each
 rank reads its slots' and its samples' share of them, so a sharded frame
-equals ``render_image``'s on the same draws.  The JAX module's bypass of a
-1 x 1 mesh is not ported: one rank runs the same deal and assembly.
+equals ``render_image``'s on the same draws, bit for bit on one rank.  The
+JAX module's bypass of a 1 x 1 mesh is not ported: one rank runs the same
+deal and assembly.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 import torch.distributed as dist
 
 from ..camera.pinhole import Camera
-from ..render.renderer import (RenderConfig, _frame, polarization_rays,
-                               render_rays, sample_draws, stokes_rays)
+from ..render.renderer import (RenderConfig, _frame, image_draws,
+                               polarization_rays, render_samples, stokes_rays)
 from ..scene.scene import Scene
 from .mesh import SAMPLE_AXIS, Mesh, make_mesh
 
@@ -90,24 +92,15 @@ def local_samples(cfg: RenderConfig, mesh: Mesh) -> range:
     return range(s * k, (s + 1) * k)
 
 
-def slot_jitter(cfg: RenderConfig, draws: torch.Tensor, ys, xs):
-    """The draws (samples, 2, Hc, Wc) of the slots (ys, xs):
-    (samples, 2, slots)."""
+def slot_jitter(cfg: RenderConfig, draws: torch.Tensor | None, ys, xs,
+                samples: range):
+    """The draws (samples, 2, Hc, Wc) of the samples ``samples`` at the
+    slots (ys, xs): (len(samples), 2, slots); None (the pixel centres) for
+    no draws."""
+    if draws is None:
+        return None
     x0, _, y0, _ = cfg.crop()
-    return draws[:, :, ys - y0, xs - x0]
-
-
-def render_samples(scene: Scene, cam: Camera, cfg: RenderConfig, ys, xs,
-                   jitter: torch.Tensor) -> torch.Tensor:
-    """The mean over k samples of the rays through the slots (ys, xs),
-    each sample jittered by its draws in ``jitter`` (k, 2, slots): the k
-    samples' rays go through one ``render_rays`` call, one integrator
-    launch, as the JAX package's vmap over the samples does.  Returns
-    (slots, 3)."""
-    k = jitter.shape[0]
-    rgb = render_rays(scene, cam, cfg, ys.expand(k, -1), xs.expand(k, -1),
-                      jitter.transpose(0, 1))
-    return rgb.mean(0)
+    return draws[:, :, ys - y0, xs - x0][samples.start:samples.stop]
 
 
 def _gather_slots(mesh: Mesh, local: torch.Tensor, n: int) -> torch.Tensor:
@@ -128,23 +121,18 @@ def render_image_sharded(scene: Scene, cam: Camera, cfg: RenderConfig,
 
     One sample renders the pixel centres; ``cfg.samples`` > 1 renders this
     rank's samples, jittered by ``sample_draws(cfg, device, draws)`` at its
-    slots, in one batch (``render_samples``), averages them, and averages
-    those means over the sample group.  Equal to ``render_image`` on the
-    same draws: bit for bit at one sample, to float32 rounding with
-    several (``render_image`` launches each sample on its own)."""
+    slots, in one launch (``render_samples``), and averages those means
+    over the sample group.  Equal to ``render_image`` on the same draws,
+    bit for bit on one rank: both render through ``render_samples``."""
     mesh = mesh or make_mesh()
     device = cam.position.device
     mine = local_samples(cfg, mesh)
     ys, xs = local_slots(cfg, mesh, device)
-    if cfg.samples == 1:
-        rgb = render_rays(scene, cam, cfg, ys, xs)
-    else:
-        jit = slot_jitter(cfg, sample_draws(cfg, device, draws), ys, xs)
-        rgb = render_samples(scene, cam, cfg, ys, xs, jit[mine.start:
-                                                          mine.stop])
-        if mesh.samples > 1:
-            dist.all_reduce(rgb, group=mesh.sample_group)
-            rgb = rgb / mesh.samples
+    rgb = render_samples(scene, cam, cfg, ys, xs, slot_jitter(
+        cfg, image_draws(cfg, device, draws), ys, xs, mine))
+    if mesh.samples > 1:
+        dist.all_reduce(rgb, group=mesh.sample_group)
+        rgb = rgb / mesh.samples
     x0, x1, y0, y1 = cfg.crop()
     hc, wc = y1 - y0, x1 - x0
     img = _gather_slots(mesh, rgb, hc * wc).reshape(3, hc, wc)

@@ -4,7 +4,8 @@
 Fits physical scene parameters (the hole's mass, the camera pose,
 textures) to target images by gradient descent through the renderer.  Each
 rank renders its ray slots (``render.local_slots``) and its share of the
-samples, stacked into one batch as the JAX package's vmap does,
+samples in one batch (the renderer's ``render_samples``), as the JAX
+package's vmap does,
 differentiates its loss -- on the card through RK4Adjoint: the
 CUDA kernels rk4_ckpt forward and rk4_bwd backward (dopri_ckpt and
 dopri_bwd for a Dormand-Prince integrator) -- and the gradients and the
@@ -22,15 +23,15 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from ..camera.pinhole import Camera, generate_rays
+from ..camera.pinhole import Camera
 from ..models.kerr import critical_weights
 from ..ops.geodesic import null_init
-from ..render.renderer import RenderConfig, render_rays, sample_draws
+from ..render.renderer import (RenderConfig, camera_rays, render_samples,
+                               sample_draws)
 from ..scene.scene import Scene
 from ..utils.profiling import annotate
 from .mesh import Mesh, make_mesh
-from .render import (local_samples, local_slots, render_samples,
-                     slot_jitter)
+from .render import local_samples, local_slots, slot_jitter
 
 
 def default_loss(rendered: torch.Tensor, target: torch.Tensor
@@ -144,12 +145,8 @@ class Trainer:
             with annotate("bhgc.step.scene"):
                 scene, cam = build(params)
             with annotate("bhgc.step.render"):
-                if cfg.samples == 1:
-                    rgb = render_rays(scene, cam, cfg, ys, xs)
-                else:
-                    mine = local_samples(cfg, self.mesh)
-                    rgb = render_samples(scene, cam, cfg, ys, xs, slot_jitter(
-                        cfg, draws, ys, xs)[mine.start:mine.stop])
+                rgb = render_samples(scene, cam, cfg, ys, xs, slot_jitter(
+                    cfg, draws, ys, xs, local_samples(cfg, self.mesh)))
             with annotate("bhgc.step.loss"):
                 if self.mask_critical is not None:
                     w = self._critical_weights(scene, cam, ys, xs)[..., None]
@@ -200,9 +197,7 @@ class Trainer:
         mass and spin).  Rays with eta < 0 do not come near the curve and
         are kept.  At a = 0 this is the Schwarzschild rule."""
         with torch.no_grad():
-            o, d = generate_rays(cam, self.cfg.width, self.cfg.height, ys,
-                                 xs)
-            o_rel = o - scene.bh.loc
+            _, d, o_rel = camera_rays(scene, cam, self.cfg, ys, xs)
             bh = scene.bh
             p0, e0 = null_init(o_rel, d, bh.mass, bh.spin)
             if bh.spin is not None:

@@ -7,10 +7,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..camera.pinhole import Camera, generate_rays, pixel_grid
+from ..camera.pinhole import Camera, pixel_grid
 from ..ops import states
-from ..ops.integrate import final_direction, launch
-from .renderer import RenderConfig, scene_env
+from ..ops.integrate import final_direction
+from .renderer import RenderConfig, trace_rays
 
 STATUS_NAMES = {
     states.ACTIVE: "ACTIVE", states.CAPTURED: "CAPTURED",
@@ -31,11 +31,10 @@ def debug_rays(scene, cam: Camera, cfg: RenderConfig) -> dict:
                         device=cam.position.device)
     ys, xs = ys.reshape(-1), xs.reshape(-1)
     with torch.no_grad():
-        origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
-        env = scene_env(scene, cfg, cam)
-        s = launch(env, origin - scene.bh.loc, d, cfg.integrator)
-        end_dir = final_direction(env, s)
-    out = {"ys": ys, "xs": xs, "origin": origin, "direction": d,
+        t = trace_rays(scene, cam, cfg, ys, xs)
+        end_dir = final_direction(t.env, t.s)
+    s = t.s
+    out = {"ys": ys, "xs": xs, "origin": t.origin, "direction": t.d,
            "end_loc": s.x, "end_dir": end_dir, "lam": s.lam,
            "status": s.status, "hit_obj": s.hit_obj}
     return {k: v.contiguous().cpu().numpy() for k, v in out.items()}

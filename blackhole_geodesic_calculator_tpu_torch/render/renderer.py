@@ -1,31 +1,35 @@
 """The renderer: render(scene, cam) -> image (PyTorch port of
 render/renderer.py).
 
-Camera ray generation, the batched geodesic integration and shading run
-in turn on the tensors' device; on a CUDA device the integration is the
-hand-written kernels of ops/cuda_kernel.py.  The image is differentiable
-with respect to the mass, the camera position, the sky and disk textures,
-the sphere geometry and every shading parameter: every step is a tensor
-operation autograd records, the integrator through its checkpointed
-adjoint and the texture lookups through their hand-written backward.
+Every render traces its rays through one step, ``trace_rays``: the
+camera's rays, the scene in the hole's frame and the batched geodesic
+integration, on the tensors' device (on a CUDA device the hand-written
+kernels of ops/cuda_kernel.py); ``render_rays`` shades them, and the
+Stokes render, the polarization map, the stats and the debug dumps read
+the same traced states.  The image is differentiable with respect to the
+mass, the camera position, the sky and disk textures, the sphere geometry
+and every shading parameter: every step is a tensor operation autograd
+records, the integrator through its checkpointed adjoint and the texture
+lookups through their hand-written backward.
 
-A multisampled image renders its samples one at a time, one integrator
-launch each, and averages them (the JAX package's sample scan,
-renderer.py:159-173); the samples' jitter draws come from a generator on
-the tensors' device seeded with ``RenderConfig.seed``, or from the caller
-(``sample_draws``).  ``render_image_u8`` tonemaps and quantizes on the
-device; ``render_progressive`` yields the image sample by sample or, with
-one sample, row band by row band.  ``render_stokes`` adds the Stokes Q
-and U of a polarized disk, and ``polarization_map`` maps the rotation of
-the polarization basis along each ray (the parallel-transport ODE for a
-Kerr hole).
+A multisampled image renders all its samples in one integrator launch
+and averages them (``render_samples``, as the JAX package's vmap over the
+samples does); the samples' jitter draws come from a generator on the
+tensors' device seeded with ``RenderConfig.seed``, or from the caller
+(``sample_draws``).
+``render_image_u8`` tonemaps and quantizes on the device;
+``render_progressive`` yields the image sample by sample or, with one
+sample, row band by row band.  ``render_stokes`` adds the Stokes Q and U
+of a polarized disk, and ``polarization_map`` maps the rotation of the
+polarization basis along each ray (the parallel-transport ODE for a Kerr
+hole).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import torch
 
@@ -36,6 +40,7 @@ from ..ops.integrate import (
     DiskGeom,
     GeodesicEnv,
     IntegratorConfig,
+    RayState,
     SphereGeom,
     final_direction,
     launch,
@@ -44,7 +49,7 @@ from ..ops.polarization import (_cross, _unit, plane_normal,
                                 polarization_rotation,
                                 transport_polarization_ode)
 from ..scene.scene import Scene
-from ..scene.shading import shade, shade_rays
+from ..scene.shading import shade_rays
 from ..utils.profiling import annotate
 
 
@@ -164,25 +169,80 @@ def sample_draws(cfg: RenderConfig, device,
     return draws
 
 
+def camera_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
+                ys: torch.Tensor, xs: torch.Tensor,
+                jitter: torch.Tensor | None = None):
+    """The camera's rays through pixels (ys, xs) of any shape, jittered by
+    ``jitter`` (generate_rays) or through the pixel centres: (world-frame
+    origins, unit directions, origins in the hole's frame)."""
+    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs, jitter)
+    return origin, d, origin - scene.bh.loc
+
+
+class Traced(NamedTuple):
+    """``trace_rays``' rays: their origins (world, hole frame), directions,
+    environment, the scene in the hole's frame and the final states."""
+
+    origin: torch.Tensor
+    o_rel: torch.Tensor
+    d: torch.Tensor
+    env: GeodesicEnv
+    scene: Scene
+    s: RayState
+
+    def shade(self) -> torch.Tensor:
+        """The rays' colours (``shade_rays``: one kernel launch on a CUDA
+        device) in the ``bhgc.render.shade`` span."""
+        with annotate("bhgc.render.shade"):
+            return shade_rays(self.env, self.scene, self.s)
+
+
+def trace_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
+               ys: torch.Tensor, xs: torch.Tensor,
+               jitter: torch.Tensor | None = None) -> Traced:
+    """Trace the rays through pixels (ys, xs) of any shape, jittered by
+    ``jitter`` or through the pixel centres, to their final states: the
+    camera and the scene's setup in the ``bhgc.render.rays`` span, the
+    integrator's launch in ``bhgc.render.integrate``."""
+    with annotate("bhgc.render.rays"):
+        origin, d, o_rel = camera_rays(scene, cam, cfg, ys, xs, jitter)
+        env = scene_env(scene, cfg, cam)
+        scene_bh = _bh_frame(scene)
+    with annotate("bhgc.render.integrate"):
+        s = launch(env, o_rel, d, cfg.integrator)
+    return Traced(origin, o_rel, d, env, scene_bh, s)
+
+
 def render_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
                 ys: torch.Tensor, xs: torch.Tensor,
                 jitter: torch.Tensor | None = None) -> torch.Tensor:
     """Shade the rays through pixels (ys, xs) of any shape, jittered by
     ``jitter`` (generate_rays) or through the pixel centres; returns
-    ys.shape + (3,).  The camera, the integrator and the shading each run
-    in a profiler span (``bhgc.render.*``); on a CUDA device the final
-    direction and the shading are one kernel launch (``shade_rays``)."""
-    with annotate("bhgc.render.rays"):
-        origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs,
-                                  jitter)
-        env = scene_env(scene, cfg, cam)
-        scene_bh = _bh_frame(scene)
-        o_rel = origin - scene.bh.loc
+    ys.shape + (3,): ``trace_rays``, then ``Traced.shade``."""
+    return trace_rays(scene, cam, cfg, ys, xs, jitter).shade()
 
-    with annotate("bhgc.render.integrate"):
-        s = launch(env, o_rel, d, cfg.integrator)
-    with annotate("bhgc.render.shade"):
-        return shade_rays(env, scene_bh, s)
+
+def render_samples(scene: Scene, cam: Camera, cfg: RenderConfig,
+                   ys: torch.Tensor, xs: torch.Tensor,
+                   jitter: torch.Tensor | None = None) -> torch.Tensor:
+    """The colours of pixels (ys, xs) of any shape, ys.shape + (3,):
+    ``jitter`` None renders the pixel centres, one sample; ``jitter`` (k,
+    2) + ys.shape the mean over k samples, each jittered by its draws, the
+    k samples' rays in one ``render_rays`` call, one integrator launch, as
+    the JAX package's vmap over the samples does."""
+    if jitter is None:
+        return render_rays(scene, cam, cfg, ys, xs)
+    shape = (jitter.shape[0],) + tuple(ys.shape)
+    rgb = render_rays(scene, cam, cfg, ys.expand(shape), xs.expand(shape),
+                      jitter.transpose(0, 1))
+    return rgb.mean(0)
+
+
+def image_draws(cfg: RenderConfig, device,
+                draws: torch.Tensor | None = None) -> torch.Tensor | None:
+    """The draws a frame reads: none at one sample, which renders the
+    pixel centres, else ``sample_draws(cfg, device, draws)``."""
+    return None if cfg.samples == 1 else sample_draws(cfg, device, draws)
 
 
 def render_sample(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -209,16 +269,20 @@ def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
                  draws: torch.Tensor | None = None) -> torch.Tensor:
     """Full render -> (H, W, 4) RGBA; pixels outside the crop window are
     white with alpha 1.  One sample renders the pixel centres and reads no
-    draws; ``cfg.samples`` > 1 renders each sample jittered by its draws
-    (sample_draws), one integrator launch each, and averages them as the
-    JAX scan does: stacked, then the mean over the sample axis.  Autograd
-    runs through every sample."""
-    if cfg.samples == 1:
-        return _frame(cfg, render_sample(scene, cam, cfg))
-    draws = sample_draws(cfg, cam.position.device, draws)
-    rgbs = [render_sample(scene, cam, cfg, draws[i])
-            for i in range(cfg.samples)]
-    return _frame(cfg, torch.stack(rgbs).mean(dim=0))
+    draws; ``cfg.samples`` > 1 renders every sample, each jittered by its
+    draws (sample_draws), in one integrator launch and averages them
+    (``render_samples``).  Autograd runs through every sample.
+
+    The k samples' rays are held at once, k times a sample's memory: a
+    render whose k x (crop pixels) reaches 2^31 rays raises "too many rays
+    for one launch"; ``render_progressive`` renders such a frame sample by
+    sample."""
+    x0, x1, y0, y1 = cfg.crop()
+    device = cam.position.device
+    ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1, device=device)
+    rgb = render_samples(scene, cam, cfg, ys, xs,
+                         image_draws(cfg, device, draws))
+    return _frame(cfg, rgb)
 
 
 def render_image_u8(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -299,23 +363,20 @@ def stokes_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
     a -> 0 approximation.  chi = atan2(f.up, f.right) against the camera's
     image axes (the columns of ``euler_matrix``), Q = Ip cos 2chi, U = Ip
     sin 2chi with Ip = degree x the pixel's luminance.  The sky, the
-    spheres and a disk without ``pol_frac`` are unpolarized: Q = U = 0."""
-    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
-    env = scene_env(scene, cfg, cam)
-    o_rel = origin - scene.bh.loc
-
-    s = launch(env, o_rel, d, cfg.integrator)
-    end_dir = final_direction(env, s)
-    rgb = shade(_bh_frame(scene), s, end_dir)
+    spheres and a disk without ``pol_frac`` are unpolarized: Q = U = 0.
+    The rgb is ``render_rays``': the same traced states, shaded by
+    ``Traced.shade``."""
+    t = trace_rays(scene, cam, cfg, ys, xs)
+    rgb = t.shade()
 
     zero = torch.zeros(rgb.shape[:-1], dtype=rgb.dtype, device=rgb.device)
     if scene.disk is None or scene.disk.pol_frac is None:
         return rgb, zero, zero
 
-    is_disk = s.status == states.DISK
+    is_disk = t.s.status == states.DISK
     # the photon's direction at the crossing: a ray freezes at the event
     # point, so the final unit coordinate velocity is the disk-local one
-    k_d = end_dir
+    k_d = final_direction(t.env, t.s)
     # emitted E-vector: the disk normal's projection transverse to the
     # photon; |f_raw| = sin(theta_em), which sets the degree too
     f_raw = k_d.new_tensor([0.0, 0.0, 1.0]) - k_d * k_d[..., 2:3]
@@ -324,11 +385,11 @@ def stokes_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
     f_hat = f_raw / torch.clamp_min(torch.sqrt(sin2), 1e-12)[..., None]
 
     # the components in the (n, e(k)) frame are invariants of the transport
-    n = plane_normal(o_rel, d)
+    n = plane_normal(t.o_rel, t.d)
     e_d = _unit(_cross(k_d, n))
     alpha = torch.sum(f_hat * n, dim=-1)
     beta = torch.sum(f_hat * e_d, dim=-1)
-    e_c = _unit(_cross(d, n))
+    e_c = _unit(_cross(t.d, n))
     f_obs = alpha[..., None] * n + beta[..., None] * e_c
 
     rot = euler_matrix(cam.euler)
@@ -359,17 +420,14 @@ def polarization_rays(scene: Scene, cam: Camera, cfg: RenderConfig,
     with the in-plane launch basis, the angle of the transported vector in
     the escape frame's (e_in, n) basis, NaN for rays that end inside 0.99
     of the stop radius."""
-    origin, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
-    env = scene_env(scene, cfg, cam)
-    o_rel = origin - scene.bh.loc
-
     if scene.bh.spin is None:
-        s = launch(env, o_rel, d, cfg.integrator)
-        d1 = final_direction(env, s)
-        ang = polarization_rotation(o_rel, d, d1)
-        escaped = (s.status == states.ESCAPED) | (s.status == states.BUDGET)
+        t = trace_rays(scene, cam, cfg, ys, xs)
+        ang = polarization_rotation(t.o_rel, t.d, final_direction(t.env, t.s))
+        escaped = (t.s.status == states.ESCAPED) | (
+            t.s.status == states.BUDGET)
         return torch.where(escaped, ang, torch.nan)
 
+    _, d, o_rel = camera_rays(scene, cam, cfg, ys, xs)
     metric = kerr_ks_metric(scene.bh.mass, scene.bh.spin)
     x3 = o_rel.reshape(-1, 3)
     d3 = d.reshape(-1, 3)

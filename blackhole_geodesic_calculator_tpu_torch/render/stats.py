@@ -5,11 +5,10 @@ from __future__ import annotations
 
 import torch
 
-from ..camera.pinhole import Camera, generate_rays, pixel_grid
+from ..camera.pinhole import Camera, pixel_grid
 from ..ops import states
-from ..ops.integrate import launch
 from ..scene.scene import Scene
-from .renderer import RenderConfig, scene_env
+from .renderer import RenderConfig, trace_rays
 
 STATUS_NAMES = {
     states.ACTIVE: "active",
@@ -31,10 +30,8 @@ def render_stats(scene: Scene, cam: Camera, cfg: RenderConfig) -> dict:
     x0, x1, y0, y1 = cfg.crop()
     device = cam.position.device
     ys, xs = pixel_grid(cfg.width, cfg.height, x0, x1, y0, y1, device=device)
-    o, d = generate_rays(cam, cfg.width, cfg.height, ys, xs)
-    env = scene_env(scene, cfg, cam)
     with torch.no_grad():
-        s = launch(env, o - scene.bh.loc, d, cfg.integrator)
+        s = trace_rays(scene, cam, cfg, ys, xs).s
         codes = sorted(STATUS_NAMES)
         counts = torch.bincount(s.status.reshape(-1).long(),
                                 minlength=len(codes))[codes]

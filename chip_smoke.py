@@ -154,15 +154,17 @@ line) if anything is off:
  27. renders BASELINE config 4's frame (bench.py bench_animation: the
      events scene from the orbit camera, SIZE^2 at ANIM_SAMPLES samples
      per pixel, frame 1 of ANIM_FRAMES) through render_image: the event
-     variant of rk4_fwd once per sample and nothing else, the image against
+     variant of rk4_fwd once for all the samples and nothing else, the
+     image against
      the plain render on the same draws as phase 11's, the first sample's
      final states as phase 11's; render_image_u8 against the host
      quantization of the float frame (equal; within one level with the
      tonemap); the orbit's frames through render_image_u8 and
      io_.write_png, one read back; times and frames/s;
  28. takes that frame's gradient of mean(img^2) to the mass, the camera
-     and the sky: the event variants of rk4_ckpt and rk4_bwd once per
-     sample each, held to the plain path as phase 11's (the sky whole, the
+     and the sky: the event variants of rk4_ckpt and rk4_bwd once each
+     for all the samples, held to the plain path as phase 11's (the sky
+     whole, the
      mass and camera on the pixels calm in every sample); the sky
      cotangent of mean(img) equals the mean of the samples'; two runs;
      times, the device's busy share, each kernel's device ms and bound
@@ -191,8 +193,9 @@ line) if anything is off:
      (wrapped angles away from b_c, NaN patterns but for capped
      escape-edge rays); times;
  32. renders bench_stokes's SIZE^2 frame (the events disk with pol_frac
-     0.7) through render_stokes: rk4_fwd's event variant once and nothing
-     else, rgb against the plain render, the rays' final states as phase
+     0.7) through render_stokes: rk4_fwd's event variant and shade_fwd
+     once each and nothing else, rgb equal to render_image's bit for bit
+     and against the plain render, the rays' final states as phase
      11, Q and U within TOL_STOKES where the statuses agree; the flagship
      sky's SIZE^2 Schwarzschild polarization map through rk4_fwd against
      the plain map; K1's times and bound on the Stokes frame; times;
@@ -229,9 +232,9 @@ line) if anything is off:
      displacement: readings); save and load trace the same bits;
  37. renders through parallel.render_image_sharded on the one-rank mesh
      (the round-robin deal and its layout inverse, no collective): the
-     flagship frame equal to render_image bit for bit, at ANIM_SAMPLES
-     samples on the same draws (one rk4_fwd launch for all) within
-     SHARDED_MEAN; render_stokes_sharded and polarization_map_sharded
+     flagship frame equal to render_image bit for bit, at one sample and
+     at ANIM_SAMPLES samples on the same draws (one rk4_fwd launch for
+     all); render_stokes_sharded and polarization_map_sharded
      equal to their unsharded forms; times;
  38. the Trainer (bench.py bench_sharded): one step at 512^2 with
      mask_critical 0.25, rk4_ckpt and rk4_bwd once each, its gradients to
@@ -382,13 +385,13 @@ from blackhole_geodesic_calculator_tpu_torch.ops.polarization import (
 from blackhole_geodesic_calculator_tpu_torch.parallel import (
     polarization_map_sharded, render_stokes_sharded)
 from blackhole_geodesic_calculator_tpu_torch.parallel.render import (
-    render_samples, slot_jitter)
+    slot_jitter)
 from blackhole_geodesic_calculator_tpu_torch.render import (
     debug_rays, format_debug_string, limited, render_progressive,
     render_sample, render_stats, sample_draws)
 from blackhole_geodesic_calculator_tpu_torch.render import renderer
 from blackhole_geodesic_calculator_tpu_torch.render.renderer import (
-    _bh_frame, scene_env)
+    _bh_frame, render_samples, scene_env)
 from blackhole_geodesic_calculator_tpu_torch.scene.shading import (
     disk_uv, shade, shade_rays, shade_scene)
 from blackhole_geodesic_calculator_tpu_torch.scene import texture
@@ -629,8 +632,7 @@ TABLE_BAND = 0.25
 # over that distance -- H100: 4.4e-6 there, 1.8e-4 on all; TF32 would read
 # ~1e-3), trained SUR_STEPS steps (train_surrogate's default; bench.py's
 # 15,000 are the bench's) of SUR_BATCH rays, evaluated on SUR_EVAL.  The
-# sharded multisampled frame within SHARDED_MEAN mean |d| of render_image
-# on the same draws.  The Trainer's gradients within TOL_TRAINER_GRAD of
+# Trainer's gradients within TOL_TRAINER_GRAD of
 # the plain path's (bench.py bench_sharded's gate, :690-699); the mass fit
 # FIT_STEPS Adam steps (tests/test_parallel.py).
 GOLDEN_DRIFT = 1e-3
@@ -640,7 +642,6 @@ SUR_STEPS = 2000
 SUR_BATCH = 8192
 SUR_EVAL = 1 << 17
 TOL_SUR = 1e-5
-SHARDED_MEAN = 1e-6
 TOL_TRAINER_GRAD = 1e-2
 FIT_STEPS = 60
 # Phase 49 (the texture sampler's backward, csrc/tex_bwd.cu) at the orbit
@@ -4428,8 +4429,9 @@ def plain_kernel_ms(env, s0, cfg):
 
 def phase_anim_fwd(dev, name_limit, readings):
     """BASELINE config 4's frame 1 at SIZE^2 and ANIM_SAMPLES samples
-    through render_image: rk4_fwd's event variant once per sample and
-    nothing else, the image against the plain render on the same draws,
+    through render_image: rk4_fwd's event variant once for all the
+    samples and nothing else, the image against the plain render on the
+    same draws,
     the first sample's final states against the plain loop's; the uint8
     frame against the host quantization of the float frame; the orbit's
     ANIM_FRAMES frames through render_image_u8 written as PNG, one read
@@ -4442,9 +4444,9 @@ def phase_anim_fwd(dev, name_limit, readings):
     torch.cuda.synchronize()
     launches = read_counts()
     count_path(readings, "animation frame", launches)
-    check(launches == only(rk4_fwd_events=ANIM_SAMPLES),
+    check(launches == only(rk4_fwd_events=1),
           f"animation frame launched {launches}, expected rk4_fwd_events "
-          f"{ANIM_SAMPLES} times")
+          f"once for its {ANIM_SAMPLES} samples")
     if img.shape != (SIZE, SIZE, 4) or not bool(torch.isfinite(img).all()):
         raise AssertionError("animation frame is not a finite image")
     draws = sample_draws(cfg, dev)
@@ -4537,7 +4539,7 @@ def phase_anim_grad(dev, name_limit, readings):
     """The gradient of mean(img[..., :3]^2) of config 4's frame 1 to the
     mass, the camera position and the sky: rk4_ckpt's and rk4_bwd's event
     variants, the shading's forward and backward and its texture scatter
-    (the sky) once per sample each, rk4_fwd and tex_bwd never;
+    (the sky) once each for all the samples, rk4_fwd and tex_bwd never;
     against the plain path on the same draws, the sky whole and the mass
     and camera on the pixels calm in every sample (frame_parts); the sky
     cotangents of the samples add up; two runs; times, the device busy
@@ -4552,13 +4554,11 @@ def phase_anim_grad(dev, name_limit, readings):
     torch.cuda.synchronize()
     launches, shaded = read_counts(), read_shading()
     count_path(readings, "animation step", {**launches, **shaded})
-    check(launches == only(rk4_ckpt_events=ANIM_SAMPLES,
-                           rk4_bwd_events=ANIM_SAMPLES)
-          and shaded == shading(fwd=ANIM_SAMPLES, bwd=ANIM_SAMPLES,
-                                tex=ANIM_SAMPLES),
+    check(launches == only(rk4_ckpt_events=1, rk4_bwd_events=1)
+          and shaded == shading(fwd=1, bwd=1, tex=1),
           f"animation step launched {launches}, {shaded}, expected "
           f"rk4_ckpt_events, rk4_bwd_events, shade_fwd, shade_bwd and "
-          f"shade_tex (the sky) {ANIM_SAMPLES} times each")
+          f"shade_tex (the sky) once each for its {ANIM_SAMPLES} samples")
     for g in gk:
         check(bool(torch.isfinite(g).all()), "animation gradient not finite")
     gp, plain_ms = once(lambda: render_grads(scene, cam, cfg_plain))
@@ -5322,7 +5322,8 @@ def stokes_scene(dev):
 
 def phase_stokes(dev, name_limit, readings):
     """bench_stokes's SIZE^2 frame through render_stokes: rk4_fwd's event
-    variant once and nothing else, rgb against the plain render, each
+    variant and shade_fwd once each and nothing else, rgb equal to
+    render_image's bit for bit and against the plain render, each
     ray's final state as phase 11 holds them, Q and U on the rays whose
     status agrees within TOL_STOKES; the flagship sky's SIZE^2
     Schwarzschild polarization map through rk4_fwd against the plain map;
@@ -5334,11 +5335,18 @@ def phase_stokes(dev, name_limit, readings):
     with torch.no_grad():
         rgb, Q, U = P.render_stokes(scene, cam, cfg)
     torch.cuda.synchronize()
-    launches = read_counts()
-    count_path(readings, "Stokes frame", launches)
-    check(launches == only(rk4_fwd_events=1),
-          f"the Stokes frame launched {launches}, expected rk4_fwd_events "
-          "once")
+    launches, shaded = read_counts(), read_shading()
+    count_path(readings, "Stokes frame", {**launches, **shaded})
+    check(launches == only(rk4_fwd_events=1)
+          and shaded == shading(fwd=1),
+          f"the Stokes frame launched {launches}, {shaded}, expected "
+          "rk4_fwd_events and shade_fwd once each")
+    with torch.no_grad():
+        same_rgb = torch.equal(rgb, P.render_image(scene, cam, cfg)[..., :3])
+    log("# phase 32: the Stokes rgb "
+        + ("equals" if same_rgb else "DIFFERS from")
+        + " render_image's bit for bit")
+    check(same_rgb, "the Stokes rgb is not render_image's")
     if rgb.shape != (SIZE, SIZE, 3) or Q.shape != (SIZE, SIZE) or not (
             bool(torch.isfinite(rgb).all() & torch.isfinite(Q).all()
                  & torch.isfinite(U).all())):
@@ -6027,9 +6035,10 @@ def phase_surrogate_train(dev, name_limit, readings):
 
 def phase_sharded(scene, cam, dev, name_limit, readings):
     """render_image_sharded on the one-rank mesh: the SIZE^2 flagship frame
-    at one sample equals render_image bit for bit (rk4_fwd once); at five
-    samples on the same draws (one rk4_fwd launch for the five) within
-    SHARDED_MEAN mean |d|; render_stokes_sharded of phase 32's Stokes frame
+    at one sample equals render_image bit for bit (rk4_fwd once), and so
+    it does at five samples on the same draws (one rk4_fwd launch for the
+    five, as render_image's); render_stokes_sharded of phase 32's Stokes
+    frame
     and polarization_map_sharded of the flagship's Schwarzschild map equal
     their unsharded forms; times."""
     cfg = flagship_cfg()
@@ -6053,13 +6062,15 @@ def phase_sharded(scene, cam, dev, name_limit, readings):
     with torch.no_grad():
         ref5 = P.render_image(scene, cam, cfg5, draws)
     d5 = (img5 - ref5).abs()
+    same5 = torch.equal(img5, ref5)
     log(f"# phase 37: render_image_sharded {SIZE}x{SIZE}: 1 sample "
         + ("equal to render_image bit for bit" if same else "DIFFERS")
         + f"; {ANIM_SAMPLES} samples on the same draws (launches "
-        f"{launches}): mean |d| {float(d5.mean()):.3e}, max "
-        f"{float(d5.max()):.3e} (limit {SHARDED_MEAN:g} mean)")
-    check(same and float(d5.mean()) < SHARDED_MEAN
-          and launches == only(rk4_fwd=1),
+        f"{launches}): "
+        + ("equal to render_image bit for bit" if same5 else
+           f"DIFFERS: mean |d| {float(d5.mean()):.3e}, max "
+           f"{float(d5.max()):.3e}"))
+    check(same and same5 and launches == only(rk4_fwd=1),
           "the sharded frame differs from render_image")
 
     sscene, scam = stokes_scene(dev), events_cam(dev)
@@ -6085,8 +6096,8 @@ def phase_sharded(scene, cam, dev, name_limit, readings):
     ms5_ref = timed(no_grad(lambda: P.render_image(scene, cam, cfg5,
                                                    draws)), runs=5)
     log(f"# phase 37: render_image_sharded {SIZE}x{SIZE}: median {ms:.3f} "
-        f"ms; {ANIM_SAMPLES} samples {ms5:.3f} ms (render_image, one launch "
-        f"a sample: {ms5_ref:.3f} ms) [{name_limit}]")
+        f"ms; {ANIM_SAMPLES} samples {ms5:.3f} ms (render_image "
+        f"{ms5_ref:.3f} ms) [{name_limit}]")
     readings.setdefault("trainer", {}).update(
         sharded_ms=ms, sharded_5spp_ms=ms5, render_5spp_ms=ms5_ref,
         sharded_5spp_mean_err=float(d5.mean()))
@@ -6583,10 +6594,9 @@ def phase_animate(dev, name_limit, readings):
         _, _, wall = run_cli(*args)
     launches = read_counts()
     count_path(readings, "cli animate", launches)
-    check(launches == only(rk4_fwd_events=ANIM_SAMPLES * ANIM_FRAMES)
-          and pc.n == 0,
+    check(launches == only(rk4_fwd_events=ANIM_FRAMES) and pc.n == 0,
           f"cli animate launched {launches} and the plain loop {pc.n} "
-          f"times, expected rk4_fwd_events {ANIM_SAMPLES * ANIM_FRAMES}")
+          f"times, expected rk4_fwd_events {ANIM_FRAMES}, one a frame")
     files = [pat.format(frame=f) for f in range(ANIM_FRAMES)]
     data = [Path(p).read_bytes() for p in files]
     cfg = load_config(path)
@@ -6621,7 +6631,7 @@ def phase_animate(dev, name_limit, readings):
         f"(launches {launches}): "
         + ("every file byte-identical" if all(same) else
            f"frames {[f for f, s in enumerate(same) if not s]} DIFFER"))
-    check(all(same) and launches == only(rk4_fwd_events=ANIM_SAMPLES),
+    check(all(same) and launches == only(rk4_fwd_events=1),
           "animate --resume is not byte-identical")
 
     shutil.rmtree(out)
@@ -6988,7 +6998,7 @@ def phase_example_tutorial(dev, name_limit, readings):
     """examples.tutorial on the card: rk4_fwd (the fan, the hybrid frame,
     the table's build, the surrogate's labels and evaluation),
     rk4_fwd_events (the scene, its sharded and Stokes renders), shade_fwd
-    (the renders through render_rays), the mass gradient through
+    (those renders), the mass gradient through
     rk4_ckpt_events, rk4_bwd_events and shade_bwd (the sky, disk and moon
     frozen: no texture scatter), no plain loop;
     its three PNGs; the busy share."""
@@ -7250,7 +7260,8 @@ def frame_state(scene, cam, cfg, dev):
     render_rays shades them, under torch.no_grad."""
     pix = torch.arange(SIZE * SIZE, device=dev)
     ys, xs = pix // SIZE, pix % SIZE
-    jitter = slot_jitter(cfg, sample_draws(cfg, dev), ys, xs)
+    jitter = slot_jitter(cfg, sample_draws(cfg, dev), ys, xs,
+                         range(cfg.samples))
     seen, real = [], renderer.shade_rays
 
     def grab(env, scene_bh, s):

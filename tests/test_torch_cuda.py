@@ -1208,10 +1208,10 @@ def anim_scene():
 
 def test_multisample_render_launches_per_sample():
     """A 3-sample 32x32 frame of the events scene from config 4's orbit
-    camera: the forward launches rk4_fwd's event variant once per sample,
-    its gradient rk4_ckpt's and rk4_bwd's once per sample each, and both
-    agree with the plain path on the same draws; render_image_u8 equals
-    the host quantization of the float frame."""
+    camera: the forward launches rk4_fwd's event variant once for all
+    three samples, its gradient rk4_ckpt's and rk4_bwd's once each, and
+    both agree with the plain path on the same draws; render_image_u8
+    equals the host quantization of the float frame."""
     scene = anim_scene()
     phi = 2 * np.pi / 10
     cam = P.Camera.make(position=(25 * np.sin(phi), 0.0, 25 * np.cos(phi)),
@@ -1222,7 +1222,7 @@ def test_multisample_render_launches_per_sample():
         cfg.integrator, backend="torch"))
     before = counts()
     img = P.render_image(scene, cam, cfg)
-    assert launched(before) == {"rk4_fwd_events": 3}
+    assert launched(before) == {"rk4_fwd_events": 1}
     ref = P.render_image(scene, cam, plain)
     d = (img - ref).abs()
     assert float(d.mean()) < 2e-3 and float((d > 0.1).float().mean()) < 0.01
@@ -1243,7 +1243,7 @@ def test_multisample_render_launches_per_sample():
 
     before = counts()
     gk = grads(cfg)
-    assert launched(before) == {"rk4_ckpt_events": 3, "rk4_bwd_events": 3}
+    assert launched(before) == {"rk4_ckpt_events": 1, "rk4_bwd_events": 1}
     gp = grads(plain)
     for a, b in zip(gk, gp):
         assert torch.isfinite(a).all()
@@ -1330,7 +1330,8 @@ def test_hybrid_preset_statuses_come_back_unchanged(spin):
 
 def test_stokes_and_polarization_map_match_plain():
     """render_stokes at 128^2 (the disk with pol_frac 0.7) launches
-    rk4_fwd's event variant once and agrees with the plain render; the
+    rk4_fwd's event variant and shade_fwd once each, its rgb is
+    render_image's bit for bit, and it agrees with the plain render; the
     Schwarzschild polarization map launches rk4_fwd once and agrees with
     the plain map (NaN patterns and angles, but a few escape-edge rays)."""
     scene = anim_scene()
@@ -1344,7 +1345,9 @@ def test_stokes_and_polarization_map_match_plain():
         cfg.integrator, backend="torch"))
     before = counts()
     rgb, Q, U = P.render_stokes(scene, cam, cfg)
-    assert launched(before) == {"rk4_fwd_events": 1}
+    assert {**launched(before), **launched(before, shading=True)} == {
+        "rk4_fwd_events": 1, "shade_fwd": 1}
+    assert torch.equal(rgb, P.render_image(scene, cam, cfg)[..., :3])
     rgb_p, Q_p, U_p = P.render_stokes(scene, cam, plain)
     assert float((rgb - rgb_p).abs().mean()) < 1e-4
     assert float((torch.hypot(Q_p, U_p) > 1e-4).sum()) > 500

@@ -315,12 +315,16 @@ def test_render_stokes_matches_jax():
 
 def test_stokes_bounds_and_masks():
     """Q, U only on disk pixels, the polarized intensity bounded by
-    pol_frac * luminance; a disk without pol_frac is unpolarized."""
+    pol_frac * luminance; a disk without pol_frac is unpolarized.  The
+    rgb is render_image's, bit for bit: the same traced rays, shaded
+    alike."""
     scene = stokes_scene(0.5)
     cam = P.Camera.make(position=(0.0, 10.0, 17.0), euler=(-0.53, 0.0, 0.0),
                         fov=(0.8, 0.8), device="cpu")
     cfg = stokes_cfg()
-    rgb, Q, U = (a.numpy() for a in P.render_stokes(scene, cam, cfg))
+    stokes = P.render_stokes(scene, cam, cfg)
+    assert torch.equal(stokes[0], P.render_image(scene, cam, cfg)[..., :3])
+    rgb, Q, U = (a.numpy() for a in stokes)
     assert np.isfinite(rgb).all() and np.isfinite(Q).all()
     ip = np.sqrt(Q * Q + U * U)
     lum = rgb.mean(-1)

@@ -125,15 +125,15 @@ def test_trainer_step_opens_each_span_in_its_parent(tmp_path):
 
 
 def test_render_image_opens_the_render_spans(tmp_path):
-    """``render_image`` renders each sample through ``render_rays``: one
-    of each render span a sample, in turn."""
+    """``render_image`` renders all its samples through one
+    ``render_rays`` call: one of each render span, in turn."""
     scene = P.Scene(bh=P.BlackHole.make(mass=0.5, device="cpu"),
                     background=sky("cpu"))
     with profiling.trace(str(tmp_path)):
         P.render_image(scene, camera("cpu"), config(samples=2))
     spans = spans_of(tmp_path)
     assert collections.Counter(n for n, _, _ in spans) == {
-        n: 2 for n in RENDER}
+        n: 1 for n in RENDER}
     order = sorted(spans, key=lambda s: s[1])
     for (n0, _, b0), (n1, a1, _) in zip(order, order[1:]):
         assert b0 <= a1, (n0, n1)
@@ -168,10 +168,12 @@ def test_annotate_enters_no_record_function_without_a_profiler(
 def test_cuda_step_opens_the_adjoint_span(card, tmp_path):
     """On the card the integrator's gradient runs through RK4Adjoint,
     whose backward runs on autograd's device thread: its span opens once
-    a step, inside the step's backward span."""
+    a step, inside the step's backward span.  The shading kernel's
+    backward opens the texture span twice a step, around the sky's
+    scratch fill and around its scatter."""
     spans = traced_steps(tmp_path, card, 2)
     counts = collections.Counter(n for n, _, _ in spans)
     assert counts["bhgc.integrate.backward"] == 2
-    assert counts["bhgc.texture.backward"] == 2
+    assert counts["bhgc.texture.backward"] == 4
     assert counts["bhgc.step"] == 2
     assert_nested(spans)
